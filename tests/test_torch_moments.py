@@ -1,0 +1,87 @@
+"""fused_moments of the torch package against the JAX package's.
+
+The torch package's ``fused_moments`` runs its plain torch version on a CPU
+tensor; here it is held against the JAX package's Pallas kernel in
+interpret mode (``force_pallas=True``, as tests/test_pallas_kernels.py
+runs it).  Sums agree within rtol 3e-5, atol 3e-3 (both sum float32 in
+different orders); min/max are exact, NaN included.  The CUDA kernel
+itself runs only on the card: ``chip_smoke.py`` and
+tests/test_torch_kernels_gpu.py hold it against the same plain version.
+"""
+import numpy as np
+import pytest
+import torch
+
+from transmogrifai_tpu.parallel import pallas_kernels as pk
+from transmogrifai_tpu_torch.parallel import kernels as tk
+
+pytestmark = pytest.mark.skipif(not pk.HAS_PALLAS, reason="pallas unavailable")
+
+RTOL, ATOL = 3e-5, 3e-3
+
+
+def _inputs(n, d, seed, nan_col=None):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n, d) * 3.0 + 1.0).astype(np.float32)
+    y = rng.rand(n).astype(np.float32)
+    if nan_col is not None:
+        x[:: 7, nan_col] = np.nan
+    return x, y
+
+
+def _assert_moments_equal(got, want):
+    got = [np.asarray(v, dtype=np.float64) for v in got]
+    want = [np.asarray(v, dtype=np.float64) for v in want]
+    assert len(got) == len(want) == 7
+    for a, b in zip(got[:5], want[:5]):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+    for a, b in zip(got[5:], want[5:]):
+        np.testing.assert_array_equal(a, b)  # NaN-equal, exact
+
+
+def _torch_moments(x, y):
+    out = tk.fused_moments(torch.from_numpy(x), torch.from_numpy(y))
+    return [v.numpy() for v in out]
+
+
+@pytest.mark.parametrize(
+    "n,d,nan_col",
+    [(100, 7, None), (512, 128, None), (1000, 37, None), (513, 129, None),
+     (1000, 37, 5)],
+)
+def test_fused_moments_matches_pallas(n, d, nan_col):
+    x, y = _inputs(n, d, seed=n + d, nan_col=nan_col)
+    want = pk.fused_moments(x, y, force_pallas=True)
+    _assert_moments_equal(_torch_moments(x, y), want)
+
+
+def test_fused_moments_chunked_combine(monkeypatch):
+    """Above _CHUNK_ROWS both sides split the sweep and combine the
+    partials in float64; the threshold is shrunk on both sides."""
+    monkeypatch.setattr(pk, "_CHUNK_ROWS", 257)
+    monkeypatch.setattr(tk, "_CHUNK_ROWS", 257)
+    x, y = _inputs(1000, 13, seed=3, nan_col=4)
+    want = pk.fused_moments(x, y, force_pallas=True)
+    _assert_moments_equal(_torch_moments(x, y), want)
+
+
+def test_fused_moments_shapes_and_types():
+    x, y = _inputs(9, 3, seed=1)
+    out = tk.fused_moments(torch.from_numpy(x), torch.from_numpy(y))
+    assert [tuple(v.shape) for v in out] == [(3,)] * 3 + [()] * 2 + [(3,)] * 2
+    assert all(v.dtype == torch.float32 for v in out)
+    with pytest.raises(TypeError):
+        tk.fused_moments(torch.from_numpy(x).double(), torch.from_numpy(y))
+    with pytest.raises(ValueError):
+        tk.fused_moments(torch.from_numpy(x), torch.from_numpy(y[:-1]))
+    with pytest.raises(ValueError):
+        tk.fused_moments(torch.zeros((0, 3)), torch.zeros(0))
+
+
+def test_split_plan_bounds_rows_per_thread():
+    """Every row is covered, and no kernel thread sums more than 2^16
+    rows (a block has at least 8 row lanes)."""
+    for n in (1, 255, 256, 257, 1 << 20, (1 << 22) + 3, 10_000_000, 1 << 31):
+        rows, splits = tk._split_plan(n)
+        assert rows * splits >= n > rows * (splits - 1)
+        assert -(-rows // 8) <= 1 << 16

@@ -1,0 +1,234 @@
+"""Hand-written CUDA kernels of the package, their wrappers and their plain
+versions.
+
+Counterpart of ``transmogrifai_tpu/parallel/pallas_kernels.py``.  Each
+kernel's CUDA source lives under ``transmogrifai_tpu_torch/csrc/``; at
+first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface under ``_build/`` (one library per
+source, named by the hash of its text) and loaded with ``ctypes``.
+
+A wrapper takes a tensor's device as the whole dispatch rule: for a CPU
+tensor it runs the kernel's plain torch version (what the CPU tests
+exercise); for a CUDA tensor it launches the kernel or raises - it never
+falls back.  Each wrapper counts its launches in ``<wrapper>.launches``.
+
+Kernels:
+
+* ``fused_moments`` (``csrc/fused_moments.cu``) - the SanityChecker's
+  one-sweep column moments; replaces ``pallas_kernels._moments_pallas``.
+
+The JAX package's second kernel, ``bin_matrix``, feeds only the tree
+learner and comes with the tree slice (ROADMAP.md queue 2, K2).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+#: kernel name -> (source under csrc/, C entry point, its argtypes)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNELS = {
+    "fused_moments": (
+        "fused_moments.cu", "tx_fused_moments",
+        (_P, _P, _L, _I, _L, _I, _P, _P, _P),
+    ),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one ``nvcc`` per source, all started together.  Returns name -> path
+    of the shared library.  Raises ``RuntimeError`` naming the source and
+    nvcc's output when a compile fails."""
+    names = list(KERNELS) if names is None else list(names)
+    paths = {n: _lib_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for n, p in todo.items():
+            tmp = p.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / KERNELS[n][0])]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            ))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{KERNELS[n][0]}:\n{out.decode(errors='replace')}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, todo[n])  # atomic: a reader never sees half
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def _load(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            _, entry, argtypes = KERNELS[name]
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for w in _WRAPPERS:
+        w.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused moments
+# ---------------------------------------------------------------------------
+#: the plain version's chunk size: float32 accumulators are exact for
+#: counts and well-conditioned for sums only well below 2^24 rows, so it
+#: splits the sweep and combines partials in float64, as the JAX package
+#: does.  The kernel combines in float64 by design and needs no chunks.
+_CHUNK_ROWS = 1 << 22
+#: at most 2^16 rows for each of a kernel block's >= 8 row lanes
+_SPLIT_ROWS_MAX = 8 << 16
+#: row splits aimed for: 8 blocks of 256 threads on each of 132 SMs
+_SPLITS_TARGET = 1056
+
+
+def _split_plan(n: int) -> tuple[int, int]:
+    """(rows per split, number of splits) for an n-row sweep."""
+    rows = min(_SPLIT_ROWS_MAX, max(256, -(-n // _SPLITS_TARGET)))
+    return rows, -(-n // rows)
+
+
+def _combine_moments_f64(parts):
+    """Combine per-chunk 7-tuples in float64 (5 sums, then min/max)."""
+    acc = None
+    for p in parts:
+        p = [v.to(torch.float64) for v in p]
+        if acc is None:
+            acc = p
+        else:
+            for j in range(5):
+                acc[j] = acc[j] + p[j]
+            acc[5] = torch.minimum(acc[5], p[5])
+            acc[6] = torch.maximum(acc[6], p[6])
+    return acc
+
+
+def fused_moments_plain(x: torch.Tensor, y: torch.Tensor):
+    """The plain torch version of :func:`fused_moments`: the same seven
+    results from torch reductions, chunked above ``_CHUNK_ROWS`` rows with
+    a float64 combine (the JAX package's ``fused_moments`` contract)."""
+    n = x.shape[0]
+    if n > _CHUNK_ROWS:
+        acc = _combine_moments_f64(
+            fused_moments_plain(x[i: i + _CHUNK_ROWS], y[i: i + _CHUNK_ROWS])
+            for i in range(0, n, _CHUNK_ROWS)
+        )
+        return tuple(v.to(torch.float32) for v in acc)
+    return (
+        x.sum(dim=0), (x * x).sum(dim=0), (x * y[:, None]).sum(dim=0),
+        y.sum(), (y * y).sum(), x.amin(dim=0), x.amax(dim=0),
+    )
+
+
+def _check_moments_args(x: torch.Tensor, y: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(
+            f"fused_moments takes float32 x and y, got {x.dtype} and {y.dtype}"
+        )
+    if x.dim() != 2 or y.dim() != 1 or y.shape[0] != x.shape[0]:
+        raise ValueError(
+            "fused_moments takes x [n, d] and y [n], got "
+            f"{tuple(x.shape)} and {tuple(y.shape)}"
+        )
+    n, d = x.shape
+    if n < 1 or d < 1:
+        raise ValueError(f"fused_moments needs n >= 1 and d >= 1, got {n}, {d}")
+    if x.device != y.device:
+        raise ValueError(
+            f"fused_moments: x on {x.device} but y on {y.device}"
+        )
+
+
+def fused_moments(x: torch.Tensor, y: torch.Tensor):
+    """One-pass column moments of [n, d] x against label y.
+
+    Returns (x_sum, x_sq_sum, xy_sum, y_sum, y_sq_sum, x_min, x_max) as
+    float32 tensors on x's device: five [d] vectors and two 0-d scalars
+    (the contract of the JAX package's ``fused_moments``).  min/max
+    propagate NaN.  A CPU input runs :func:`fused_moments_plain`; a CUDA
+    input launches ``csrc/fused_moments.cu`` on the current stream
+    without synchronising.
+    """
+    _check_moments_args(x, y)
+    if x.device.type == "cpu":
+        return fused_moments_plain(x, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_moments: unsupported device {x.device}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("fused_moments takes contiguous x and y")
+    n, d = x.shape
+    if d > 65535 * 32:
+        raise ValueError(f"fused_moments: d = {d} exceeds the kernel's grid")
+    rows, splits = _split_plan(n)
+    partial = torch.empty((splits, 7, d), dtype=torch.float64, device=x.device)
+    out = torch.empty(5 * d + 2, dtype=torch.float32, device=x.device)
+    lib = _load("fused_moments")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tx_fused_moments(
+            x.data_ptr(), y.data_ptr(), n, d, rows, splits,
+            partial.data_ptr(), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_moments kernel launch failed: CUDA error {rc}")
+    fused_moments.launches += 1
+    stats = out[: 5 * d].view(5, d)
+    return (stats[0], stats[1], stats[2], out[5 * d], out[5 * d + 1],
+            stats[3], stats[4])
+
+
+fused_moments.launches = 0
+
+_WRAPPERS = (fused_moments,)
