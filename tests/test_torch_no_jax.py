@@ -36,6 +36,12 @@ data = synthetic_passengers(300, with_text=False)
 model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
     .set_input_dataset(data).train()
 assert len(model.score(data)[pred.name].prediction) == 300
+from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+vec = transmogrify([FeatureBuilder.Real("height").as_predictor()], label=y)
+pred = OpGBTClassifier(num_trees=2).set_input(y, vec).get_output()
+model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
+    .set_input_dataset(data).train()
+assert len(model.score(data)[pred.name].prediction) == 300
 print("OK")
 """
 
@@ -71,11 +77,34 @@ def test_no_jax_or_reference_import(path):
         assert top != "transmogrifai_tpu", f"{path} imports {name}"
 
 
-def test_kernel_wrapper_has_no_fallback():
-    """No try/except around the launch or build: a CUDA input launches
-    the kernel or raises."""
-    tree = ast.parse((PKG / "parallel" / "kernels.py").read_text())
+@pytest.mark.parametrize(
+    "rel", ["parallel/kernels.py", "models/trees.py", "models/tree_kernel.py",
+            "ops/bucketizers.py"],
+)
+def test_kernel_paths_have_no_fallback(rel):
+    """No try/except around a build, a launch or the binning that calls
+    one, and no environment switch: a CUDA input launches the kernel or
+    raises."""
+    src = (PKG / rel).read_text()
+    tree = ast.parse(src)
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    # the one environment read is where the CUDA toolkit lives
+    assert all("CUDA_HOME" in line for line in src.splitlines()
+               if "environ" in line)
+
+
+def test_tree_stages_default_to_cuda():
+    trees = mod(PORT, "models.trees")
+    for cls in (trees.OpGBTClassifier, trees.OpGBTRegressor,
+                trees.OpXGBoostClassifier, trees.OpDecisionTreeClassifier,
+                trees.OpRandomForestRegressor,
+                mod(PORT, "ops.bucketizers").DecisionTreeNumericBucketizer):
+        assert cls().device == "cuda"
+    if not torch.cuda.is_available():
+        import numpy as np
+
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trees.OpGBTClassifier().fit_arrays(np.ones((4, 2)), np.eye(2)[[0, 1, 0, 1], 0])
 
 
 def test_default_device_is_cuda():

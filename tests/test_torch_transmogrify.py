@@ -73,9 +73,19 @@ def test_unported_vectorizer_group_raises(type_name):
 
 
 def test_label_aware_bucketizing_raises():
+    """With a label, Real and Integral features get one decision-tree
+    bucketizer each (tests/test_torch_bucketizers.py holds them against
+    the JAX package); a label raises with the groups that are not ported,
+    as it did before."""
     fb = mod(PORT, "features.feature_builder").FeatureBuilder
     label = fb.RealNN("y").as_response()
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        mod(PORT, "ops.transmogrifier").transmogrify(
-            [fb.Real("r").as_predictor()], label=label
-        )
+    transmogrify = mod(PORT, "ops.transmogrifier").transmogrify
+    vec = transmogrify([fb.Real("r").as_predictor(),
+                        fb.Integral("i").as_predictor(),
+                        fb.Binary("b").as_predictor()], label=label)
+    parts = [type(f.origin_stage).__name__
+             for f in vec.origin_stage.input_features]
+    assert parts.count("DecisionTreeNumericBucketizer") == 2
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        transmogrify([fb.Real("r").as_predictor(),
+                      fb.TextMap("m").as_predictor()], label=label)

@@ -7,8 +7,12 @@ runs on the ``device`` a workflow or stage is given, ``"cuda"`` by default;
 the CPU is used only when asked for.
 
 What is ported so far is the main path: typed raw features ->
-``transmogrify`` -> ``SanityChecker`` (on the hand-written CUDA kernel
-``fused_moments``) -> ``OpLogisticRegression`` -> ``OpWorkflow.train()`` /
+``transmogrify`` (with ``label=``, one decision-tree bucketizer per numeric
+column) -> ``SanityChecker`` (on the hand-written CUDA kernel
+``fused_moments``) -> ``OpLogisticRegression`` or the histogram tree
+learner (``models/trees.py``: GBT, XGBoost-style GBT, decision trees and
+forests without per-node feature subsets, binning on the hand-written CUDA
+kernel ``bin_matrix``) -> ``OpWorkflow.train()`` /
 ``OpWorkflowModel.score()`` -> ``OpBinaryClassificationEvaluator``.
 ROADMAP.md lists what is still to come.
 """

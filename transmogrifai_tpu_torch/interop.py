@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Any, Mapping, Sequence
 
 from .models.base import PredictorEstimator, PredictorModel
+from .ops.bucketizers import DecisionTreeNumericBucketizer, NumericBucketizerModel
 from .ops.categorical import OneHotModel, OneHotVectorizer
 from .ops.numeric import (
     BinaryVectorizer,
@@ -38,6 +39,9 @@ _FITTED = {
         OneHotModel, ("labels_per_feature", "track_nulls", "clean_text"),
     ),
     SanityChecker: (SanityCheckerModel, ("indices_to_keep",)),
+    DecisionTreeNumericBucketizer: (
+        NumericBucketizerModel, ("splits", "track_nulls"),
+    ),
 }
 
 
@@ -72,8 +76,9 @@ def load_reference_state(
     stage of the reference's fitted DAG, in DAG order; stages pair with
     ``workflow``'s DAG positionally, as the JAX package's ``load_model``
     pairs them.  Carried over: vectorizer fills and vocabularies,
-    ``indices_to_keep``, and the logistic-regression ``beta`` and
-    ``intercept``.  Estimators in the result score on ``workflow.device``.
+    bucketizer splits, ``indices_to_keep``, and every predictor's
+    ``model_params`` as they are (the logistic regression's ``beta`` and
+    ``intercept``; the tree heaps, edges and GBT margin terms).  Estimators in the result score on ``workflow.device``.
     """
     resolve_device(workflow.device)
     stages = flatten(compute_dag(workflow.result_features))

@@ -11,8 +11,10 @@ dims, maxCategoricalCardinality=30, trackNulls=true, circular date reps.
 
 This package vectorizes the groups in ``PORTED_GROUPS``.  The date, text,
 list, geolocation and map vectorizers come with the rest of the vectorizer
-slice (ROADMAP.md queue 1, item 2), and label-aware auto-bucketizing with
-the tree slice (item 6); asking for them raises ``NotImplementedError``.
+slice (ROADMAP.md queue 1, item 2); asking for them raises
+``NotImplementedError``.  With ``label``, the real and integral groups
+also auto-bucketize against it, one single-feature tree per column
+(``ops/bucketizers.py``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional, Sequence, Type
 
 from ..features.feature import Feature
 from ..types import feature_types as ft
+from .bucketizers import DecisionTreeNumericBucketizer
 from .categorical import OneHotVectorizer
 from .combiner import VectorsCombiner
 from .numeric import (
@@ -96,16 +99,13 @@ def transmogrify(
     label: Optional[Feature] = None,
 ) -> Feature:
     """Seq[Feature].transmogrify() (reference: Transmogrifier.transmogrify
-    via dsl/RichFeaturesCollection.scala:69).  ``label`` asks for the
-    reference's label-aware auto-bucketizing (Transmogrifier.scala:155,175),
-    which this package does not have yet."""
+    via dsl/RichFeaturesCollection.scala:69).  With ``label``, scalar
+    numerics ALSO auto-bucketize against it - per-feature decision-tree
+    splits kept only when informative (reference:
+    Transmogrifier.scala:155,175 passing label through
+    RichNumericFeature.vectorize:339-347)."""
     if not features:
         raise ValueError("transmogrify needs at least one feature")
-    if label is not None:
-        raise NotImplementedError(
-            "label-aware auto-bucketizing needs the tree learner, which is "
-            "not ported to the torch package yet (ROADMAP.md queue 1, item 6)"
-        )
     groups: dict[str, list[Feature]] = {}
     for f in features:
         key = _group_key(f.ftype)
@@ -126,6 +126,16 @@ def transmogrify(
             continue
         stage = _stage_for(key, defaults)
         vector_features.append(stage.set_input(*feats).get_output())
+        if label is not None and key in ("real", "integral"):
+            for f in feats:
+                # filled vectorizer already tracks nulls (trackNulls=false
+                # in the reference's bucketize branch)
+                buck = DecisionTreeNumericBucketizer(
+                    min_info_gain=defaults.min_info_gain, track_nulls=False
+                )
+                vector_features.append(
+                    buck.set_input(label, f).get_output()
+                )
     if len(vector_features) == 1:
         out = vector_features[0]
         if out.ftype is ft.OPVector and len(features) > 1:

@@ -16,9 +16,9 @@ Kernels:
 
 * ``fused_moments`` (``csrc/fused_moments.cu``) - the SanityChecker's
   one-sweep column moments; replaces ``pallas_kernels._moments_pallas``.
-
-The JAX package's second kernel, ``bin_matrix``, feeds only the tree
-learner and comes with the tree slice (ROADMAP.md queue 2, K2).
+* ``bin_matrix`` (``csrc/bin_matrix.cu``) - the tree learner's quantile
+  binning of the design matrix, written in the learner's device dtype;
+  replaces ``pallas_kernels._bin_pallas``.
 """
 from __future__ import annotations
 
@@ -45,6 +45,10 @@ KERNELS = {
     "fused_moments": (
         "fused_moments.cu", "tx_fused_moments",
         (_P, _P, _L, _I, _L, _I, _P, _P, _P),
+    ),
+    "bin_matrix": (
+        "bin_matrix.cu", "tx_bin_matrix",
+        (_P, _P, _L, _I, _I, _I, _P, _P),
     ),
 }
 
@@ -116,7 +120,7 @@ def _load(name: str) -> ctypes.CDLL:
 
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    for w in _WRAPPERS:
+    for w in WRAPPERS:
         w.launches = 0
 
 
@@ -231,4 +235,107 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
 
 fused_moments.launches = 0
 
-_WRAPPERS = (fused_moments,)
+
+# ---------------------------------------------------------------------------
+# quantile binning
+# ---------------------------------------------------------------------------
+#: the plain version's chunk: at most this many [rows, d, E] compares at
+#: once (the JAX package's jnp fallback cap), so the boolean broadcast
+#: never materializes whole (1M x 512 x 63 would be 32 GB)
+_BIN_CHUNK_ELEMS = 1 << 27
+_BIN_DTYPES = (torch.int8, torch.int32)
+#: the C entry's codes for a launch plan that does not fit (kErrEdges,
+#: kErrGrid in csrc/bin_matrix.cu, which plans the grid)
+_BIN_ERR_EDGES, _BIN_ERR_GRID = -1, -2
+
+
+def bin_matrix_plain(x: torch.Tensor, edges: torch.Tensor,
+                     out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """The plain torch version of :func:`bin_matrix`: a row-chunked
+    comparison count, as the JAX package's jnp fallback computes it.  (A
+    ``torch.searchsorted`` would rank a NaN x at 0, not after the edges.)"""
+    n, d = x.shape
+    n_edges = edges.shape[1]
+    nan_free = (~torch.isnan(edges)).sum(dim=1).to(torch.int32)
+    block = max(1, min(n, _BIN_CHUNK_ELEMS // max(d * n_edges, 1)))
+    out = torch.empty((n, d), dtype=out_dtype, device=x.device)
+    for i in range(0, n, block):
+        xb = x[i: i + block]
+        count = (edges[None, :, :] < xb[:, :, None]).sum(
+            dim=-1, dtype=torch.int32)
+        out[i: i + block] = torch.where(
+            torch.isnan(xb), nan_free[None, :], count).to(out_dtype)
+    return out
+
+
+def _check_bin_args(x: torch.Tensor, edges: torch.Tensor,
+                    out_dtype: torch.dtype) -> None:
+    if x.dtype != torch.float32 or edges.dtype != torch.float32:
+        raise TypeError(
+            f"bin_matrix takes float32 x and edges, got {x.dtype} and "
+            f"{edges.dtype}"
+        )
+    if x.dim() != 2 or edges.dim() != 2 or edges.shape[0] != x.shape[1]:
+        raise ValueError(
+            "bin_matrix takes x [n, d] and edges [d, E], got "
+            f"{tuple(x.shape)} and {tuple(edges.shape)}"
+        )
+    n, d = x.shape
+    if n < 1 or d < 1:
+        raise ValueError(f"bin_matrix needs n >= 1 and d >= 1, got {n}, {d}")
+    if out_dtype not in _BIN_DTYPES:
+        raise TypeError(f"bin_matrix writes int8 or int32, not {out_dtype}")
+    if out_dtype == torch.int8 and edges.shape[1] + 1 > 127:
+        raise ValueError(
+            f"bin_matrix: int8 bins take at most 126 edges per column "
+            f"(max_bins <= 127), got {edges.shape[1]}"
+        )
+    if x.device != edges.device:
+        raise ValueError(
+            f"bin_matrix: x on {x.device} but edges on {edges.device}"
+        )
+
+
+def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
+               out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Quantile bins [n, d] of float32 x [n, d] against per-column edges
+    [d, E]: the count of edges strictly below each x
+    (``np.searchsorted(side='left')``), and for a NaN x the count of
+    non-NaN edges - the contract of the JAX package's ``bin_matrix`` -
+    written as ``out_dtype`` (int8 or int32).  A CPU input runs
+    :func:`bin_matrix_plain`; a CUDA input launches ``csrc/bin_matrix.cu``
+    on the current stream without synchronising."""
+    _check_bin_args(x, edges, out_dtype)
+    if x.device.type == "cpu":
+        return bin_matrix_plain(x, edges, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"bin_matrix: unsupported device {x.device}")
+    if not (x.is_contiguous() and edges.is_contiguous()):
+        raise ValueError("bin_matrix takes contiguous x and edges")
+    n, d = x.shape
+    n_edges = edges.shape[1]
+    out = torch.empty((n, d), dtype=out_dtype, device=x.device)
+    lib = _load("bin_matrix")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.tx_bin_matrix(
+            x.data_ptr(), edges.data_ptr(), n, d, n_edges,
+            int(out_dtype == torch.int8), out.data_ptr(), stream,
+        )
+    if rc == _BIN_ERR_EDGES:
+        raise ValueError(
+            f"bin_matrix: {n_edges} edges per column exceed the kernel's "
+            "shared memory"
+        )
+    if rc == _BIN_ERR_GRID:
+        raise ValueError(f"bin_matrix: {n} x {d} exceeds the kernel's grid")
+    if rc != 0:
+        raise RuntimeError(f"bin_matrix kernel launch failed: CUDA error {rc}")
+    bin_matrix.launches += 1
+    return out
+
+
+bin_matrix.launches = 0
+
+#: every kernel wrapper, whose launch counts a run resets and reads
+WRAPPERS = (fused_moments, bin_matrix)
