@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,20 +53,112 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median of ``reps`` single-call times over CUDA events, after one
-    warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
+#: a timing window: at least MIN_CALLS back-to-back calls and
+#: MIN_WINDOW_MS of device work, at most MAX_CALLS calls (the launch queue
+#: must hold a window while the card sleeps); the median of WINDOWS windows
+WINDOWS, MIN_CALLS, MIN_WINDOW_MS, MAX_CALLS = 5, 20, 2.0, 800
+#: the cold state rotates over copies of a call's inputs that together
+#: exceed three times the card's 50 MB L2, so every call reads HBM
+COLD_BYTES = 150e6
+_sleep_cycles_per_ms: list = []
+
+
+def sleep_cycles_per_ms() -> float:
+    """The rate of ``torch.cuda._sleep``, in cycles per device ms."""
+    if not _sleep_cycles_per_ms:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 10)  # warm-up
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        torch.cuda._sleep(cycles)
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        _sleep_cycles_per_ms.append(cycles / a.elapsed_time(b))
+    return _sleep_cycles_per_ms[0]
+
+
+def _window(call, arg_sets, calls: int, sleep_ms: float):
+    """(device ms, host ms) of ``calls`` back-to-back calls rotating over
+    ``arg_sets``, enqueued while the card sleeps, so that the events see
+    the calls back to back with no host work between them."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+    a.record()
+    h0 = time.perf_counter()
+    for i in range(calls):
+        call(*arg_sets[i % len(arg_sets)])
+    h1 = time.perf_counter()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), 1e3 * (h1 - h0)
+
+
+def timed(call, arg_sets) -> dict:
+    """Device ms and host us per call of ``call(*args)``, rotating over
+    ``arg_sets``: one warm-up call, a probe window that sizes N (at least
+    MIN_CALLS calls and MIN_WINDOW_MS of device work), then the median of
+    WINDOWS windows of N back-to-back calls, each divided by N.  The host
+    time is ``time.perf_counter`` around the same N enqueues; the card
+    sleeps meanwhile, so a window is rerun with a longer sleep when the
+    card may have waited on the host."""
+    call(*arg_sets[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call(*arg_sets[0])
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    calls = MIN_CALLS
+    dev, host = _window(call, arg_sets, calls, 2.0 * calls * host_ms + 1.0)
+    calls = max(MIN_CALLS, min(MAX_CALLS, int(np.ceil(
+        MIN_WINDOW_MS * calls / max(dev, 1e-6)))))
+    devs, hosts, gaps = [], [], 0
+    for _ in range(WINDOWS):
+        sleep_ms = 2.0 * calls * host / MIN_CALLS + 1.0
+        for _ in range(3):
+            dev_w, host_w = _window(call, arg_sets, calls, sleep_ms)
+            # back to back: every call was enqueued before the card woke,
+            # or one call keeps the card at least twice as long as the
+            # host takes to enqueue it (a long call fills the launch queue
+            # and the host then waits on the busy card)
+            if host_w < sleep_ms or 2.0 * host_ms < dev_w / calls:
+                break
+            sleep_ms = 3.0 * host_w + 1.0
+        else:
+            gaps += 1
+        devs.append(dev_w / calls)
+        hosts.append(host_w / calls)
+    return {"ms": float(np.median(devs)), "host_us": 1e3 * float(np.median(hosts)),
+            "calls": calls, "windows_with_host_gaps": gaps}
+
+
+def cold_sets(*args) -> list:
+    """``args`` and enough clones of its tensors that all of them together
+    exceed COLD_BYTES."""
+    size = sum(a.numel() * a.element_size() for a in args
+               if isinstance(a, torch.Tensor))
+    copies = max(1, int(np.ceil(COLD_BYTES / max(size, 1) + 1e-9)))
+    if copies * size <= COLD_BYTES:
+        copies += 1
+    return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args) for _ in range(copies - 1)]
+
+
+def measure(call, *args) -> dict:
+    """``call(*args)`` cold (rotating over COLD_BYTES of input copies, the
+    headline) and warm (the same inputs again): {"ms", "ms_warm",
+    "host_us"}, host us from the warm windows."""
+    sets = cold_sets(*args)
+    cold = timed(call, sets)
+    del sets
+    warm = timed(call, [args])
+    gaps = cold["windows_with_host_gaps"] + warm["windows_with_host_gaps"]
+    if gaps:
+        log(f"[timing] {gaps} windows of {getattr(call, '__name__', call)} "
+            "may hold host gaps: the card may have waited on the host")
+    return {"ms": cold["ms"], "ms_warm": warm["ms"], "host_us": warm["host_us"],
+            "calls": cold["calls"], "windows_with_host_gaps": gaps}
 
 
 def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -111,12 +204,16 @@ def moments_bound_ms(n: int, d: int) -> float:
 
 
 def time_moments(kernels, x, y) -> dict:
+    """The kernel, its plain version and the read-bandwidth anchor
+    ``x.sum(0)``, each cold and warm (``measure``)."""
     n, d = x.shape
+    k = measure(kernels.fused_moments, x, y)
+    plain = measure(kernels.fused_moments_plain, x, y)
+    anchor = measure(lambda a: a.sum(0), x)
     return {
-        "shape": [n, d],
-        "ms": cuda_ms(lambda: kernels.fused_moments(x, y), 20),
-        "plain_ms": cuda_ms(lambda: kernels.fused_moments_plain(x, y), 5),
-        "anchor_ms": cuda_ms(lambda: x.sum(0), 20),  # read-bandwidth anchor
+        "shape": [n, d], **k,
+        "plain_ms": plain["ms"], "plain_ms_warm": plain["ms_warm"],
+        "anchor_ms": anchor["ms"], "anchor_ms_warm": anchor["ms_warm"],
         "bound_ms": moments_bound_ms(n, d),
     }
 
@@ -147,23 +244,77 @@ def check_bins(kernels, x: torch.Tensor, edges: torch.Tensor, dtype) -> int:
     return err
 
 
-def time_bins(kernels, x: torch.Tensor, edges: torch.Tensor, dtype) -> dict:
-    """Kernel, plain version and the library anchor: torch.searchsorted
-    over the sorted edge rows of a pre-transposed NaN-free x (it ranks a
-    NaN x at 0, so it is a yardstick, not a substitute)."""
+def time_bins(kernels, x: torch.Tensor, edges: torch.Tensor, dtype,
+              causes: bool = False) -> dict:
+    """The kernel, its plain version and the library yardstick, each cold
+    and warm (``measure``): torch.searchsorted over the sorted edge rows
+    of a pre-transposed NaN-free x (it ranks a NaN x at 0, so it is a
+    yardstick, not a substitute).  With ``causes``, what tells compares
+    from bytes: the
+    kernel on the same x against the edge rows reversed (not sorted, so
+    every element takes the linear count) and ``x.to(torch.int8)``, a pass
+    that moves the same bytes and compares nothing."""
     n, d = x.shape
     assert not bool(torch.isnan(x).any()) and not bool(torch.isnan(edges).any())
     xt = x.T.contiguous()
     out_bytes = 1 if dtype == torch.int8 else 4
-    return {
-        "shape": [n, d],
-        "edges": int(edges.shape[1]),
-        "ms": cuda_ms(lambda: kernels.bin_matrix(x, edges, dtype), 20),
-        "plain_ms": cuda_ms(lambda: kernels.bin_matrix_plain(x, edges, dtype), 3),
-        "library_ms": cuda_ms(
-            lambda: torch.searchsorted(edges, xt, side="left"), 20),
+    k = measure(kernels.bin_matrix, x, edges, dtype)
+    plain = measure(kernels.bin_matrix_plain, x, edges, dtype)
+    lib = measure(lambda e, a: torch.searchsorted(e, a, side="left"), edges, xt)
+    del xt
+    out = {
+        "shape": [n, d], "edges": int(edges.shape[1]), **k,
+        "plain_ms": plain["ms"], "plain_ms_warm": plain["ms_warm"],
+        "library_ms": lib["ms"], "library_ms_warm": lib["ms_warm"],
+        "library_host_us": lib["host_us"],
         "bound_ms": bin_bound_ms(n, d, int(edges.shape[1]), out_bytes),
     }
+    if causes:
+        rev = edges.flip(1).contiguous()
+        out["reversed_edges_ms"] = measure(kernels.bin_matrix, x, rev, dtype)["ms"]
+        out["cast_ms"] = measure(lambda a: a.to(torch.int8), x)["ms"]
+    return out
+
+
+def log_moments_times(where: str, m: dict) -> None:
+    log(f"[kernel] fused_moments {where}: {m['ms']:.4f} ms cold "
+        f"({100 * m['bound_ms'] / m['ms']:.0f}% of the {m['bound_ms']:.4f} ms "
+        f"bound), {m['ms_warm']:.4f} warm, host {m['host_us']:.1f} us a call; "
+        f"x.sum(0) {m['anchor_ms']:.4f} cold, {m['anchor_ms_warm']:.4f} warm; "
+        f"plain {m['plain_ms']:.4f} cold")
+
+
+def log_bins_times(where: str, b: dict) -> None:
+    causes = (f"; reversed edges (linear count) {b['reversed_edges_ms']:.4f}, "
+              f"x.to(int8) {b['cast_ms']:.4f}" if "cast_ms" in b else "")
+    log(f"[kernel] bin_matrix {where}: {b['ms']:.4f} ms cold "
+        f"({100 * b['bound_ms'] / b['ms']:.0f}% of the {b['bound_ms']:.4f} ms "
+        f"bound), {b['ms_warm']:.4f} warm, host {b['host_us']:.1f} us a call; "
+        f"torch.searchsorted {b['library_ms']:.4f} cold, "
+        f"{b['library_ms_warm']:.4f} warm, host {b['library_host_us']:.1f} us; "
+        f"plain {b['plain_ms']:.4f} cold{causes}")
+
+
+def ptxas_report(log_text: str) -> list:
+    """Each kernel's registers, static shared memory and spills, from
+    ``nvcc -Xptxas -v``'s output."""
+    rows, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 @contextlib.contextmanager
@@ -198,19 +349,32 @@ def kernel_inputs(kernels):
 def bin_cases(rng):
     """(x, edges, dtype) of the kernel check's small shapes: (1, 1);
     (513, 129) with NaN every 13th row of one column and one all-NaN
-    column (whose edges are all NaN); (1000, 37) at max_bins 255."""
+    column (whose edges are all NaN); (1000, 37) at max_bins 255; (700, 9)
+    with edge rows the binary search must not take or must take exactly:
+    reversed, NaN in the middle, duplicates, +-inf and -0.0."""
     from transmogrifai_tpu_torch.models.tree_kernel import quantile_bin_edges
 
     cases = []
     for n, d, max_bins, dtype in ((1, 1, 32, torch.int8),
                                   (513, 129, 32, torch.int8),
-                                  (1000, 37, 255, torch.int32)):
+                                  (1000, 37, 255, torch.int32),
+                                  (700, 9, 32, torch.int8)):
         x = (rng.randn(n, d) * 3.0 + 1.0).astype(np.float32)
         if d == 129:
             x[::13, 17] = np.nan
             x[:, 100] = np.nan
         edges = np.ascontiguousarray(quantile_bin_edges(x, max_bins))
-        cases.append((x, edges, dtype))
+        if d == 9:
+            x[::5, 3] = 0.0
+            x[1::5, 3] = -0.0
+            x[2::7, 4] = np.inf
+            edges[0] = edges[0][::-1]
+            edges[1, 10] = np.nan
+            edges[2, 5:9] = edges[2, 5]
+            edges[3, :3] = (-np.inf, -0.0, 0.0)
+            edges[3] = np.sort(edges[3])
+            edges[4, -1] = np.inf
+        cases.append((x, np.ascontiguousarray(edges), dtype))
     assert np.isnan(cases[1][1][100]).all()
     return cases
 
@@ -427,11 +591,18 @@ def main() -> int:
     log(f"[header] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log(f"[header] kernels built in {build_s:.1f} s: {', '.join(kernels.KERNELS)}")
+    ptxas = {}
+    for kname in kernels.KERNELS:
+        ptxas[kname] = ptxas_report(kernels.BUILD_LOG.get(kname, ""))
+        for row in ptxas[kname] or [{"function": "(built earlier: no report)"}]:
+            log(f"[build] {kname}: {row['function']}: {row.get('registers')} "
+                f"registers, {row.get('static_smem_bytes')} bytes static "
+                f"shared memory, {row.get('spill_bytes')} bytes spilled")
 
     # -- 2. kernel check ----------------------------------------------------
     rng = np.random.RandomState(0)
     cases = []
-    for n, d in ((1, 1), (513, 129), (1000, 37)):
+    for n, d in ((1, 1), (513, 129), (1000, 37), (1500, 1100)):
         x = (rng.randn(n, d) * 3.0 + 1.0).astype(np.float32)
         if d == 37:
             x[::7, 5] = np.nan
@@ -443,20 +614,20 @@ def main() -> int:
     for x_np, y_np in cases:
         x = torch.from_numpy(x_np).to(dev)
         y = torch.from_numpy(y_np).to(dev)
-        err = check_moments(kernels, x, y)
-        errs.append(err)
-        log(f"[kernel] fused_moments {tuple(x.shape)}: matches plain, "
-            f"max abs err {err['max_abs_err']:.3g}, "
-            f"max rel err {err['max_rel_err']:.3g}")
+        # the matrix, then row-offset views that start off 16-byte alignment
+        for off in (0, 1, 3) if x.shape[0] > 3 else (0,):
+            err = check_moments(kernels, x[off:], y[off:])
+            errs.append(err)
+            log(f"[kernel] fused_moments {tuple(x.shape)}[{off}:]: matches "
+                f"plain, max abs err {err['max_abs_err']:.3g}, "
+                f"max rel err {err['max_rel_err']:.3g}")
     assert tuple(x.shape) == SCALE_SHAPE
     first = [t.clone() for t in kernels.fused_moments(x, y)]
     again = kernels.fused_moments(x, y)
     assert all(torch.equal(a, b) for a, b in zip(first, again)), \
         "fused_moments is not bit-identical from run to run"
     at_scale = time_moments(kernels, x, y)
-    log(f"[kernel] fused_moments at {SCALE_SHAPE}: {at_scale['ms']:.4f} ms, "
-        f"bound {at_scale['bound_ms']:.4f} ms, x.sum(0) "
-        f"{at_scale['anchor_ms']:.4f} ms, plain {at_scale['plain_ms']:.4f} ms")
+    log_moments_times(f"at {SCALE_SHAPE}", at_scale)
 
     # bin_matrix: the small shapes, then the repo's scale with the tree
     # learner's own edges (a seeded host sample, max_bins 32, int8 out)
@@ -464,18 +635,17 @@ def main() -> int:
     for xb_np, eb_np, dtype in bin_cases(rng):
         xb = torch.from_numpy(xb_np).to(dev)
         eb = torch.from_numpy(eb_np).to(dev)
-        bin_errs.append(check_bins(kernels, xb, eb, dtype))
-        log(f"[kernel] bin_matrix {tuple(xb.shape)} x {eb.shape[1]} edges "
-            f"-> {dtype}: equal to plain, bit-identical twice")
+        for off in (0, 1, 3) if xb.shape[0] > 3 else (0,):
+            bin_errs.append(check_bins(kernels, xb[off:], eb, dtype))
+            log(f"[kernel] bin_matrix {tuple(xb.shape)}[{off}:] x "
+                f"{eb.shape[1]} edges -> {dtype}: equal to plain, "
+                "bit-identical twice")
     edges = torch.from_numpy(np.ascontiguousarray(
         _sampled_bin_edges(x_np, BIN_MAX_BINS, 42))).to(dev)
     bin_errs.append(check_bins(kernels, x, edges, torch.int8))
-    bins_at_scale = time_bins(kernels, x, edges, torch.int8)
-    log(f"[kernel] bin_matrix at {SCALE_SHAPE} x {edges.shape[1]} edges "
-        f"-> int8: equal to plain, bit-identical twice; "
-        f"{bins_at_scale['ms']:.4f} ms, bound {bins_at_scale['bound_ms']:.4f} "
-        f"ms, torch.searchsorted {bins_at_scale['library_ms']:.4f} ms, plain "
-        f"{bins_at_scale['plain_ms']:.4f} ms")
+    bins_at_scale = time_bins(kernels, x, edges, torch.int8, causes=True)
+    log_bins_times(f"at {SCALE_SHAPE} x {edges.shape[1]} edges -> int8",
+                   bins_at_scale)
     del x, y, first, again, cases, edges, x_np
 
     # -- 3. the LR slice on the card, counted -----------------------------------
@@ -508,9 +678,7 @@ def main() -> int:
         np.asarray(data["survived"].values, np.float32)).to(dev)
     main_err = check_moments(kernels, x, y)
     main = time_moments(kernels, x, y)
-    log(f"[kernel] fused_moments at the main path's {tuple(x.shape)}: "
-        f"{main['ms']:.4f} ms, bound {main['bound_ms']:.4f} ms, x.sum(0) "
-        f"{main['anchor_ms']:.4f} ms, plain {main['plain_ms']:.4f} ms")
+    log_moments_times(f"at the main path's {tuple(x.shape)}", main)
 
     # -- 4. the same LR slice on the CPU agrees -----------------------------------
     cpu = run_slice("cpu", data)
@@ -579,18 +747,17 @@ def main() -> int:
         err = check_bins(kernels, xb, eb, dtype)
         bin_errs.append(err)
         if key not in bin_shapes:
-            bin_shapes[key] = {**time_bins(kernels, xb, eb, dtype),
-                               "dtype": str(dtype), "calls": 0,
-                               "max_abs_err": 0}
+            bin_shapes[key] = {
+                **time_bins(kernels, xb, eb, dtype, causes=xb.shape[1] > 1),
+                "dtype": str(dtype), "path_calls": 0, "max_abs_err": 0}
         seen = bin_shapes[key]
-        seen["calls"] += 1
+        seen["path_calls"] += 1
         seen["max_abs_err"] = max(seen["max_abs_err"], err)
     for b in bin_shapes.values():
-        log(f"[kernel] bin_matrix at the tree path's {tuple(b['shape'])} x "
-            f"{b['edges']} edges -> {b['dtype']} ({b['calls']} calls): equal "
-            f"to plain, bit-identical twice; {b['ms']:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms, torch.searchsorted "
-            f"{b['library_ms']:.4f} ms, plain {b['plain_ms']:.4f} ms")
+        log_bins_times(
+            f"at the tree path's {tuple(b['shape'])} x {b['edges']} edges -> "
+            f"{b['dtype']} ({b['path_calls']} calls, each equal to plain and "
+            "bit-identical twice)", b)
     # the headline shape: the GBT's design matrix, the widest
     bins_main = max(bin_shapes.values(),
                     key=lambda b: b["shape"][0] * b["shape"][1])
@@ -599,15 +766,40 @@ def main() -> int:
         err = check_moments(kernels, xm, ym)
         errs.append(err)
         if tuple(xm.shape) not in tree_moments:
-            tree_moments[tuple(xm.shape)] = {**time_moments(kernels, xm, ym),
-                                             **err}
+            tree_moments[tuple(xm.shape)] = {
+                **time_moments(kernels, xm, ym), **err}
     for m in tree_moments.values():
-        log(f"[kernel] fused_moments at the tree path's {tuple(m['shape'])}: "
-            f"matches plain, max abs err {m['max_abs_err']:.3g}, max rel err "
-            f"{m['max_rel_err']:.3g}; {m['ms']:.4f} ms, bound "
-            f"{m['bound_ms']:.4f} ms, x.sum(0) {m['anchor_ms']:.4f} ms, plain "
-            f"{m['plain_ms']:.4f} ms")
+        log_moments_times(
+            f"at the tree path's {tuple(m['shape'])} (matches plain, max abs "
+            f"err {m['max_abs_err']:.3g}, max rel err {m['max_rel_err']:.3g})",
+            m)
     del path_inputs
+
+    # each kernel also at the other kernel's main-path shapes, so that both
+    # are timed at 1M x 1, 1M x 9, 1M x 11, 1M x 15 and 10M x 39 (seeded
+    # normal data; the tree learner's edges, int8 bins)
+    other_moments, other_bins = [], []
+    table_rng = np.random.RandomState(3)
+    for d in (1, 9):
+        xo = torch.from_numpy(
+            table_rng.randn(SLICE_ROWS, d).astype(np.float32)).to(dev)
+        yo = torch.from_numpy(
+            table_rng.rand(SLICE_ROWS).astype(np.float32)).to(dev)
+        errs.append(check_moments(kernels, xo, yo))
+        other_moments.append({**errs[-1], **time_moments(kernels, xo, yo)})
+        log_moments_times(f"at {tuple(xo.shape)} (matches plain)",
+                          other_moments[-1])
+    for d in (11, 15):
+        xo_np = table_rng.randn(SLICE_ROWS, d).astype(np.float32)
+        eo = torch.from_numpy(np.ascontiguousarray(
+            _sampled_bin_edges(xo_np, BIN_MAX_BINS, 42))).to(dev)
+        xo = torch.from_numpy(xo_np).to(dev)
+        bin_errs.append(check_bins(kernels, xo, eo, torch.int8))
+        other_bins.append({**time_bins(kernels, xo, eo, torch.int8),
+                           "max_abs_err": bin_errs[-1]})
+        log_bins_times(f"at {tuple(xo.shape)} x {eo.shape[1]} edges -> int8 "
+                       "(equal to plain, bit-identical twice)", other_bins[-1])
+    del xo, yo, eo, xo_np
 
     # -- 6. the same tree slice on the CPU agrees ---------------------------------
     tc = run_tree_slice("cpu", data, kernels)
@@ -641,14 +833,19 @@ def main() -> int:
                            + [e["max_rel_err"] for e in errs]),
         "checked": True,
         "ms": main["ms"],
+        "ms_warm": main["ms_warm"],
+        "host_us": main["host_us"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,  # no one torch call computes all seven moments
         "anchor_ms": main["anchor_ms"],
+        "anchor_ms_warm": main["anchor_ms_warm"],
+        "ptxas": ptxas["fused_moments"],
         "shape": main["shape"],
         "tree_path_shapes": list(tree_moments.values()),
         "at_scale": at_scale,
+        "other_shapes": other_moments,
     }, {
         "name": "bin_matrix",
         "route": "cuda",
@@ -660,14 +857,20 @@ def main() -> int:
         "max_abs_err": max(bin_errs),
         "checked": True,
         "ms": bins_main["ms"],
+        "ms_warm": bins_main["ms_warm"],
+        "host_us": bins_main["host_us"],
         "plain_ms": bins_main["plain_ms"],
         "bound_ms": bins_main["bound_ms"],
         "bound_by": "bytes",
         # torch.searchsorted on NaN-free, pre-transposed x (int64 out)
         "library_ms": bins_main["library_ms"],
+        "library_ms_warm": bins_main["library_ms_warm"],
+        "library_host_us": bins_main["library_host_us"],
+        "ptxas": ptxas["bin_matrix"],
         "shape": bins_main["shape"],
         "tree_path_shapes": list(bin_shapes.values()),
         "at_scale": bins_at_scale,
+        "other_shapes": other_bins,
     }]}
     print(smi)
     print(json.dumps(kernel_line))

@@ -69,6 +69,56 @@ def test_bin_matrix_nan_values_and_edges():
     assert set(got[::4, 1]) == {20} and set(got[:, 3]) == {0}
 
 
+def _special_edges(x, edges):
+    """Edge rows the kernel's binary search must not take, or must take
+    exactly, cycling over the columns: reversed (unsorted), a NaN in the
+    middle, duplicates, -inf/-0.0/0.0 at the front, +inf at the end; and
+    x values +-0.0 and +-inf in the columns beside them."""
+    x, edges = x.copy(), edges.copy()
+    d, n_edges = edges.shape
+    for j in range(d):
+        row = edges[j]
+        kind = j % 5
+        if kind == 0:
+            edges[j] = row[::-1]
+        elif kind == 1:
+            row[n_edges // 2] = np.nan
+        elif kind == 2:
+            row[3:9] = row[3]
+        elif kind == 3:
+            row[:3] = (-np.inf, -0.0, 0.0)
+            edges[j] = np.sort(row)
+        else:
+            row[-1] = np.inf
+    x[::3, d // 3] = -0.0
+    x[1::3, d // 3] = 0.0
+    x[::4, (2 * d) // 3] = np.inf
+    x[1::4, (2 * d) // 3] = -np.inf
+    return x, np.ascontiguousarray(edges)
+
+
+@pytest.mark.parametrize("kind", ["quantile", "special"])
+@pytest.mark.parametrize(
+    "n,d,off",
+    [(1, 1, 0), (17, 4, 1), (33, 9, 3), (4097, 39, 1), (70_001, 1, 3),
+     (257, 257, 0), (17, 1100, 1)],
+)
+def test_bin_matrix_redesign_cases(n, d, off, kind):
+    """The shapes and edge rows the kernel treats apart - one row, rows
+    just past a multiple of 16, more than 2^16 rows, one column, rows
+    wider than the block's lanes - on row-offset views x[off:] (a storage
+    offset the kernel takes without copying)."""
+    x, edges = _inputs(n + off, d, 32, seed=3 * n + d, nan_col=d > 2)
+    if kind == "special":
+        x, edges = _special_edges(x, edges)
+    x = x[off:]
+    want = np.asarray(pk.bin_matrix(x, edges, force_pallas=True))
+    for dtype in (torch.int8, torch.int32):
+        got = _torch_bins(x, edges, dtype)
+        assert got.dtype == dtype and tuple(got.shape) == (n, d)
+        np.testing.assert_array_equal(got.numpy().astype(np.int32), want)
+
+
 def test_bin_matrix_chunked_plain_route(monkeypatch):
     """The plain version's row chunks (cap shrunk to force many) agree
     with the unchunked reference, as test_pallas_kernels'

@@ -54,11 +54,70 @@ def test_fused_moments_kernel_matches_plain(cuda, n, d, nan_col):
             np.testing.assert_array_equal(a, b)
 
 
-def test_fused_moments_kernel_is_deterministic(cuda):
-    x, y = _inputs(300_007, 39, 1, cuda)
+def _nan_equal(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _assert_moments_match(got, want):
+    for k, (a, b) in enumerate(zip(got, want)):
+        a, b = a.cpu().double().numpy(), b.cpu().double().numpy()
+        if k < 5:
+            np.testing.assert_allclose(a, b, rtol=3e-5, atol=3e-3)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize(
+    "n,d,off",
+    [(1, 1, 0), (1, 39, 0), (17, 4, 1), (33, 9, 3), (4097, 39, 1),
+     (70_001, 1, 3), (70_001, 9, 0), (70_001, 11, 1), (257, 257, 1),
+     (129, 1100, 3), (1_000_003, 15, 0)],
+)
+def test_fused_moments_kernel_redesign_cases(cuda, n, d, off):
+    """One row, rows just past a multiple of 16, more than 2^16 rows, d on
+    either side of the block's 256 lanes, and row-offset views x[off:],
+    y[off:] that start off 16-byte alignment."""
+    x, y = _inputs(n + off, d, 7 * n + d, cuda, d // 2 if d > 2 else None)
+    _assert_moments_match(tk.fused_moments(x[off:], y[off:]),
+                          tk.fused_moments_plain(x[off:], y[off:]))
+
+
+@pytest.mark.parametrize("n", [1, 4097, 300_007, (1 << 20) + 3])
+def test_fused_moments_kernel_is_deterministic(cuda, n):
+    """Bit-identical from run to run, whichever block finishes last."""
+    x, y = _inputs(n, 39, 1, cuda, nan_col=3)
     first = [t.clone() for t in tk.fused_moments(x, y)]
-    again = tk.fused_moments(x, y)
-    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for _ in range(3):
+        again = tk.fused_moments(x, y)
+        assert all(_nan_equal(a, b) for a, b in zip(first, again))
+
+
+def test_fused_moments_kernel_blocks_without_a_tile(cuda):
+    """A matrix of fewer tiles than the persistent grid has blocks: the
+    blocks left without a tile still count in, their identity partials
+    change nothing."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, d in ((100, 9), (1000, 39), (3, 1)):
+        assert -(-n * d // 4096) < sms
+        x, y = _inputs(n, d, n, cuda, nan_col=0)
+        _assert_moments_match(tk.fused_moments(x, y),
+                              tk.fused_moments_plain(x, y))
+
+
+def test_fused_moments_kernel_leaves_its_counter_at_zero(cuda):
+    """The one-launch combine counts blocks on a counter that the last
+    block resets: after each call it is 0, so the next call on the stream
+    combines again (two calls in a row agree)."""
+    x, y = _inputs(200_003, 11, 5, cuda)
+    first = tk.fused_moments(x, y)
+    stream = torch.cuda.current_stream().cuda_stream
+    counter = tk._counters[(cuda.index, stream)]
+    torch.cuda.synchronize()
+    assert int(counter.item()) == 0
+    second = tk.fused_moments(x, y)
+    torch.cuda.synchronize()
+    assert int(counter.item()) == 0
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_fused_moments_kernel_rejects_bad_input(cuda):
@@ -95,6 +154,71 @@ def test_bin_matrix_kernel_matches_plain(cuda, n, d, n_edges, dtype):
     assert got.dtype == dtype
     assert torch.equal(got, want)
     assert torch.equal(tk.bin_matrix(x, edges, dtype), got)
+
+
+def _special_edges(x, edges):
+    """The CPU tests' edge rows the binary search must not take, or must
+    take exactly (tests/test_torch_bin_matrix.py), on card tensors."""
+    x, e = x.clone(), edges.clone()
+    d, n_edges = e.shape
+    for j in range(d):
+        kind = j % 5
+        if kind == 0:
+            e[j] = e[j].flip(0)
+        elif kind == 1:
+            e[j, n_edges // 2] = float("nan")
+        elif kind == 2:
+            e[j, 3:9] = e[j, 3]
+        elif kind == 3:
+            e[j, :3] = torch.tensor([-float("inf"), -0.0, 0.0])
+            e[j] = torch.sort(e[j]).values
+        else:
+            e[j, -1] = float("inf")
+    x[::3, d // 3] = -0.0
+    x[1::3, d // 3] = 0.0
+    x[::4, (2 * d) // 3] = float("inf")
+    x[1::4, (2 * d) // 3] = -float("inf")
+    return x, e.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["sorted", "special"])
+@pytest.mark.parametrize(
+    "n,d,off",
+    [(1, 1, 0), (17, 4, 1), (33, 9, 3), (4097, 39, 1), (70_001, 1, 3),
+     (257, 257, 0), (17, 1100, 1), (1_000_003, 9, 2)],
+)
+def test_bin_matrix_kernel_redesign_cases(cuda, n, d, off, kind):
+    """One row, rows just past a multiple of 16, more than 2^16 rows, one
+    column, rows wider than the block's lanes, row-offset views x[off:],
+    and edge rows that are unsorted, duplicated, NaN inside, +-inf, -0.0:
+    bins equal to the plain version in both dtypes, twice."""
+    x, edges = _bin_inputs(n + off, d, 31, 3 * n + d, cuda)
+    if kind == "special":
+        x, edges = _special_edges(x, edges)
+    for dtype in (torch.int8, torch.int32):
+        got = tk.bin_matrix(x[off:], edges, dtype)
+        assert torch.equal(got, tk.bin_matrix_plain(x[off:], edges, dtype))
+        assert torch.equal(tk.bin_matrix(x[off:], edges, dtype), got)
+
+
+def test_bin_matrix_kernel_blocks_without_a_tile(cuda):
+    """Fewer 16 KB tiles than the persistent grid has blocks."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, d in ((100, 9), (5000, 39), (3, 1)):
+        assert -(-n * d // 4096) < sms
+        x, edges = _bin_inputs(n, d, 31, n, cuda)
+        assert torch.equal(tk.bin_matrix(x, edges, torch.int8),
+                           tk.bin_matrix_plain(x, edges, torch.int8))
+
+
+def test_bin_matrix_kernel_edge_tables_shrink_and_grow(cuda):
+    """Launches whose staged edge tables take more, then less, then more
+    shared memory again: the kernel's opt-in is its largest, so a smaller
+    plan never refuses a later larger one."""
+    for d in (3, 9, 5, 39, 9, 129):
+        x, edges = _bin_inputs(4099, d, 31, d, cuda)
+        assert torch.equal(tk.bin_matrix(x, edges, torch.int32),
+                           tk.bin_matrix_plain(x, edges, torch.int32))
 
 
 def test_bin_matrix_kernel_rejects_bad_input(cuda):

@@ -55,6 +55,24 @@ def test_fused_moments_matches_pallas(n, d, nan_col):
     _assert_moments_equal(_torch_moments(x, y), want)
 
 
+@pytest.mark.parametrize(
+    "n,d,off",
+    [(1, 1, 0), (1, 39, 0), (17, 4, 1), (33, 9, 3), (4097, 39, 1),
+     (70_001, 1, 3), (70_001, 9, 0), (257, 257, 1), (129, 1100, 3)],
+)
+def test_fused_moments_redesign_cases(n, d, off):
+    """The shapes the kernel treats apart - one row, rows just past a
+    multiple of 16, more than 2^16 rows, d on either side of the block's
+    256 lanes - on row-offset views x[off:] (a storage offset the kernel
+    takes without copying), with a NaN column where d allows."""
+    x, y = _inputs(n + off, d, seed=7 * n + d, nan_col=d // 2 if d > 2 else None)
+    x, y = x[off:], y[off:]
+    want = pk.fused_moments(x, y, force_pallas=True)
+    got = tk.fused_moments(torch.from_numpy(x), torch.from_numpy(y))
+    assert got[0].shape == (d,)
+    _assert_moments_equal([v.numpy() for v in got], want)
+
+
 def test_fused_moments_chunked_combine(monkeypatch):
     """Above _CHUNK_ROWS both sides split the sweep and combine the
     partials in float64; the threshold is shrunk on both sides."""
@@ -78,10 +96,18 @@ def test_fused_moments_shapes_and_types():
         tk.fused_moments(torch.zeros((0, 3)), torch.zeros(0))
 
 
-def test_split_plan_bounds_rows_per_thread():
-    """Every row is covered, and no kernel thread sums more than 2^16
-    rows (a block has at least 8 row lanes)."""
-    for n in (1, 255, 256, 257, 1 << 20, (1 << 22) + 3, 10_000_000, 1 << 31):
-        rows, splits = tk._split_plan(n)
-        assert rows * splits >= n > rows * (splits - 1)
-        assert -(-rows // 8) <= 1 << 16
+def test_library_path_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by the hash of its source and of every
+    csrc header the source includes, so that editing a header rebuilds
+    every kernel that includes it."""
+    for src in tk.CSRC.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(tk, "CSRC", tmp_path)
+    names = [p.name for p in tk._sources("fused_moments")]
+    assert names == ["fused_moments.cu", "tile_ring.cuh"]
+    before = {k: tk._lib_path(k) for k in tk.KERNELS}
+    header = tmp_path / "tile_ring.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {k: tk._lib_path(k) for k in tk.KERNELS}
+    assert all(before[k] != after[k] for k in tk.KERNELS)
+    assert after == {k: tk._lib_path(k) for k in tk.KERNELS}  # stable

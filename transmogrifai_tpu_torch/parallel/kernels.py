@@ -5,7 +5,8 @@ Counterpart of ``transmogrifai_tpu/parallel/pallas_kernels.py``.  Each
 kernel's CUDA source lives under ``transmogrifai_tpu_torch/csrc/``; at
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``_build/`` (one library per
-source, named by the hash of its text) and loaded with ``ctypes``.
+source, named by the hash of its text and of every ``csrc`` header it
+includes, such as ``tile_ring.cuh``) and loaded with ``ctypes``.
 
 A wrapper takes a tensor's device as the whole dispatch rule: for a CPU
 tensor it runs the kernel's plain torch version (what the CPU tests
@@ -25,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,14 +39,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: kernel name -> (source under csrc/, C entry point, its argtypes)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "fused_moments": (
         "fused_moments.cu", "tx_fused_moments",
-        (_P, _P, _L, _I, _L, _I, _P, _P, _P),
+        (_P, _P, _L, _I, _P, _L, _P, _P, _P),
     ),
     "bin_matrix": (
         "bin_matrix.cu", "tx_bin_matrix",
@@ -54,6 +56,10 @@ KERNELS = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: kernel name -> nvcc's output (ptxas' registers, shared memory and
+#: spills of each kernel) for the libraries this process compiled
+BUILD_LOG: dict[str, str] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -64,12 +70,25 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _sources(name: str) -> list[Path]:
+    """The kernel's source and every file it includes by a quoted
+    ``#include``, followed through the headers, in a fixed order."""
+    todo, seen = [CSRC / KERNELS[name][0]], []
+    while todo:
+        path = todo.pop(0)
+        if path not in seen:
+            seen.append(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for src in _sources(name):
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, Path]:
@@ -99,6 +118,7 @@ def build(names=None) -> dict[str, Path]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, todo[n])  # atomic: a reader never sees half
+                BUILD_LOG[n] = out.decode(errors="replace")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
@@ -132,16 +152,31 @@ def reset_launches() -> None:
 #: splits the sweep and combines partials in float64, as the JAX package
 #: does.  The kernel combines in float64 by design and needs no chunks.
 _CHUNK_ROWS = 1 << 22
-#: at most 2^16 rows for each of a kernel block's >= 8 row lanes
-_SPLIT_ROWS_MAX = 8 << 16
-#: row splits aimed for: 8 blocks of 256 threads on each of 132 SMs
-_SPLITS_TARGET = 1056
+#: the kernel's scratch: one [7, d] float64 partial for each block of its
+#: persistent grid, at most this many blocks an SM (the C entry plans the
+#: grid within it) and at most _SCRATCH_DOUBLES_MAX doubles in all
+_BLOCKS_PER_SM = 2
+_SCRATCH_DOUBLES_MAX = 1 << 27
+_sm_counts: dict[int, int] = {}
+#: (device index, stream handle) -> the kernel's one-launch combine
+#: counter, which every launch leaves at 0 for the next on its stream
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _split_plan(n: int) -> tuple[int, int]:
-    """(rows per split, number of splits) for an n-row sweep."""
-    rows = min(_SPLIT_ROWS_MAX, max(256, -(-n // _SPLITS_TARGET)))
-    return rows, -(-n // rows)
+def _moments_scratch(device: torch.device, d: int, stream: int):
+    """(partial scratch [blocks, 7, d] float64, combine counter) for a
+    launch of the moments kernel on ``device`` and ``stream``."""
+    sms = _sm_counts.get(device.index)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device.index] = sms
+    blocks = max(1, min(_BLOCKS_PER_SM * sms, _SCRATCH_DOUBLES_MAX // (7 * d)))
+    counter = _counters.get((device.index, stream))
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        _counters[(device.index, stream)] = counter
+    partial = torch.empty((blocks, 7, d), dtype=torch.float64, device=device)
+    return partial, counter
 
 
 def _combine_moments_f64(parts):
@@ -202,8 +237,9 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
     float32 tensors on x's device: five [d] vectors and two 0-d scalars
     (the contract of the JAX package's ``fused_moments``).  min/max
     propagate NaN.  A CPU input runs :func:`fused_moments_plain`; a CUDA
-    input launches ``csrc/fused_moments.cu`` on the current stream
-    without synchronising.
+    input (any storage offset, such as a row view ``x[1:]``) launches
+    ``csrc/fused_moments.cu`` on the current stream without
+    synchronising.
     """
     _check_moments_args(x, y)
     if x.device.type == "cpu":
@@ -213,24 +249,21 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("fused_moments takes contiguous x and y")
     n, d = x.shape
-    if d > 65535 * 32:
-        raise ValueError(f"fused_moments: d = {d} exceeds the kernel's grid")
-    rows, splits = _split_plan(n)
-    partial = torch.empty((splits, 7, d), dtype=torch.float64, device=x.device)
-    out = torch.empty(5 * d + 2, dtype=torch.float32, device=x.device)
     lib = _load("fused_moments")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        partial, counter = _moments_scratch(x.device, d, stream)
+        out = torch.empty(5 * d + 2, dtype=torch.float32, device=x.device)
         rc = lib.tx_fused_moments(
-            x.data_ptr(), y.data_ptr(), n, d, rows, splits,
-            partial.data_ptr(), out.data_ptr(), stream,
+            x.data_ptr(), y.data_ptr(), n, d, partial.data_ptr(),
+            partial.numel(), counter.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_moments kernel launch failed: CUDA error {rc}")
     fused_moments.launches += 1
-    stats = out[: 5 * d].view(5, d)
-    return (stats[0], stats[1], stats[2], out[5 * d], out[5 * d + 1],
-            stats[3], stats[4])
+    x_sum, x_sq, xy, x_min, x_max = out[: 5 * d].view(5, d).unbind(0)
+    y_sum, y_sq = out[5 * d:].unbind(0)
+    return x_sum, x_sq, xy, y_sum, y_sq, x_min, x_max
 
 
 fused_moments.launches = 0
@@ -303,8 +336,9 @@ def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
     (``np.searchsorted(side='left')``), and for a NaN x the count of
     non-NaN edges - the contract of the JAX package's ``bin_matrix`` -
     written as ``out_dtype`` (int8 or int32).  A CPU input runs
-    :func:`bin_matrix_plain`; a CUDA input launches ``csrc/bin_matrix.cu``
-    on the current stream without synchronising."""
+    :func:`bin_matrix_plain`; a CUDA input (any storage offset, such as a
+    row view ``x[3:]``) launches ``csrc/bin_matrix.cu`` on the current
+    stream without synchronising."""
     _check_bin_args(x, edges, out_dtype)
     if x.device.type == "cpu":
         return bin_matrix_plain(x, edges, out_dtype)
