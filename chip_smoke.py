@@ -12,7 +12,15 @@ two agree:
   OpLogisticRegression -> AuROC, on 1M rows (kernel ``fused_moments``);
 * the tree slice, transmogrify(label=...) (one decision-tree bucketizer per
   numeric column) -> SanityChecker -> OpGBTClassifier -> AuROC, on the same
-  1M rows (kernels ``fused_moments`` and ``bin_matrix``).
+  1M rows (kernels ``fused_moments`` and ``bin_matrix``);
+* the selector, transmogrify(label=...) -> SanityChecker ->
+  BinaryClassificationModelSelector (3-fold CV over logistic regression's
+  8-point and the GBT's 9-point default grids) -> holdout AuROC -> score(),
+  on 1M rows, plain and under workflow-level CV (both kernels, K1 once per
+  fold under workflow CV); its device rank metrics on the card against the
+  CPU; and at 100k rows on the card against the CPU, whose training runs in
+  a child process (``python3 chip_smoke.py --selector-cpu N``, CPU only)
+  started at the beginning so that it overlaps the card's phases.
 
 Every phase asserts; any failure exits non-zero.
 
@@ -26,7 +34,9 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -509,18 +519,20 @@ def run_tree_slice(device: str, data, kernels) -> dict:
 
 def profile(fn):
     """Run ``fn()`` under the torch profiler; returns (its result, device
-    ms by op name).  Device-side activity only (kernels and copies, one
+    us by op name).  Device-side activity only (kernels and copies, one
     stream, so no overlap); the profiler's own buffer requests are not the
-    program's."""
+    program's.  The raw trace events are read as they are: a selector
+    training launches some 10^5 kernels, and building the profiler's
+    per-event Python objects for them would take minutes."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name != "Activity Buffer Request"):
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.name() != "Activity Buffer Request"):
+            by_name.setdefault(e.name(), []).append(1e-3 * e.duration_ns())
     return out, by_name
 
 
@@ -561,10 +573,225 @@ def stage_walls(build, device: str, data) -> list:
     return out
 
 
+# -- the selector -----------------------------------------------------------------
+
+SELECTOR_ROWS = 1_000_000
+SELECTOR_CMP_ROWS = 100_000       # card against CPU
+SELECTOR_TYPES = ["OpLogisticRegression", "OpGBTClassifier"]
+SELECTOR_AUROC_RANGE = (0.70, 0.755)  # the holdout AuROC gate of PERF.md
+CMP_RANK_MODE = "approx"          # TX_CV_RANK_METRICS in both card-vs-CPU runs
+#: card against CPU: each candidate's mean CV metric within the CPU tests'
+#: tolerance for its mode, the winner's probabilities by family
+CMP_METRIC_ATOL = {"approx": 1e-3, "exact": 1e-5}
+CMP_PROB_ATOL = {"OpLogisticRegression": 1e-4, "OpGBTClassifier": 1e-3}
+#: trees deeper than this split nodes of a few dozen rows, where the card's
+#: and the CPU's float32 roundings (exp, reduction orders) flip near-tied
+#: splits: their mean metrics are held to CMP_DEEP_TREE_ATOL (the depth-12
+#: GBT candidate differed by 2.7e-5 at 100k rows on an H100)
+CMP_DEEP_TREE_DEPTH, CMP_DEEP_TREE_ATOL = 6, 1e-4
+
+
+def cmp_metric_atol(candidate: dict) -> float:
+    if candidate["params"].get("max_depth", 0) > CMP_DEEP_TREE_DEPTH:
+        return CMP_DEEP_TREE_ATOL
+    return CMP_METRIC_ATOL[candidate["rank_metric_mode"]]
+RANK_METRICS_ATOL = 1e-6          # device rank metrics, card against CPU
+
+
+def build_selector(device: str):
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.selector.factories import (
+        BinaryClassificationModelSelector,
+    )
+
+    survived, preds = passenger_features()
+    vec = transmogrify(preds, label=survived)
+    checked = SanityChecker().set_input(survived, vec).get_output()
+    selector = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, model_types_to_use=SELECTOR_TYPES)
+    pred = selector.set_input(survived, checked).get_output()
+    wf = OpWorkflow(device=device).set_result_features(pred)
+    return wf, survived, checked, pred
+
+
+@contextlib.contextmanager
+def selector_walls(sync: bool, keep_grid: bool = False):
+    """Within the block, time the selector's phases by a shim on each
+    method (the card synchronised at both ends of a call, so a wall holds
+    its device work): the LR fold x grid fit, the GBT grid fit, the whole
+    validation, the winner's refit, workflow CV and the selector's fit.
+    With ``keep_grid``, also keep what every GBT grid fit returned.
+    Yields {"walls": {phase: s}, "grid": [...]}."""
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.models.trees import _GBT
+    from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
+    from transmogrifai_tpu_torch.selector.validator import OpValidator
+
+    rec = {"walls": {}, "grid": []}
+    targets = [(OpLogisticRegression, "fit_arrays_batched", "lr_batch"),
+               (_GBT, "fit_arrays_folds_grid", "gbt_grid"),
+               (OpValidator, "validate", "validate"),
+               (OpLogisticRegression, "fit_arrays", "refit"),
+               (_GBT, "fit_arrays", "refit"),
+               (ModelSelector, "find_best_estimator", "workflow_cv"),
+               (ModelSelector, "fit_model", "selector_fit")]
+    saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in targets]
+
+    def shim(fn, phase):
+        def timed_call(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            rec["walls"][phase] = (rec["walls"].get(phase, 0.0)
+                                   + time.perf_counter() - t0)
+            if keep_grid and phase == "gbt_grid":
+                rec["grid"].append(out)
+            return out
+        return timed_call
+
+    for cls, name, phase in targets:
+        setattr(cls, name, shim(cls.__dict__[name], phase))
+    try:
+        yield rec
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
+                 keep_grid: bool = False) -> dict:
+    """Train and score the selector workflow on ``device``; with
+    ``kernels``, count each kernel's launches in train() and score()."""
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+
+    wf, survived, _, pred = build_selector(device)
+    if workflow_cv:
+        wf.with_workflow_cv()
+    wf.set_input_dataset(data)
+    counts = {}
+    if kernels is not None:
+        kernels.reset_launches()
+    with selector_walls(device == "cuda", keep_grid) as rec:
+        t0 = time.perf_counter()
+        model = wf.train()
+        t1 = time.perf_counter()
+    if kernels is not None:
+        counts["train"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        kernels.reset_launches()
+    t2 = time.perf_counter()
+    scored = model.score(data)
+    t3 = time.perf_counter()
+    if kernels is not None:
+        counts["score"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    (chosen,) = [s for s in model.stages if type(s).__name__ == "SelectedModel"]
+    summary = chosen.metadata["model_selector_summary"]
+    walls = rec["walls"]
+    fits = walls.get("lr_batch", 0.0) + walls.get("gbt_grid", 0.0)
+    # validation scoring: the validation (or, under workflow CV, the fold
+    # loop with its in-fold refits of the stages above the selector) less
+    # its two batched fits
+    walls["scoring"] = walls.get("workflow_cv" if workflow_cv else "validate",
+                                 0.0) - fits
+    return {
+        "model": model, "train_s": t1 - t0, "score_s": t3 - t2,
+        "walls": walls, "grid": rec["grid"], "launches": counts,
+        "summary": summary, "chosen": chosen,
+        "results": summary["validation_results"],
+        "modes": sorted({r.get("rank_metric_mode", "exact (workflow CV)")
+                         for r in summary["validation_results"]}),
+        "holdout_auroc": float(summary["holdout_metrics"][
+            "OpBinaryClassificationEvaluator"]["AuROC"]),
+        "auroc": float(OpBinaryClassificationEvaluator().evaluate(
+            scored, label_col=survived.name, pred_col=pred.name).AuROC),
+        "prob": np.asarray(scored[pred.name].probability, np.float64),
+    }
+
+
+def log_selector(tag: str, r: dict) -> None:
+    w = r["walls"]
+    log(f"[{tag}] train {r['train_s']:.3f} s, score {r['score_s']:.3f} s; "
+        f"LR fold x grid fit {w.get('lr_batch', 0.0):.3f} s, GBT grid fit "
+        f"{w.get('gbt_grid', 0.0):.3f} s, validation scoring "
+        f"{w['scoring']:.3f} s, refit {w.get('refit', 0.0):.3f} s, "
+        f"selector fit {w.get('selector_fit', 0.0):.3f} s"
+        + (f", workflow CV {w['workflow_cv']:.3f} s" if "workflow_cv" in w
+           else "")
+        + f"; rank-metric mode {r['modes']}")
+    for c in r["results"]:
+        log(f"[{tag}]   {c['model_type']} {json.dumps(c['params'], sort_keys=True)}: "
+            f"mean {c['metric']:.6f}, folds "
+            f"{', '.join(f'{m:.6f}' for m in c['fold_metrics'])}")
+    s = r["summary"]
+    log(f"[{tag}] winner {s['best_model_type']} "
+        f"{json.dumps(s['best_params'], sort_keys=True)} (mean "
+        f"{s['validation_metric']['value']:.6f}); holdout AuROC "
+        f"{r['holdout_auroc']:.6f}; AuROC on all rows {r['auroc']:.6f}; "
+        f"launches {r['launches']}")
+
+
+def selector_cpu_main(rows: int) -> int:
+    """``--selector-cpu N``: train and score the selector workflow on the CPU
+    at N rows with the card's rank-metric mode and write what the card's
+    run is held against to stdout as an npz archive."""
+    os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
+    torch.set_num_threads(3)  # the card's phases run beside this process
+    torch.set_float32_matmul_precision("highest")
+    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
+
+    r = run_selector("cpu", synthetic_passengers(rows, seed=42, with_text=False))
+    meta = {k: r[k] for k in ("train_s", "score_s", "walls", "results",
+                              "modes", "holdout_auroc", "auroc")}
+    meta["winner"] = [r["summary"]["best_model_type"],
+                      r["summary"]["best_params"]]
+    buf = io.BytesIO()
+    np.savez(buf, prob=r["prob"], meta=np.array(json.dumps(meta)))
+    sys.stdout.buffer.write(buf.getvalue())
+    return 0
+
+
+def start_selector_cpu(rows: int) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, __file__, "--selector-cpu", str(rows)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def finish_selector_cpu(child: subprocess.Popen) -> dict:
+    out, err = child.communicate(timeout=900)
+    assert child.returncode == 0, (
+        f"the CPU selector run failed ({child.returncode}): "
+        f"{err.decode()[-3000:]}")
+    z = np.load(io.BytesIO(out))
+    return {"prob": z["prob"], **json.loads(str(z["meta"]))}
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
+        return selector_cpu_main(int(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # the CPU side of the selector's card-against-CPU phase trains from the
+    # start, beside the card's phases
+    cpu_child = start_selector_cpu(SELECTOR_CMP_ROWS)
+    try:
+        return card_main(cpu_child)
+    finally:
+        if cpu_child.poll() is None:
+            cpu_child.kill()
+        cpu_child.communicate()
+
+
+def card_main(cpu_child: subprocess.Popen) -> int:
     from transmogrifai_tpu_torch.examples.synthetic import (
         BAYES_AUROC_OBSERVED,
         synthetic_design_matrix,
@@ -817,16 +1044,172 @@ def main() -> int:
         f"heap entries (feature, bin, leaf) that differ: {nodes_differ} of "
         f"{3 * tg['heaps'][0].size}")
 
-    # -- 7. result lines ----------------------------------------------------
+    # -- 7. the selector on the card, counted ---------------------------------
+    from transmogrifai_tpu_torch.evaluators.binary import masked_rank_metrics
+    from transmogrifai_tpu_torch.selector import validator as validator_mod
+
+    assert SELECTOR_ROWS == SLICE_ROWS
+    rank_inputs = []
+
+    def keep_rank_inputs(scores, y, vmask):
+        rank_inputs.append((scores.clone(), y.clone(), vmask.clone()))
+        return masked_rank_metrics(scores, y, vmask)
+
+    validator_mod.masked_rank_metrics = keep_rank_inputs
+    try:
+        with kernel_inputs(kernels) as sel_inputs:
+            sp = run_selector("cuda", data, kernels)
+    finally:
+        validator_mod.masked_rank_metrics = masked_rank_metrics
+    log_selector("selector", sp)
+    lr_modes = {c["rank_metric_mode"] for c in sp["results"]
+                if c["model_type"] == "OpLogisticRegression"}
+    assert lr_modes == {"approx"}, lr_modes  # CUDA and n >= 100 000
+    assert len(rank_inputs) == 1, len(rank_inputs)
+    spl = sp["launches"]
+    assert spl["train"]["fused_moments"] == 1, spl
+    # 3 bucketizer fits and one binning per GBT depth group at least
+    assert spl["train"]["bin_matrix"] >= 6, spl
+    assert (SELECTOR_AUROC_RANGE[0] <= sp["holdout_auroc"]
+            <= SELECTOR_AUROC_RANGE[1]), sp["holdout_auroc"]
+    with kernel_inputs(kernels) as cv_inputs:
+        swc = run_selector("cuda", data, kernels, workflow_cv=True)
+    log_selector("selector, workflow CV", swc)
+    swl = swc["launches"]
+    # the SanityChecker refits in each of the 3 folds, then on all rows
+    assert swl["train"]["fused_moments"] == 4, swl
+    assert swl["train"]["bin_matrix"] >= 3 * 4 + 3 * 3, swl
+    assert (SELECTOR_AUROC_RANGE[0] <= swc["holdout_auroc"]
+            <= SELECTOR_AUROC_RANGE[1]), swc["holdout_auroc"]
+    for run, calls in ((sp, sel_inputs), (swc, cv_inputs)):
+        for k, kept in calls.items():
+            launched = run["launches"]["train"][k] + run["launches"]["score"][k]
+            assert len(kept) == launched, (k, len(kept), launched)
+    # each kernel on every input the two selector runs gave it
+    sel_shapes: dict = {}
+    for kname, kept in (("fused_moments", sel_inputs["fused_moments"]
+                         + cv_inputs["fused_moments"]),
+                        ("bin_matrix", sel_inputs["bin_matrix"]
+                         + cv_inputs["bin_matrix"])):
+        for args in kept:
+            if kname == "fused_moments":
+                err = check_moments(kernels, *args)
+                errs.append(err)
+                err = err["max_abs_err"]
+            else:
+                err = check_bins(kernels, *args)
+                bin_errs.append(err)
+            # fold splits differ by a row or two: one timing per 10k rows
+            n_rows, width = args[0].shape
+            key = (kname, (int(round(n_rows, -4)), width))
+            if key not in sel_shapes:
+                timing = (time_moments(kernels, *args) if kname == "fused_moments"
+                          else time_bins(kernels, *args))
+                sel_shapes[key] = {**timing, "path_calls": 0, "max_abs_err": 0.0}
+            seen = sel_shapes[key]
+            seen["path_calls"] += 1
+            seen["max_abs_err"] = max(seen["max_abs_err"], float(err))
+    del sel_inputs, cv_inputs
+    for (kname, shape), v in sorted(sel_shapes.items()):
+        where = (f"the selector path's ~{shape} ({v['path_calls']} calls on the "
+                 f"two 1M-row runs, each matching plain, max abs err "
+                 f"{v['max_abs_err']:.3g})")
+        if kname == "fused_moments":
+            log_moments_times(where, v)
+        else:
+            log_bins_times(where, v)
+    ptraced, sby_name = profile(lambda: run_selector("cuda", data))
+    log_profile("selector", 1e3 * (ptraced["train_s"] + ptraced["score_s"]),
+                sby_name, 12)
+
+    # (c) the device rank metrics on the 1M-row run's LR margins and masks
+    scores, yv, vmask = rank_inputs.pop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rank_card = masked_rank_metrics(scores, yv, vmask)
+    t1 = time.perf_counter()
+    rank_cpu = masked_rank_metrics(scores.cpu(), yv.cpu(), vmask.cpu())
+    t2 = time.perf_counter()
+    rank_err = max(float(np.abs(a - b).max()) for a, b in zip(rank_card, rank_cpu))
+    assert rank_err <= RANK_METRICS_ATOL, rank_err
+    log(f"[selector] masked_rank_metrics on the LR margins {tuple(scores.shape)}: "
+        f"card {1e3 * (t1 - t0):.1f} ms, CPU {1e3 * (t2 - t1):.1f} ms (host "
+        f"walls), max |card - CPU| {rank_err:.3g} over AuROC and AuPR")
+    del scores, yv, vmask
+
+    # (b) card against CPU at SELECTOR_CMP_ROWS, the rank-metric mode pinned
+    cdata = synthetic_passengers(SELECTOR_CMP_ROWS, seed=42, with_text=False)
+    os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
+    try:
+        g1 = run_selector("cuda", cdata, keep_grid=True)
+        g2 = run_selector("cuda", cdata, keep_grid=True)
+    finally:
+        del os.environ["TX_CV_RANK_METRICS"]
+    log_selector(f"selector {SELECTOR_CMP_ROWS} rows", g1)
+    assert len(g1["grid"]) == len(g2["grid"]) == 1
+    for by_grid1, by_grid2 in zip(g1["grid"], g2["grid"]):
+        for folds1, folds2 in zip(by_grid1, by_grid2):
+            for p1, p2 in zip(folds1, folds2):
+                assert all(np.array_equal(a, b)
+                           for a, b in zip(p1["heaps"], p2["heaps"])), \
+                    "the card's GBT grid heaps differ between two trainings"
+    sc = finish_selector_cpu(cpu_child)
+    log(f"[selector {SELECTOR_CMP_ROWS} rows] cpu: train {sc['train_s']:.3f} s "
+        f"(GBT grid fit {sc['walls'].get('gbt_grid', 0.0):.3f} s), score "
+        f"{sc['score_s']:.3f} s, holdout AuROC {sc['holdout_auroc']:.6f}")
+    metric_diff = 0.0
+    for c_gpu, c_cpu in zip(g1["results"], sc["results"]):
+        assert (c_gpu["model_type"], c_gpu["params"]) == \
+            (c_cpu["model_type"], c_cpu["params"])
+        assert c_gpu["rank_metric_mode"] == c_cpu["rank_metric_mode"]
+        diff = abs(c_gpu["metric"] - c_cpu["metric"])
+        log(f"[selector {SELECTOR_CMP_ROWS} rows]   {c_gpu['model_type']} "
+            f"{json.dumps(c_gpu['params'], sort_keys=True)}: card "
+            f"{c_gpu['metric']:.6f}, cpu {c_cpu['metric']:.6f}, |diff| "
+            f"{diff:.3g} (tolerance {cmp_metric_atol(c_gpu):g})")
+        assert diff <= cmp_metric_atol(c_gpu), (c_gpu, c_cpu)
+        metric_diff = max(metric_diff, diff)
+    assert len(g1["results"]) == len(sc["results"]) == 17
+    win_gpu = [g1["summary"]["best_model_type"], g1["summary"]["best_params"]]
+    if win_gpu != sc["winner"]:
+        top = sorted(g1["results"], key=lambda c: -c["metric"])[:2]
+        assert abs(top[0]["metric"] - top[1]["metric"]) <= max(
+            cmp_metric_atol(c) for c in top), (win_gpu, sc["winner"])
+        cmp_prob = "not compared: the winners differ within the tolerance"
+    else:
+        pdiff = float(np.abs(g1["prob"] - sc["prob"]).max())
+        assert pdiff <= CMP_PROB_ATOL[win_gpu[0]], pdiff
+        cmp_prob = f"{pdiff:.3g}"
+    log(f"[selector {SELECTOR_CMP_ROWS} rows] cuda vs cpu: winners {win_gpu} "
+        f"and {sc['winner']}, max |mean metric diff| {metric_diff:.3g}, max "
+        f"|prob diff| of the winner {cmp_prob}; the card's GBT grid heaps "
+        "bit-identical across two trainings")
+
+    # -- 8. result lines ----------------------------------------------------
+    def sel_by_path(k):
+        return {"selector_train": spl["train"][k],
+                "selector_score": spl["score"][k],
+                "selector_workflow_cv_train": swl["train"][k],
+                "selector_workflow_cv_score": swl["score"][k]}
+
+    def sel_launches(k):
+        return sum(sel_by_path(k).values())
+
+    def sel_shape_rows(k):
+        return [{"shape": list(shape), **v}
+                for (kname, shape), v in sorted(sel_shapes.items()) if kname == k]
+
     kernel_line = {"kernels": [{
         "name": "fused_moments",
         "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/fused_moments.cu",
         "replaces": "transmogrifai_tpu/parallel/pallas_kernels.py:123",
-        "launches": launches + tl["fused_moments"] + sl["fused_moments"],
+        "launches": (launches + tl["fused_moments"] + sl["fused_moments"]
+                     + sel_launches("fused_moments")),
         "launches_by_path": {
             "lr_slice": launches,
-            "tree_slice": tl["fused_moments"] + sl["fused_moments"]},
+            "tree_slice": tl["fused_moments"] + sl["fused_moments"],
+            **sel_by_path("fused_moments")},
         "max_abs_err": max([main_err["max_abs_err"]]
                            + [e["max_abs_err"] for e in errs]),
         "max_rel_err": max([main_err["max_rel_err"]]
@@ -844,6 +1227,7 @@ def main() -> int:
         "ptxas": ptxas["fused_moments"],
         "shape": main["shape"],
         "tree_path_shapes": list(tree_moments.values()),
+        "selector_path_shapes": sel_shape_rows("fused_moments"),
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -851,9 +1235,10 @@ def main() -> int:
         "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/bin_matrix.cu",
         "replaces": "transmogrifai_tpu/parallel/pallas_kernels.py:324",
-        "launches": tl["bin_matrix"] + sl["bin_matrix"],
+        "launches": tl["bin_matrix"] + sl["bin_matrix"] + sel_launches("bin_matrix"),
         "launches_by_path": {"tree_slice_train": tl["bin_matrix"],
-                             "tree_slice_score": sl["bin_matrix"]},
+                             "tree_slice_score": sl["bin_matrix"],
+                             **sel_by_path("bin_matrix")},
         "max_abs_err": max(bin_errs),
         "checked": True,
         "ms": bins_main["ms"],
@@ -869,6 +1254,7 @@ def main() -> int:
         "ptxas": ptxas["bin_matrix"],
         "shape": bins_main["shape"],
         "tree_path_shapes": list(bin_shapes.values()),
+        "selector_path_shapes": sel_shape_rows("bin_matrix"),
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}
@@ -876,7 +1262,7 @@ def main() -> int:
     print(json.dumps(kernel_line))
     # the run used one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": 1,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
     }}))
     return 0
 

@@ -253,3 +253,66 @@ def test_tree_fit_is_deterministic_on_the_card(cuda):
             for _ in range(2)]
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+
+
+# -- the model selector's device work -----------------------------------------
+
+def _lr_batch_inputs(n, d, seed):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d) * np.linspace(0.5, 3.0, d) + np.linspace(-1.0, 4.0, d)
+    y = ((X - X.mean(0)) @ np.linspace(1.0, -0.5, d) / 2 + rng.randn(n) > 0)
+    folds = np.arange(n) % 3
+    W = np.repeat(np.stack([folds != f for f in range(3)]), 8, axis=0)
+    regs = np.tile([0.001, 0.001, 0.01, 0.01, 0.1, 0.1, 0.2, 0.2], 3)
+    ens = np.tile([0.1, 0.5], 12)
+    return X, y.astype(np.float64), W.astype(np.float64), regs, ens
+
+
+def test_batched_lr_on_the_card_matches_the_cpu(cuda):
+    """The 24-candidate fold x grid fit on the card against the CPU:
+    float32 sums in other orders, so rtol 1e-4, atol 1e-5 (the LR slice's
+    card-against-CPU tolerance)."""
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X, y, W, regs, ens = _lr_batch_inputs(50_000, 11, 3)
+    got = OpLogisticRegression(device="cuda").fit_arrays_batched(X, y, W, regs, ens)
+    want = OpLogisticRegression(device="cpu").fit_arrays_batched(X, y, W, regs, ens)
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_masked_rank_metrics_on_the_card_match_the_cpu(cuda):
+    """The bins hold integer counts, exact in any order on the card; only
+    the float64 areas over them may round apart."""
+    from transmogrifai_tpu_torch.evaluators.binary import masked_rank_metrics
+
+    rng = np.random.RandomState(5)
+    B, n = 24, 300_001
+    y = torch.from_numpy((rng.rand(n) < 0.4).astype(np.float32))
+    scores = torch.from_numpy(
+        (rng.randn(B, n) + 1.1 * y.numpy()[None, :]).astype(np.float32))
+    vmask = torch.from_numpy((rng.rand(B, n) < 0.33).astype(np.float32))
+    got = masked_rank_metrics(scores.to(cuda), y.to(cuda), vmask.to(cuda))
+    want = masked_rank_metrics(scores, y, vmask)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-12)
+
+
+def test_gbt_grid_heaps_are_deterministic_on_the_card(cuda):
+    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+
+    X, y, W, _, _ = _lr_batch_inputs(120_000, 9, 4)
+    W = W[::8]  # the three fold masks
+    grid = [{"max_depth": d, "num_trees": 3, "min_info_gain": g}
+            for d in (3, 8) for g in (0.001, 0.01)]
+    est = OpGBTClassifier(device="cuda")
+    runs = [est.fit_arrays_folds_grid(X, y, W, grid) for _ in range(2)]
+    for a_grid, b_grid in zip(*runs):
+        for a, b in zip(a_grid, b_grid):
+            assert a["f0"] == b["f0"]
+            for ha, hb in zip(a["heaps"], b["heaps"]):
+                np.testing.assert_array_equal(ha, hb)

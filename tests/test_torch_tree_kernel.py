@@ -124,6 +124,28 @@ def test_card_segment_sum_matches_serial(monkeypatch, chunk, block_elems):
                        serial.reshape(L, d, B, 3))
 
 
+@pytest.mark.parametrize("L,B,n", [(1, 32, 5000), (512, 32, 5000),
+                                   (1024, 32, 9000), (512, 255, 20000)])
+def test_deep_level_chunks_grow_with_the_level(L, B, n):
+    """A level of L nodes and B bins sums chunks of max(2048, L*B/8) rows -
+    the same rule on every device - so its partials hold at most 8 times
+    its stat rows; on integer counts the chunked sum equals the serial
+    one."""
+    chunk = port._hist_chunk_rows(L, B)
+    assert chunk == max(2048, L * B // 8)
+    d = 2
+    assert -(-n // chunk) * L * d * B <= 8 * (n + chunk) * d
+    rng = np.random.RandomState(L)
+    bins = torch.from_numpy(rng.randint(0, B, (n, d)).astype(np.int32))
+    node = torch.from_numpy(rng.randint(0, L, n))
+    sw = torch.from_numpy(rng.randint(0, 5, (n, 4)).astype(np.float32))
+    seg = (node[:, None] * d + torch.arange(d)) * B + bins.long()
+    serial = torch.zeros((L * d * B, 4)).index_add_(
+        0, seg.reshape(-1), sw[:, None, :].expand(n, d, 4).reshape(-1, 4))
+    assert torch.equal(port._level_hist(bins, node, sw, L, B),
+                       serial.reshape(L, d, B, 4))
+
+
 @pytest.mark.parametrize(
     "args",
     [(5, 1000, 1.0), (12, 891, 1.0), (12, 100, 30.0), (30, 10**6, 1.0),
@@ -194,6 +216,15 @@ def test_forest_and_gbt_loops_match_reference():
         hv_ref[..., 1] / np.maximum(hv_ref[..., 3], 1e-12),
         rtol=1e-4, atol=1e-5,
     )
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port.fit_gbt_folds(torch.from_numpy(bins), torch.from_numpy(y),
-                           torch.ones((2, N)), 2, 3, B, True, 0.1, 1.0, 0.0)
+    # the fold fan-out: each fold grows the trees of the reference's fold
+    # vmap over the same bins
+    w2 = np.stack([np.ones(N, np.float32),
+                   (np.arange(N) % 3 > 0).astype(np.float32)])
+    f0_ref2, h_ref2 = ref.fit_gbt_folds(bins, y, w2, 2, 3, B, True, 0.1, 1.0, 0.0)
+    f02, h2 = port.fit_gbt_folds(
+        torch.from_numpy(bins).to(torch.int8), torch.from_numpy(y),
+        torch.from_numpy(w2), 2, 3, B, True, 0.1, 1.0, 0.0,
+    )
+    np.testing.assert_allclose(f02.numpy(), np.asarray(f0_ref2), atol=1e-7)
+    for i in range(3):
+        np.testing.assert_array_equal(h2[i].numpy(), np.asarray(h_ref2[i]))

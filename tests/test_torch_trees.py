@@ -134,9 +134,10 @@ def test_unported_routes_raise():
         trees.OpRandomForestClassifier(device="cpu", num_trees=3).fit_arrays(X, y)
     with pytest.raises(NotImplementedError, match="item 1"):
         trees.OpGBTClassifier(device="cpu", backend="native").fit_arrays(X, y)
+    with pytest.raises(NotImplementedError, match="item 6a"):
+        trees.OpRandomForestClassifier(device="cpu").fit_arrays_folds(
+            X, y, np.ones((3, N)))
     gbt = trees.OpGBTClassifier(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        gbt.fit_arrays_folds(X, y, np.ones((3, N)))
     with pytest.raises(NotImplementedError, match="item 9"):
         gbt.fused_tree_plan(X, y, np.ones((3, N)), [{}])
     with pytest.raises(NotImplementedError, match="item 7"):

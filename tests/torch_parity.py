@@ -76,6 +76,41 @@ def passenger_tree_slice(pkg: str, gbt_kw=None):
     return survived, vec, checked, pred
 
 
+def small_gbt_grid(num_trees: int = 3, depths=(2, 3)) -> list:
+    """A GBT grid of the default grid's form at test size."""
+    return [{"max_depth": d, "num_trees": num_trees, "min_info_gain": g}
+            for d in depths for g in (0.001, 0.1)]
+
+
+def selector_models(pkg: str, gbt_grid=None):
+    """(estimator, grid) pairs of the binary selector: OpLogisticRegression
+    over the default LR grid and OpGBTClassifier (the reference's on its
+    JAX backend) over ``gbt_grid``; the torch package's on the CPU."""
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    lr = mod(pkg, "models.logistic_regression").OpLogisticRegression(**kw)
+    gbt = mod(pkg, "models.trees").OpGBTClassifier(**(kw or {"backend": "jax"}))
+    return [(lr, mod(pkg, "selector.factories").lr_grid()),
+            (gbt, gbt_grid or small_gbt_grid())]
+
+
+def passenger_selector_slice(pkg: str, gbt_grid=None, **selector_kw):
+    """transmogrify(label=survived) -> SanityChecker ->
+    BinaryClassificationModelSelector.with_cross_validation over
+    ``selector_models`` of ``pkg``; returns (label, checked vector,
+    prediction) features."""
+    survived, preds = passenger_features(pkg)
+    vec = mod(pkg, "ops.transmogrifier").transmogrify(preds, label=survived)
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    checked = mod(pkg, "preparators.sanity_checker").SanityChecker(
+        **kw).set_input(survived, vec).get_output()
+    factory = mod(pkg, "selector.factories").BinaryClassificationModelSelector
+    sel = factory.with_cross_validation(
+        models_and_parameters=selector_models(pkg, gbt_grid), **selector_kw,
+        **kw)
+    pred = sel.set_input(survived, checked).get_output()
+    return survived, checked, pred
+
+
 def passengers(pkg: str, n: int, seed: int = 42):
     return mod(pkg, "examples.synthetic").synthetic_passengers(
         n, seed=seed, with_text=False

@@ -12,7 +12,9 @@ is shared:
 * ``predict_arrays(params, X) -> (pred, raw, prob)`` - batched scoring.
 
 Sample weights thread through every fit so splitter rebalancing and CV
-fold membership are weight masks, not data copies.
+fold membership are weight masks, not data copies.  ``with_params``,
+``hyper_params`` and ``batched_needs_binary_y`` are what the model
+selector calls on every candidate.
 
 The JAX package's ``lower``/``lower_xla`` seams come with the fused-scoring
 slice (ROADMAP.md queue 1, item 7).
@@ -71,6 +73,10 @@ class PredictorEstimator(Estimator):
     input_types = [RealNN, OPVector]
     output_type = Prediction
     model_type: str = "Predictor"
+    # Whether fit_arrays_batched's kernel assumes y in {0,1}: classifiers
+    # keep the conservative True so multiclass labels take the validator's
+    # per-candidate route; regressors override it to False.
+    batched_needs_binary_y: bool = True
 
     def __init__(self, device: str = "cuda", **kw) -> None:
         super().__init__(**kw)
@@ -103,6 +109,25 @@ class PredictorEstimator(Estimator):
 
     def predict_arrays(self, params: Any, X: np.ndarray):
         raise NotImplementedError
+
+    def predict_arrays_np(self, params: Any, X: np.ndarray):
+        """Pure-numpy scoring; the default assumes ``predict_arrays`` is
+        already host-side."""
+        return self.predict_arrays(params, X)
+
+    def contributions(self, params: Any) -> Optional[np.ndarray]:
+        return None
+
+    def hyper_params(self) -> dict:
+        """Hyperparameters relevant to model selection grids."""
+        return dict(self.params)
+
+    def with_params(self, **hp) -> "PredictorEstimator":
+        """A copy with ``hp`` merged into its params; it keeps ``device``."""
+        clone = self.copy()
+        clone.params = dict(self.params)
+        clone.params.update(hp)
+        return clone
 
     def fit_model(self, cols: Sequence[Column], ds: Dataset):
         label, vec = cols

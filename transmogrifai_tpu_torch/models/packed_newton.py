@@ -6,9 +6,14 @@ fixed-length scan form), ``pd_jitter`` and ``guarded_step``, plus
 ``solve_pos``, the positive-definite solve the JAX package gets from
 ``jax.scipy.linalg.solve(..., assume_a="pos")``.
 
-The MXU-packed batched Gram and the bitwise fixed-point early exit serve
-the cross-validation fan-out and the fused training programs; they come
-with the model-selector slice (ROADMAP.md queue 1, item 5).
+The batched helpers of the cross-validation fan-out are here too:
+``guarded_step`` with a per-candidate ``axis``, ``_batched_diag``, and
+``solve_pos`` over a leading batch axis, each candidate's NaN on its own.
+The JAX package's MXU-packed Gram (``lr_fit_batched_packed*``,
+``use_packed``) is a TPU-only route - off the TPU it takes the vmap
+route this package mirrors - and its bitwise fixed-point early exit
+(``newton_fixed_point``) belongs to the fused training programs
+(ROADMAP.md queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -36,19 +41,31 @@ def pd_jitter(s_curv, dim: int, base: float = 1e-9):
 
 
 def solve_pos(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Solve ``H x = g`` for a symmetric positive-definite ``H`` by
-    Cholesky.  A factorisation that fails (H not PD) gives an all-NaN
-    result, as the JAX package's solve does, instead of raising as
-    ``torch.linalg.cholesky`` and ``torch.linalg.solve`` would; the check
-    stays on the device, so the Newton loop never waits for the host."""
+    """Solve ``H x = g`` for a symmetric positive-definite ``H`` [..., d, d]
+    and ``g`` [..., d] by Cholesky.  A factorisation that fails (H not PD)
+    gives an all-NaN result for that system alone, as the JAX package's
+    (vmapped) solve does, instead of raising as ``torch.linalg.cholesky``
+    and ``torch.linalg.solve`` would; the check stays on the device, so the
+    Newton loop never waits for the host."""
     L, info = torch.linalg.cholesky_ex(H)
-    x = torch.cholesky_solve(g[:, None], L)[:, 0]
-    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
+    x = torch.cholesky_solve(g.unsqueeze(-1), L).squeeze(-1)
+    ok = (info == 0).unsqueeze(-1)
+    return torch.where(ok, x, torch.full_like(x, float("nan")))
 
 
-def guarded_step(delta: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def guarded_step(delta: torch.Tensor, g: torch.Tensor, axis=None) -> torch.Tensor:
     """A converged fit takes a ZERO step, and a non-finite solve must not
     poison the carry: entries of ``delta`` are kept only where the
-    gradient is above float32 noise and the entry is finite."""
-    ok = g.abs().max() > 1e-7
+    gradient is above float32 noise and the entry is finite.  ``axis``:
+    the reduction axis of |g| for batched steps (None = one fit), so each
+    candidate's convergence is its own."""
+    if axis is None:
+        ok = g.abs().max() > 1e-7
+    else:
+        ok = (g.abs().amax(dim=axis) > 1e-7)[:, None]
     return torch.where(ok & torch.isfinite(delta), delta, torch.zeros_like(delta))
+
+
+def _batched_diag(v: torch.Tensor) -> torch.Tensor:
+    """[B, d] -> [B, d, d] with v on the diagonals."""
+    return torch.diag_embed(v)

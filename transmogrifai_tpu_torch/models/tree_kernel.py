@@ -20,28 +20,39 @@ Histograms are deterministic: every segment sum adds its rows in a fixed
 order.  On the card ``index_add_`` would use float atomics; there it is
 ``index_put_(accumulate=True)``, a stable sort of the segment ids followed
 by an in-order sum of each run of equal ids.  That sum is serial within a
-run, so the segment ids also carry their chunk of ``_HIST_CHUNK_ROWS``
-rows: every run is at most one chunk long, the runs
+run, so the segment ids also carry their chunk of at least
+``_HIST_CHUNK_ROWS`` rows: every run is at most one chunk long, the runs
 spread over the card, and the per-chunk partial histograms add up in
-chunk order.  On the CPU it is ``index_add_`` over the same chunked ids,
+chunk order.  Deep levels take longer chunks, ``L * B / 8`` rows (L nodes,
+B bins), so that a level's ``[chunks, L*d*B, C]`` partials hold at most 8
+times its ``[rows*d, C]`` stat rows: with 2048-row chunks at every level a
+depth-12 level zeroed and summed partials 2^12 * 32 / 2048 = 64 times that
+size.  A longer chunk allows a longer serial run (a node whose rows all
+fall in one bin): a chunk of ``L * B`` rows made runs of up to 2^17 rows at
+depth 12 and the run sums the card's largest cost; the factor 8 is between
+the two.  On the CPU it is ``index_add_`` over the same chunked ids,
 which adds in row order on any number of threads (``index_put_`` there
 does not), so the CPU's partials are the card's.  The same inputs give
 the same bits from run to run.
 
-Not here: the TPU watchdog chunking of device programs and its knobs,
-the TPU-sized scatter cap and the int8 opt-out switch, and the fold and
-grid cores, which come with the model selector (ROADMAP.md queue 1,
-item 5).
+The GBT fold and grid cores (``fit_gbt_folds``, ``fit_gbt_folds_grid``)
+serve the model selector's cross-validation; the forest ones need the
+per-node feature subsets of ROADMAP.md queue 1, item 6a.  Not here: the
+TPU watchdog chunking of device programs and its knobs, the TPU-sized
+scatter cap and the int8 opt-out switch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-#: rows of one partial histogram: a run of the card's in-order sum is at
-#: most this many rows long, and a fit on at most this many rows adds each
-#: bin's rows in plain row order, as the JAX package's scatter does
+#: the fewest rows of one partial histogram (a level of L nodes and B bins
+#: takes chunks of max(2048, L * B / _HIST_PARTIAL_RATIO) rows): a fit on
+#: at most this many rows adds each bin's rows in plain row order, as the
+#: JAX package's scatter does
 _HIST_CHUNK_ROWS = 2048
+#: a level's chunk partials hold at most this many times its stat rows
+_HIST_PARTIAL_RATIO = 8
 #: the memory bound of a level's histogram: its rows go in blocks of at
 #: most this many (row, feature) pairs whose [chunks, L*d*B, C] partials
 #: hold at most this many floats.  A block's working set is the int64
@@ -79,18 +90,24 @@ def bins_device_dtype(max_bins: int) -> torch.dtype:
     return torch.int8 if max_bins <= 127 else torch.int32
 
 
+def _hist_chunk_rows(L: int, B: int) -> int:
+    """Rows of one partial histogram at a level of L nodes and B bins, the
+    same on every device (see the module docstring)."""
+    return max(_HIST_CHUNK_ROWS, L * B // _HIST_PARTIAL_RATIO)
+
+
 def _level_hist(bins, node_of_row, stats_w, L: int, B: int):
     """Per-level histogram [L, d, B, C] by one segment sum over all
     (row, feature) pairs - segment id = ((node * d) + j) * B + bin - in a
     fixed order on every device (see the module docstring): each chunk of
-    ``_HIST_CHUNK_ROWS`` rows in row order, the chunk partials in chunk
-    order, and the blocks that ``_HIST_BLOCK_ELEMS`` bounds in block
-    order.  The card and the CPU chunk alike, so both add the same
+    ``_hist_chunk_rows(L, B)`` rows in row order, the chunk partials
+    in chunk order, and the blocks that ``_HIST_BLOCK_ELEMS`` bounds in
+    block order.  The card and the CPU chunk alike, so both add the same
     partials."""
     n, d = bins.shape
     C = stats_w.shape[1]
     S = L * d * B
-    chunk = _HIST_CHUNK_ROWS
+    chunk = _hist_chunk_rows(L, B)
     chunks_per_block = max(1, _HIST_BLOCK_ELEMS // (S * C))
     block = max(1, min(_HIST_BLOCK_ELEMS // d, chunks_per_block * chunk))
     cols = torch.arange(d, device=bins.device)
@@ -272,27 +289,19 @@ def _gbt_f0(y, w_rows, is_classification: bool):
     return ybar
 
 
-def fit_gbt_folds(
-    bins, y, w_rows,           # w_rows [F, n]: one weight vector per fold
-    num_trees: int, max_depth: int, max_bins: int, is_classification: bool,
-    step_size: float, min_instances_per_node: float, min_info_gain: float,
+def _gbt_boost(
+    bins, y, w, num_trees: int, max_depth: int, max_bins: int,
+    is_classification: bool, step_size: float,
+    min_instances_per_node: float, min_info_gain: float,
 ):
-    """Gradient boosting with [w, wg, wgg, wh] stat channels (Friedman
-    variance impurity, Newton leaf sum(wg)/sum(wh)): a Python loop over
-    trees carrying the margin on the device.  Only one fold is ported
-    (``w_rows`` [1, n]); the fold fan-out comes with the model selector
-    (ROADMAP.md queue 1, item 5).  Returns (f0 [1], heaps with leading
-    [1, T])."""
-    if w_rows.shape[0] != 1:
-        raise NotImplementedError(
-            "the GBT fold fan-out is not ported to the torch package yet "
-            "(ROADMAP.md queue 1, item 5)"
-        )
+    """One fold's boosting: a Python loop over trees carrying the margin
+    on the device.  Its initial margin comes from its own [1, n] weight
+    row, so a fold of a fan-out computes exactly what a one-fold fit
+    does.  Returns (f0 [1], heaps with leading [T])."""
     n, d = bins.shape
-    w = w_rows[0]
-    f0s = _gbt_f0(y, w_rows, is_classification)
+    f0 = _gbt_f0(y, w[None, :], is_classification)
     feat_mask = torch.ones((d,), dtype=torch.bool, device=bins.device)
-    F = f0s[0].expand(n)
+    F = f0[0].expand(n)
     heaps = []
     for _ in range(num_trees):
         if is_classification:
@@ -312,7 +321,49 @@ def fit_gbt_folds(
         leaf_val = out[:, 1] / torch.clamp(out[:, 3], min=1e-12)
         F = F + step_size * leaf_val
         heaps.append(heap)
-    return f0s, tuple(h[None] for h in _stack_heaps(heaps))
+    return f0, _stack_heaps(heaps)
+
+
+def fit_gbt_folds(
+    bins, y, w_rows,           # w_rows [F, n]: one weight vector per fold
+    num_trees: int, max_depth: int, max_bins: int, is_classification: bool,
+    step_size: float, min_instances_per_node: float, min_info_gain: float,
+):
+    """GBT CV fan-out with [w, wg, wgg, wh] stat channels (Friedman
+    variance impurity, Newton leaf sum(wg)/sum(wh)): the folds ride the
+    weight axis over one shared binning, one fold after another (the JAX
+    package's fold ``vmap``), each fold's trees those of a one-fold fit.
+    Returns (f0 [F], heaps with leading [F, T])."""
+    fits = [
+        _gbt_boost(bins, y, w_rows[f], num_trees, max_depth, max_bins,
+                   is_classification, step_size, min_instances_per_node,
+                   min_info_gain)
+        for f in range(w_rows.shape[0])
+    ]
+    f0s = torch.cat([f0 for f0, _ in fits])
+    return f0s, _stack_heaps([heaps for _, heaps in fits])
+
+
+def fit_gbt_folds_grid(
+    bins, y, w_rows,
+    step_g, min_instances_g, min_info_gain_g,  # [G] per-grid-point scalars
+    num_trees: int, max_depth: int, max_bins: int, is_classification: bool,
+):
+    """Grid x fold GBT fan-out: grid points sharing the static shapes
+    (trees, depth, bins) differ only in step size, min instances and min
+    info gain, and each runs :func:`fit_gbt_folds`, one after another (the
+    JAX package's ``lax.map``).  Its host chunking over grid points and
+    boosting segments keeps TPU programs under the runtime watchdog, and
+    no memory bound of this card needs it: one tree's level histograms
+    are the working set, as in a single fit.  Returns (f0 [G, F], heaps
+    with leading [G, F, T])."""
+    fits = [
+        fit_gbt_folds(bins, y, w_rows, num_trees, max_depth, max_bins,
+                      is_classification, float(ss), float(mi), float(mg))
+        for ss, mi, mg in zip(step_g, min_instances_g, min_info_gain_g)
+    ]
+    f0s = torch.stack([f0 for f0, _ in fits])
+    return f0s, _stack_heaps([heaps for _, heaps in fits])
 
 
 def effective_max_depth(

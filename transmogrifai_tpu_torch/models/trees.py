@@ -23,9 +23,11 @@ layout and ``interop.load_reference_state`` carries them as they are.
 raising ``NotImplementedError`` with their ROADMAP.md queue 1 item: the
 host C++ learner (``backend="native"``, item 1), per-node random feature
 subsets (forests with ``feature_subset_p < 1``, item 6a: they need the
-JAX package's threefry generator), the fold and grid fan-outs (item 5),
-the fused-training plan (item 9) and the traceable scoring mirror
-(item 7).
+JAX package's threefry generator) and the forests' fold and grid
+fan-outs (item 6a), the fused-training plan (item 9) and the traceable
+scoring mirror (item 7).  The GBT fold and grid fan-outs
+(``fit_arrays_folds``, ``fit_arrays_folds_grid``) serve the model
+selector's cross-validation.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from .tree_kernel import (
     bins_device_dtype,
     effective_max_depth,
     fit_forest,
-    fit_gbt_folds,
+    fit_gbt_folds_grid,
     heap_impurity_importances,
     predict_forest,
     predict_forest_np,
@@ -174,12 +176,6 @@ class _TreeEnsembleBase(PredictorEstimator):
         dev = resolve_device(self.device)
         return _bin_for_backend(_f32(X, dev), edges, int(self.params["max_bins"]))
 
-    def fit_arrays_folds(self, X, y, W):
-        raise _not_ported("the tree CV fold fan-out", 5)
-
-    def fit_arrays_folds_grid(self, X, y, W, grid):
-        raise _not_ported("the tree CV grid fan-out", 5)
-
     def fused_tree_plan(self, X, y, W, grid):
         raise _not_ported("the fused tree-training plan", 9)
 
@@ -189,6 +185,12 @@ class _TreeEnsembleBase(PredictorEstimator):
 
 class _RandomForest(_TreeEnsembleBase):
     single_tree = False
+
+    def fit_arrays_folds(self, X, y, W):
+        raise _not_ported("the forest CV fold fan-out", "6a")
+
+    def fit_arrays_folds_grid(self, X, y, W, grid):
+        raise _not_ported("the forest CV grid fan-out", "6a")
 
     def _forest_inputs(self, X, y):
         n, d = X.shape
@@ -322,37 +324,75 @@ class _GBT(_TreeEnsembleBase):
             )
 
     def fit_arrays(self, X, y, w=None) -> Any:
-        self._check_labels(y)
-        n, d = X.shape
-        p = self.params
+        n = X.shape[0]
         w = np.ones(n, dtype=np.float32) if w is None else np.asarray(w, np.float32)
-        edges = _sampled_bin_edges(X, int(p["max_bins"]), int(p["seed"]))
-        bins = self._device_bins(X, edges)
-        dev = bins.device
-        lr = float(p["step_size"])
-        max_depth = effective_max_depth(
+        # one-fold ride through the fold fan-out: the channel semantics
+        # live in one place ([w, wg, wgg, wh] stats, Friedman variance
+        # impurity, Newton leaf sum(wg)/sum(wh))
+        return self.fit_arrays_folds(X, y, w[None, :])[0]
+
+    def _gbt_depth(self, n: int, d: int) -> int:
+        p = self.params
+        return effective_max_depth(
             int(p["max_depth"]), n, float(p["min_instances_per_node"]),
             d, int(p["max_bins"]), 4, cap=str(p.get("depth_cap", "auto")),
         )
-        # one-fold ride through the boosting loop: the channel semantics
-        # live in one place ([w, wg, wgg, wh] stats, Friedman variance
-        # impurity, Newton leaf sum(wg)/sum(wh))
-        f0s, heaps = fit_gbt_folds(
-            bins, _f32(y, dev), _f32(w, dev)[None, :],
-            num_trees=int(p["num_trees"]), max_depth=max_depth,
-            max_bins=int(p["max_bins"]),
-            is_classification=self.is_classification,
-            step_size=lr,
-            min_instances_per_node=float(p["min_instances_per_node"]),
-            min_info_gain=float(p["min_info_gain"]),
-        )
-        return {
-            "edges": edges,
-            "heaps": _heaps_np(h[0] for h in heaps),
-            "f0": float(f0s[0]),
-            "max_depth": max_depth,
-            "step_size": lr,
-        }
+
+    def fit_arrays_folds(self, X, y, W) -> list:
+        """CV fan-out: the folds (weight rows of W [F, n]) share one
+        binning and one upload of the design matrix - a grid of this
+        estimator's own params.  Returns one param dict per fold."""
+        return self.fit_arrays_folds_grid(X, y, W, [{}])[0]
+
+    def fit_arrays_folds_grid(self, X, y, W, grid) -> list:
+        """Whole-grid GBT CV: grid points sharing the static shapes
+        (effective depth, max_bins, num_trees, seed) form a group that
+        bins once (K2) and fits as one grid x fold fan-out over its step
+        sizes, min instances and min info gains.  Returns, per grid point,
+        one param dict per fold."""
+        self._check_labels(y)
+        _check_backend(str(self.params.get("backend", "auto")))
+        n, d = X.shape
+        cands = [self.with_params(**pmap) for pmap in grid]
+        groups: dict[tuple, list[int]] = {}
+        for j, cand in enumerate(cands):
+            p = cand.params
+            key = (cand._gbt_depth(n, d), int(p["max_bins"]),
+                   int(p["num_trees"]), int(p["seed"]))
+            groups.setdefault(key, []).append(j)
+        dev = resolve_device(self.device)
+        # one upload of X, y and the fold weights for every group; only the
+        # bins differ between groups, through the edges
+        X_d, y_d, W_d = _f32(X, dev), _f32(y, dev), _f32(W, dev)
+        edges_cache: dict[tuple, np.ndarray] = {}
+        results: list = [None] * len(grid)
+        for (depth, max_bins, num_trees, seed), js in groups.items():
+            if (max_bins, seed) not in edges_cache:
+                edges_cache[max_bins, seed] = _sampled_bin_edges(
+                    X, max_bins, seed)
+            edges = edges_cache[max_bins, seed]
+            bins = _bin_for_backend(X_d, edges, max_bins)
+            f0s, heaps = fit_gbt_folds_grid(
+                bins, y_d, W_d,
+                [float(cands[j].params["step_size"]) for j in js],
+                [float(cands[j].params["min_instances_per_node"]) for j in js],
+                [float(cands[j].params["min_info_gain"]) for j in js],
+                num_trees=num_trees, max_depth=depth, max_bins=max_bins,
+                is_classification=self.is_classification,
+            )
+            f0s, heaps = f0s.cpu().numpy(), _heaps_np(heaps)  # [G', F], ...
+            for gi, j in enumerate(js):
+                results[j] = [
+                    {
+                        "edges": edges,
+                        "heaps": tuple(h[gi][f] for h in heaps),
+                        "f0": float(f0s[gi][f]),
+                        "max_depth": depth,
+                        "step_size": float(cands[j].params["step_size"]),
+                    }
+                    for f in range(W_d.shape[0])
+                ]
+        return results
 
     def _head(self, F: np.ndarray):
         if self.is_classification:

@@ -25,7 +25,7 @@ from ..stages.base import Estimator, PipelineStage, Transformer
 from ..types.columns import Column, column_from_list
 from ..types.dataset import Dataset
 from ..utils.device import resolve_device
-from .dag import Layer, compute_dag, validate_dag
+from .dag import Layer, compute_dag, cut_dag_during, flatten, validate_dag
 
 
 def _as_dataset(data: Any, raw_features: Sequence[Feature]) -> Dataset:
@@ -68,11 +68,19 @@ def fit_and_transform_dag(
     train: Dataset,
     holdout: Optional[Dataset] = None,
     device: Optional[str] = None,
+    cv_during: Optional[dict[str, list[PipelineStage]]] = None,
 ) -> tuple[list[PipelineStage], Dataset, Optional[Dataset]]:
     """Fold layers fit->transform (reference: FitStagesUtil.
     fitAndTransformDAG:213-240, fitAndTransformLayer:254-293).  Every
     estimator with a ``device`` attribute is fitted on ``device`` when one
-    is given."""
+    is given.
+
+    ``cv_during`` ({selector_uid: [during stages..., selector]}, from
+    dag.cut_dag_during) enables workflow-level CV inline: when a selector
+    is reached, its ``find_best_estimator`` runs against the CURRENT
+    dataset, refitting the during stages per fold from scratch; the winner
+    is then refit on the full data by the selector's own fit.  A selector
+    (``has_test_eval``) evaluates its fitted model on the holdout."""
     fitted: list[PipelineStage] = []
     for layer in dag:
         layer_models: list[Transformer] = []
@@ -80,7 +88,17 @@ def fit_and_transform_dag(
             if isinstance(stage, Estimator):
                 if device is not None and hasattr(stage, "device"):
                     stage.device = device
-                layer_models.append(stage.fit(train))
+                if (
+                    cv_during
+                    and getattr(stage, "is_model_selector", False)
+                    and len(cv_during.get(stage.uid, [])) > 1
+                ):
+                    stage.find_best_estimator(train, cv_during[stage.uid])
+                model = stage.fit(train)
+                if (getattr(stage, "has_test_eval", False)
+                        and holdout is not None and len(holdout)):
+                    model.evaluate_model(holdout)
+                layer_models.append(model)
             elif isinstance(stage, Transformer):
                 layer_models.append(stage)
             else:
@@ -127,6 +145,7 @@ class OpWorkflow:
         self.raw_features: tuple[Feature, ...] = ()
         self._input_data: Any = None
         self.parameters: dict[str, Any] = {}
+        self._workflow_cv = False
 
     def set_result_features(self, *features: Feature) -> "OpWorkflow":
         self.result_features = tuple(features)
@@ -156,7 +175,12 @@ class OpWorkflow:
         raise _not_ported("RawFeatureFilter", 8)
 
     def with_workflow_cv(self) -> "OpWorkflow":
-        raise _not_ported("workflow-level cross-validation", 5)
+        """Leakage-free workflow-level cross-validation: label-aware
+        estimators between the last upstream estimator and the model
+        selector are refit inside each fold (reference:
+        OpWorkflowCore.withWorkflowCV:108, FitStagesUtil.cutDAG:305-358)."""
+        self._workflow_cv = True
+        return self
 
     def generate_raw_data(self) -> Dataset:
         if self._input_data is None:
@@ -188,10 +212,17 @@ class OpWorkflow:
                         )
 
         # reserve a holdout for test-eval stages (reference: Splitter
-        # reserveTestFraction, tuning/Splitter.scala:57)
+        # reserveTestFraction, tuning/Splitter.scala:57): the larger of the
+        # workflow's parameter and every model selector's splitter's
         holdout: Optional[Dataset] = None
         train_data = raw
+        selectors = [s for s in flatten(dag)
+                     if getattr(s, "is_model_selector", False)]
         frac = float(self.parameters.get("reserve_test_fraction", 0.0))
+        for sel in selectors:
+            sp = getattr(sel, "splitter", None)
+            if sp is not None:
+                frac = max(frac, getattr(sp, "reserve_test_fraction", 0.0))
         if frac > 0.0:
             seed = int(self.parameters.get("split_seed", 42))
             rng = np.random.RandomState(seed)
@@ -201,8 +232,13 @@ class OpWorkflow:
             test_idx, train_idx = perm[:n_test], perm[n_test:]
             train_data, holdout = raw.take(np.sort(train_idx)), raw.take(np.sort(test_idx))
 
+        cv_during = None
+        if self._workflow_cv and selectors:
+            # per-selector cut (reference: FitStagesUtil.cutDAG:305-358,
+            # extended to parallel selectors); execution stays one pass
+            cv_during = cut_dag_during(dag, selectors)
         fitted, train_out, holdout_out = fit_and_transform_dag(
-            dag, train_data, holdout, device=self.device
+            dag, train_data, holdout, device=self.device, cv_during=cv_during,
         )
         model = OpWorkflowModel(
             result_features=self.result_features,
