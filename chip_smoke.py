@@ -16,11 +16,20 @@ two agree:
 * the selector, transmogrify(label=...) -> SanityChecker ->
   BinaryClassificationModelSelector (3-fold CV over logistic regression's
   8-point and the GBT's 9-point default grids) -> holdout AuROC -> score(),
-  on 1M rows, plain and under workflow-level CV (both kernels, K1 once per
-  fold under workflow CV); its device rank metrics on the card against the
-  CPU; and at 100k rows on the card against the CPU, whose training runs in
-  a child process (``python3 chip_smoke.py --selector-cpu N``, CPU only)
-  started at the beginning so that it overlaps the card's phases.
+  on 1M rows, and under workflow-level CV on 100k rows (both kernels, K1
+  once per fold under workflow CV); its device rank metrics on the card
+  against the CPU; and at 100k rows on the card against the CPU, whose
+  training runs in a child process (``python3 chip_smoke.py --selector-cpu
+  N``, CPU only) started at the beginning so that it overlaps the card's
+  phases;
+* the parameterless selector, the same front ->
+  BinaryClassificationModelSelector.with_cross_validation(num_folds=3) over
+  its four default families (logistic regression and the linear SVM at 8
+  grid points, the random forest with per-node feature subsets at 18, the
+  GBT at 9) on 1M rows on the card, counted, every kernel call held
+  against its plain version, and profiled; under workflow CV on 100k rows;
+  and at 20k rows twice on the card (the forest and GBT grid heaps
+  bit-identical) against a CPU child (``--default-selector-cpu N``).
 
 Every phase asserts; any failure exits non-zero.
 
@@ -59,8 +68,12 @@ TREE_PROB_ATOL = 1e-3  # card vs CPU: float32 scans and sums in other orders
 BIN_MAX_BINS = 32      # the tree learner's default
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, after the seconds since the script started."""
+    print(f"{time.perf_counter() - _START:7.1f} s {msg}", flush=True)
 
 
 #: a timing window: at least MIN_CALLS back-to-back calls and
@@ -121,11 +134,16 @@ def timed(call, arg_sets) -> dict:
     torch.cuda.synchronize()
     calls = MIN_CALLS
     dev, host = _window(call, arg_sets, calls, 2.0 * calls * host_ms + 1.0)
+    # a call that keeps the card at least twice as long as the host takes
+    # to enqueue it never lets the card wait, so its windows need no sleep
+    # (its enqueues block on the full launch queue: sleeping in proportion
+    # to them would only idle the card)
+    long_call = 2.0 * host_ms < dev / calls
     calls = max(MIN_CALLS, min(MAX_CALLS, int(np.ceil(
         MIN_WINDOW_MS * calls / max(dev, 1e-6)))))
     devs, hosts, gaps = [], [], 0
     for _ in range(WINDOWS):
-        sleep_ms = 2.0 * calls * host / MIN_CALLS + 1.0
+        sleep_ms = 1.0 if long_call else 2.0 * calls * host / MIN_CALLS + 1.0
         for _ in range(3):
             dev_w, host_w = _window(call, arg_sets, calls, sleep_ms)
             # back to back: every call was enqueued before the card woke,
@@ -521,18 +539,23 @@ def profile(fn):
     """Run ``fn()`` under the torch profiler; returns (its result, device
     us by op name).  Device-side activity only (kernels and copies, one
     stream, so no overlap); the profiler's own buffer requests are not the
-    program's.  The raw trace events are read as they are: a selector
-    training launches some 10^5 kernels, and building the profiler's
-    per-event Python objects for them would take minutes."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    program's.  Only the card's activity is recorded and the raw trace
+    events are read as they are: a selector training launches some 10^6
+    kernels, and recording every host op too, or building the profiler's
+    per-event Python objects, would take minutes."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
+        t0 = time.perf_counter()
+    t1 = time.perf_counter()
     by_name: dict[str, list] = {}
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() == torch.autograd.DeviceType.CUDA
                 and e.name() != "Activity Buffer Request"):
             by_name.setdefault(e.name(), []).append(1e-3 * e.duration_ns())
+    assert by_name, "the profiled run recorded no device activity"
+    log(f"[profiler] {sum(map(len, by_name.values()))} device events: "
+        f"stopping took {t1 - t0:.1f} s, reading them {time.perf_counter() - t1:.1f} s")
     return out, by_name
 
 
@@ -583,7 +606,11 @@ CMP_RANK_MODE = "approx"          # TX_CV_RANK_METRICS in both card-vs-CPU runs
 #: card against CPU: each candidate's mean CV metric within the CPU tests'
 #: tolerance for its mode, the winner's probabilities by family
 CMP_METRIC_ATOL = {"approx": 1e-3, "exact": 1e-5}
-CMP_PROB_ATOL = {"OpLogisticRegression": 1e-4, "OpGBTClassifier": 1e-3}
+#: (the margins of a winner without probabilities, the linear SVM)
+CMP_PROB_ATOL = {"OpLogisticRegression": 1e-4, "OpGBTClassifier": 1e-3,
+                 "OpRandomForestClassifier": 1e-3, "OpLinearSVC": 1e-4}
+#: the batched fits inside a validation (its scoring is the rest)
+FIT_PHASES = ("lr_batch", "svc_batch", "gbt_grid", "rf_grid")
 #: trees deeper than this split nodes of a few dozen rows, where the card's
 #: and the CPU's float32 roundings (exp, reduction orders) flip near-tied
 #: splits: their mean metrics are held to CMP_DEEP_TREE_ATOL (the depth-12
@@ -597,8 +624,19 @@ def cmp_metric_atol(candidate: dict) -> float:
     return CMP_METRIC_ATOL[candidate["rank_metric_mode"]]
 RANK_METRICS_ATOL = 1e-6          # device rank metrics, card against CPU
 
+#: both selectors' runs under workflow CV (the 1M-row runs' fold loop
+#: repeats their fits, so a smaller size keeps the whole run in its limit)
+WCV_ROWS = 100_000
+#: the parameterless selector (LR 8, forest 18 at 50 trees, GBT 9 at 20
+#: trees, linear SVM 8 grid points): at SELECTOR_ROWS plain, under workflow
+#: CV at WCV_ROWS, and card against CPU at DEFAULT_CMP_ROWS
+DEFAULT_CMP_ROWS = 20_000
+DEFAULT_CANDIDATES = 8 + 18 + 9 + 8
 
-def build_selector(device: str):
+
+def build_selector(device: str, model_types=SELECTOR_TYPES):
+    """The selector workflow over ``model_types`` (None: the parameterless
+    selector's default families)."""
     from transmogrifai_tpu_torch import OpWorkflow
     from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
     from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
@@ -610,7 +648,7 @@ def build_selector(device: str):
     vec = transmogrify(preds, label=survived)
     checked = SanityChecker().set_input(survived, vec).get_output()
     selector = BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=3, model_types_to_use=SELECTOR_TYPES)
+        num_folds=3, model_types_to_use=model_types)
     pred = selector.set_input(survived, checked).get_output()
     wf = OpWorkflow(device=device).set_result_features(pred)
     return wf, survived, checked, pred
@@ -620,39 +658,53 @@ def build_selector(device: str):
 def selector_walls(sync: bool, keep_grid: bool = False):
     """Within the block, time the selector's phases by a shim on each
     method (the card synchronised at both ends of a call, so a wall holds
-    its device work): the LR fold x grid fit, the GBT grid fit, the whole
-    validation, the winner's refit, workflow CV and the selector's fit.
-    With ``keep_grid``, also keep what every GBT grid fit returned.
-    Yields {"walls": {phase: s}, "grid": [...]}."""
+    its device work): the LR and SVM fold x grid fits, the GBT and forest
+    grid fits, the whole validation, the winner's refit (a forest's refit
+    runs through its grid fit, which then counts as refit only), workflow
+    CV and the selector's fit.  With ``keep_grid``, also keep what every
+    GBT and forest grid fit returned.  Yields {"walls": {phase: s},
+    "grid": [GBT grid fits], "rf_grid": [forest grid fits]}."""
+    from transmogrifai_tpu_torch.models.linear_svc import OpLinearSVC
     from transmogrifai_tpu_torch.models.logistic_regression import (
         OpLogisticRegression,
     )
-    from transmogrifai_tpu_torch.models.trees import _GBT
+    from transmogrifai_tpu_torch.models.trees import _GBT, _RandomForest
     from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
     from transmogrifai_tpu_torch.selector.validator import OpValidator
 
-    rec = {"walls": {}, "grid": []}
+    rec = {"walls": {}, "grid": [], "rf_grid": []}
     targets = [(OpLogisticRegression, "fit_arrays_batched", "lr_batch"),
+               (OpLinearSVC, "fit_arrays_batched", "svc_batch"),
                (_GBT, "fit_arrays_folds_grid", "gbt_grid"),
+               (_RandomForest, "fit_arrays_folds_grid", "rf_grid"),
                (OpValidator, "validate", "validate"),
                (OpLogisticRegression, "fit_arrays", "refit"),
+               (OpLinearSVC, "fit_arrays", "refit"),
                (_GBT, "fit_arrays", "refit"),
+               (_RandomForest, "fit_arrays", "refit"),
                (ModelSelector, "find_best_estimator", "workflow_cv"),
                (ModelSelector, "fit_model", "selector_fit")]
     saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in targets]
+    active: list = []
 
     def shim(fn, phase):
         def timed_call(*args, **kw):
+            counted = "refit" not in active
+            active.append(phase)
             if sync:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args, **kw)
+            try:
+                out = fn(*args, **kw)
+            finally:
+                active.pop()
             if sync:
                 torch.cuda.synchronize()
-            rec["walls"][phase] = (rec["walls"].get(phase, 0.0)
-                                   + time.perf_counter() - t0)
-            if keep_grid and phase == "gbt_grid":
-                rec["grid"].append(out)
+            if counted:
+                rec["walls"][phase] = (rec["walls"].get(phase, 0.0)
+                                       + time.perf_counter() - t0)
+                if keep_grid and phase in ("gbt_grid", "rf_grid"):
+                    rec["grid" if phase == "gbt_grid" else phase].append(out)
             return out
         return timed_call
 
@@ -665,15 +717,23 @@ def selector_walls(sync: bool, keep_grid: bool = False):
             setattr(cls, name, fn)
 
 
+def winner_scores(col) -> np.ndarray:
+    """What a scored prediction column is compared by: the probabilities,
+    or the margins of a winner without them (the linear SVM)."""
+    out = col.probability if col.probability is not None else col.raw_prediction
+    return np.asarray(out, np.float64)
+
+
 def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
-                 keep_grid: bool = False) -> dict:
-    """Train and score the selector workflow on ``device``; with
-    ``kernels``, count each kernel's launches in train() and score()."""
+                 keep_grid: bool = False, model_types=SELECTOR_TYPES) -> dict:
+    """Train and score the selector workflow over ``model_types`` on
+    ``device``; with ``kernels``, count each kernel's launches in train()
+    and score()."""
     from transmogrifai_tpu_torch.evaluators.binary import (
         OpBinaryClassificationEvaluator,
     )
 
-    wf, survived, _, pred = build_selector(device)
+    wf, survived, _, pred = build_selector(device, model_types)
     if workflow_cv:
         wf.with_workflow_cv()
     wf.set_input_dataset(data)
@@ -695,15 +755,16 @@ def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
     (chosen,) = [s for s in model.stages if type(s).__name__ == "SelectedModel"]
     summary = chosen.metadata["model_selector_summary"]
     walls = rec["walls"]
-    fits = walls.get("lr_batch", 0.0) + walls.get("gbt_grid", 0.0)
+    fits = sum(walls.get(k, 0.0) for k in FIT_PHASES)
     # validation scoring: the validation (or, under workflow CV, the fold
     # loop with its in-fold refits of the stages above the selector) less
-    # its two batched fits
+    # its batched fits
     walls["scoring"] = walls.get("workflow_cv" if workflow_cv else "validate",
                                  0.0) - fits
     return {
         "model": model, "train_s": t1 - t0, "score_s": t3 - t2,
-        "walls": walls, "grid": rec["grid"], "launches": counts,
+        "walls": walls, "grid": rec["grid"], "rf_grid": rec["rf_grid"],
+        "launches": counts,
         "summary": summary, "chosen": chosen,
         "results": summary["validation_results"],
         "modes": sorted({r.get("rank_metric_mode", "exact (workflow CV)")
@@ -712,7 +773,7 @@ def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
             "OpBinaryClassificationEvaluator"]["AuROC"]),
         "auroc": float(OpBinaryClassificationEvaluator().evaluate(
             scored, label_col=survived.name, pred_col=pred.name).AuROC),
-        "prob": np.asarray(scored[pred.name].probability, np.float64),
+        "prob": winner_scores(scored[pred.name]),
     }
 
 
@@ -720,7 +781,11 @@ def log_selector(tag: str, r: dict) -> None:
     w = r["walls"]
     log(f"[{tag}] train {r['train_s']:.3f} s, score {r['score_s']:.3f} s; "
         f"LR fold x grid fit {w.get('lr_batch', 0.0):.3f} s, GBT grid fit "
-        f"{w.get('gbt_grid', 0.0):.3f} s, validation scoring "
+        f"{w.get('gbt_grid', 0.0):.3f} s"
+        + (f", forest grid fit {w['rf_grid']:.3f} s" if "rf_grid" in w else "")
+        + (f", SVM fold x grid fit {w['svc_batch']:.3f} s"
+           if "svc_batch" in w else "")
+        + f", validation scoring "
         f"{w['scoring']:.3f} s, refit {w.get('refit', 0.0):.3f} s, "
         f"selector fit {w.get('selector_fit', 0.0):.3f} s"
         + (f", workflow CV {w['workflow_cv']:.3f} s" if "workflow_cv" in w
@@ -738,16 +803,18 @@ def log_selector(tag: str, r: dict) -> None:
         f"launches {r['launches']}")
 
 
-def selector_cpu_main(rows: int) -> int:
-    """``--selector-cpu N``: train and score the selector workflow on the CPU
-    at N rows with the card's rank-metric mode and write what the card's
-    run is held against to stdout as an npz archive."""
+def selector_cpu_main(rows: int, model_types=SELECTOR_TYPES) -> int:
+    """``--selector-cpu N`` (``--default-selector-cpu N``: the default
+    families): train and score the selector workflow on the CPU at N rows
+    with the card's rank-metric mode and write what the card's run is held
+    against to stdout as an npz archive."""
     os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
     torch.set_num_threads(3)  # the card's phases run beside this process
     torch.set_float32_matmul_precision("highest")
     from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
 
-    r = run_selector("cpu", synthetic_passengers(rows, seed=42, with_text=False))
+    r = run_selector("cpu", synthetic_passengers(rows, seed=42, with_text=False),
+                     model_types=model_types)
     meta = {k: r[k] for k in ("train_s", "score_s", "walls", "results",
                               "modes", "holdout_auroc", "auroc")}
     meta["winner"] = [r["summary"]["best_model_type"],
@@ -758,9 +825,9 @@ def selector_cpu_main(rows: int) -> int:
     return 0
 
 
-def start_selector_cpu(rows: int) -> subprocess.Popen:
+def start_selector_cpu(rows: int, flag: str = "--selector-cpu") -> subprocess.Popen:
     return subprocess.Popen(
-        [sys.executable, __file__, "--selector-cpu", str(rows)],
+        [sys.executable, __file__, flag, str(rows)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
 
@@ -774,24 +841,184 @@ def finish_selector_cpu(child: subprocess.Popen) -> dict:
     return {"prob": z["prob"], **json.loads(str(z["meta"]))}
 
 
+def hold_path_inputs(kernels, kept: dict, shapes: dict, errs: list,
+                     bin_errs: list, timed: bool = True,
+                     timings: dict | None = None) -> None:
+    """Each kernel on every input a path gave it (``kernel_inputs``):
+    held against its plain version, and, with ``timed``, timed once per
+    distinct shape (fold splits differ by a row or two: one timing per 10k
+    rows) into ``shapes``, keyed (kernel, (rows, width)); a shape that
+    ``timings`` holds already (another path's, in this run) takes that
+    timing."""
+    for kname, calls in kept.items():
+        for args in calls:
+            if kname == "fused_moments":
+                err = check_moments(kernels, *args)
+                errs.append(err)
+                err = err["max_abs_err"]
+            else:
+                err = check_bins(kernels, *args)
+                bin_errs.append(err)
+            if not timed:
+                continue
+            n_rows, width = args[0].shape
+            key = (kname, (int(round(n_rows, -4)), width))
+            if key not in shapes:
+                timing = (timings or {}).get(key) or (
+                    time_moments(kernels, *args) if kname == "fused_moments"
+                    else time_bins(kernels, *args))
+                shapes[key] = {**timing, "path_calls": 0, "max_abs_err": 0.0}
+            seen = shapes[key]
+            seen["path_calls"] += 1
+            seen["max_abs_err"] = max(seen["max_abs_err"], float(err))
+
+
+def log_path_shapes(what: str, shapes: dict) -> None:
+    for (kname, shape), v in sorted(shapes.items()):
+        where = (f"{what} ~{shape} ({v['path_calls']} calls, each matching "
+                 f"plain, max abs err {v['max_abs_err']:.3g})")
+        if kname == "fused_moments":
+            log_moments_times(where, v)
+        else:
+            log_bins_times(where, v)
+
+
+def assert_counted(run: dict, kept: dict) -> None:
+    """The shim kept the inputs of every launch the run counted."""
+    for k, calls in kept.items():
+        launched = run["launches"]["train"][k] + run["launches"]["score"][k]
+        assert len(calls) == launched, (k, len(calls), launched)
+
+
+def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
+                           cpu_child: subprocess.Popen,
+                           timings: dict) -> dict:
+    """``[default_selector]``: the parameterless selector's four families
+    trained and scored on the card on ``data`` (counted and profiled, every
+    kernel call held against its plain version and timed per shape unless
+    ``timings``, the [selector] path's, hold the shape), under workflow
+    CV on ``wdata``, and at DEFAULT_CMP_ROWS twice on the card (the forest
+    and GBT grid heaps bit-identical) against the CPU child's training.
+    Returns what the result lines need."""
+    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
+
+    tag = "default_selector"
+    # one run, counted and profiled: a second 1M-row training costs
+    # minutes, and the profiler's overhead is in its walls (PERF.md)
+    with kernel_inputs(kernels) as kept:
+        dp, by_name = profile(
+            lambda: run_selector("cuda", data, kernels, model_types=None))
+    log_selector(tag, dp)
+    busy_ms = log_profile(tag, 1e3 * (dp["train_s"] + dp["score_s"]),
+                          by_name, 14)
+    assert len(dp["results"]) == DEFAULT_CANDIDATES, len(dp["results"])
+    modes = {c["model_type"]: c["rank_metric_mode"] for c in dp["results"]}
+    # CUDA and n >= 100 000: the linear families rank their margins on the
+    # card, the trees on the host
+    assert modes == {"OpLogisticRegression": "approx", "OpLinearSVC": "approx",
+                     "OpRandomForestClassifier": "exact",
+                     "OpGBTClassifier": "exact"}, modes
+    dl = dp["launches"]
+    assert dl["train"]["fused_moments"] == 1, dl
+    # 3 bucketizer fits, one binning per GBT and forest depth group, and
+    # the 27 GBT and 54 forest validation predictions
+    assert dl["train"]["bin_matrix"] >= 3 + 3 + 3 + 27 + 54, dl
+    assert (SELECTOR_AUROC_RANGE[0] <= dp["holdout_auroc"]
+            <= SELECTOR_AUROC_RANGE[1]), dp["holdout_auroc"]
+    assert_counted(dp, kept)
+    shapes: dict = {}
+    hold_path_inputs(kernels, kept, shapes, errs, bin_errs, timings=timings)
+    del kept
+    log_path_shapes(f"the {tag} path's", shapes)
+
+    # under workflow CV
+    with kernel_inputs(kernels) as wkept:
+        dw = run_selector("cuda", wdata, kernels, workflow_cv=True,
+                          model_types=None)
+    log_selector(f"{tag}, workflow CV, {len(wdata)} rows", dw)
+    assert len(dw["results"]) == DEFAULT_CANDIDATES
+    assert dw["launches"]["train"]["fused_moments"] == 4, dw["launches"]
+    assert (SELECTOR_AUROC_RANGE[0] <= dw["holdout_auroc"]
+            <= SELECTOR_AUROC_RANGE[1]), dw["holdout_auroc"]
+    assert_counted(dw, wkept)
+    hold_path_inputs(kernels, wkept, {}, errs, bin_errs, timed=False)
+    del wkept
+
+    # card against CPU at DEFAULT_CMP_ROWS, the rank-metric mode pinned
+    cdata = synthetic_passengers(DEFAULT_CMP_ROWS, seed=42, with_text=False)
+    os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
+    try:
+        d1 = run_selector("cuda", cdata, keep_grid=True, model_types=None)
+        d2 = run_selector("cuda", cdata, keep_grid=True, model_types=None)
+    finally:
+        del os.environ["TX_CV_RANK_METRICS"]
+    ctag = f"{tag} {DEFAULT_CMP_ROWS} rows"
+    log_selector(ctag, d1)
+    assert len(d1["rf_grid"]) == len(d2["rf_grid"]) == 1
+    assert len(d1["grid"]) == len(d2["grid"]) == 1
+    n_heaps = 0
+    for grid in ("rf_grid", "grid"):
+        for by_grid1, by_grid2 in zip(d1[grid], d2[grid]):
+            for folds1, folds2 in zip(by_grid1, by_grid2):
+                for p1, p2 in zip(folds1, folds2):
+                    assert all(np.array_equal(a, b)
+                               for a, b in zip(p1["heaps"], p2["heaps"])), \
+                        f"the card's {grid} heaps differ between two trainings"
+                    n_heaps += int(p1["heaps"][0].shape[0])
+    sc = finish_selector_cpu(cpu_child)
+    log(f"[{ctag}] cpu: train {sc['train_s']:.3f} s (forest grid fit "
+        f"{sc['walls'].get('rf_grid', 0.0):.3f} s, GBT grid fit "
+        f"{sc['walls'].get('gbt_grid', 0.0):.3f} s), score "
+        f"{sc['score_s']:.3f} s, holdout AuROC {sc['holdout_auroc']:.6f}")
+    metric_diff = 0.0
+    assert len(d1["results"]) == len(sc["results"]) == DEFAULT_CANDIDATES
+    for c_gpu, c_cpu in zip(d1["results"], sc["results"]):
+        assert (c_gpu["model_type"], c_gpu["params"]) == \
+            (c_cpu["model_type"], c_cpu["params"])
+        assert c_gpu["rank_metric_mode"] == c_cpu["rank_metric_mode"]
+        diff = abs(c_gpu["metric"] - c_cpu["metric"])
+        log(f"[{ctag}]   {c_gpu['model_type']} "
+            f"{json.dumps(c_gpu['params'], sort_keys=True)}: card "
+            f"{c_gpu['metric']:.6f}, cpu {c_cpu['metric']:.6f}, |diff| "
+            f"{diff:.3g} (tolerance {cmp_metric_atol(c_gpu):g})")
+        assert diff <= cmp_metric_atol(c_gpu), (c_gpu, c_cpu)
+        metric_diff = max(metric_diff, diff)
+    win_gpu = [d1["summary"]["best_model_type"], d1["summary"]["best_params"]]
+    assert win_gpu == sc["winner"], (win_gpu, sc["winner"])
+    pdiff = float(np.abs(d1["prob"] - sc["prob"]).max())
+    assert pdiff <= CMP_PROB_ATOL[win_gpu[0]], pdiff
+    log(f"[{ctag}] cuda vs cpu: the same winner {win_gpu}, max |mean metric "
+        f"diff| {metric_diff:.3g}, max |winner score diff| {pdiff:.3g}; the "
+        f"card's forest and GBT grid heaps ({n_heaps} trees) bit-identical "
+        "across two trainings")
+    return {"plain": dp, "workflow_cv": dw, "shapes": shapes,
+            "busy_ms": busy_ms}
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
         return selector_cpu_main(int(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--default-selector-cpu":
+        return selector_cpu_main(int(sys.argv[2]), None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # the CPU side of the selector's card-against-CPU phase trains from the
-    # start, beside the card's phases
-    cpu_child = start_selector_cpu(SELECTOR_CMP_ROWS)
+    # the CPU sides of the selectors' card-against-CPU phases train from
+    # the start, beside the card's phases (the [default_selector] phase's
+    # launch-bound forest loop then runs with the host to itself)
+    children = [start_selector_cpu(SELECTOR_CMP_ROWS),
+                start_selector_cpu(DEFAULT_CMP_ROWS, "--default-selector-cpu")]
     try:
-        return card_main(cpu_child)
+        return card_main(*children)
     finally:
-        if cpu_child.poll() is None:
-            cpu_child.kill()
-        cpu_child.communicate()
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+            child.communicate()
 
 
-def card_main(cpu_child: subprocess.Popen) -> int:
+def card_main(cpu_child: subprocess.Popen,
+              default_cpu_child: subprocess.Popen) -> int:
     from transmogrifai_tpu_torch.examples.synthetic import (
         BAYES_AUROC_OBSERVED,
         synthetic_design_matrix,
@@ -1049,19 +1276,23 @@ def card_main(cpu_child: subprocess.Popen) -> int:
     from transmogrifai_tpu_torch.selector import validator as validator_mod
 
     assert SELECTOR_ROWS == SLICE_ROWS
+    wdata = synthetic_passengers(WCV_ROWS, seed=42, with_text=False)
     rank_inputs = []
 
     def keep_rank_inputs(scores, y, vmask):
         rank_inputs.append((scores.clone(), y.clone(), vmask.clone()))
         return masked_rank_metrics(scores, y, vmask)
 
+    # one run, counted and profiled (the profiler's overhead is in its
+    # walls, as in the [default_selector] phase)
     validator_mod.masked_rank_metrics = keep_rank_inputs
     try:
         with kernel_inputs(kernels) as sel_inputs:
-            sp = run_selector("cuda", data, kernels)
+            sp, sby_name = profile(lambda: run_selector("cuda", data, kernels))
     finally:
         validator_mod.masked_rank_metrics = masked_rank_metrics
     log_selector("selector", sp)
+    log_profile("selector", 1e3 * (sp["train_s"] + sp["score_s"]), sby_name, 12)
     lr_modes = {c["rank_metric_mode"] for c in sp["results"]
                 if c["model_type"] == "OpLogisticRegression"}
     assert lr_modes == {"approx"}, lr_modes  # CUDA and n >= 100 000
@@ -1073,54 +1304,23 @@ def card_main(cpu_child: subprocess.Popen) -> int:
     assert (SELECTOR_AUROC_RANGE[0] <= sp["holdout_auroc"]
             <= SELECTOR_AUROC_RANGE[1]), sp["holdout_auroc"]
     with kernel_inputs(kernels) as cv_inputs:
-        swc = run_selector("cuda", data, kernels, workflow_cv=True)
-    log_selector("selector, workflow CV", swc)
+        swc = run_selector("cuda", wdata, kernels, workflow_cv=True)
+    log_selector(f"selector, workflow CV, {WCV_ROWS} rows", swc)
     swl = swc["launches"]
     # the SanityChecker refits in each of the 3 folds, then on all rows
     assert swl["train"]["fused_moments"] == 4, swl
     assert swl["train"]["bin_matrix"] >= 3 * 4 + 3 * 3, swl
     assert (SELECTOR_AUROC_RANGE[0] <= swc["holdout_auroc"]
             <= SELECTOR_AUROC_RANGE[1]), swc["holdout_auroc"]
-    for run, calls in ((sp, sel_inputs), (swc, cv_inputs)):
-        for k, kept in calls.items():
-            launched = run["launches"]["train"][k] + run["launches"]["score"][k]
-            assert len(kept) == launched, (k, len(kept), launched)
-    # each kernel on every input the two selector runs gave it
+    assert_counted(sp, sel_inputs)
+    assert_counted(swc, cv_inputs)
+    # each kernel on every input the two selector runs gave it, timed at
+    # the 1M-row run's shapes
     sel_shapes: dict = {}
-    for kname, kept in (("fused_moments", sel_inputs["fused_moments"]
-                         + cv_inputs["fused_moments"]),
-                        ("bin_matrix", sel_inputs["bin_matrix"]
-                         + cv_inputs["bin_matrix"])):
-        for args in kept:
-            if kname == "fused_moments":
-                err = check_moments(kernels, *args)
-                errs.append(err)
-                err = err["max_abs_err"]
-            else:
-                err = check_bins(kernels, *args)
-                bin_errs.append(err)
-            # fold splits differ by a row or two: one timing per 10k rows
-            n_rows, width = args[0].shape
-            key = (kname, (int(round(n_rows, -4)), width))
-            if key not in sel_shapes:
-                timing = (time_moments(kernels, *args) if kname == "fused_moments"
-                          else time_bins(kernels, *args))
-                sel_shapes[key] = {**timing, "path_calls": 0, "max_abs_err": 0.0}
-            seen = sel_shapes[key]
-            seen["path_calls"] += 1
-            seen["max_abs_err"] = max(seen["max_abs_err"], float(err))
+    hold_path_inputs(kernels, sel_inputs, sel_shapes, errs, bin_errs)
+    hold_path_inputs(kernels, cv_inputs, {}, errs, bin_errs, timed=False)
     del sel_inputs, cv_inputs
-    for (kname, shape), v in sorted(sel_shapes.items()):
-        where = (f"the selector path's ~{shape} ({v['path_calls']} calls on the "
-                 f"two 1M-row runs, each matching plain, max abs err "
-                 f"{v['max_abs_err']:.3g})")
-        if kname == "fused_moments":
-            log_moments_times(where, v)
-        else:
-            log_bins_times(where, v)
-    ptraced, sby_name = profile(lambda: run_selector("cuda", data))
-    log_profile("selector", 1e3 * (ptraced["train_s"] + ptraced["score_s"]),
-                sby_name, 12)
+    log_path_shapes("the selector path's (the 1M-row run)", sel_shapes)
 
     # (c) the device rank metrics on the 1M-row run's LR margins and masks
     scores, yv, vmask = rank_inputs.pop()
@@ -1185,19 +1385,28 @@ def card_main(cpu_child: subprocess.Popen) -> int:
         f"|prob diff| of the winner {cmp_prob}; the card's GBT grid heaps "
         "bit-identical across two trainings")
 
-    # -- 8. result lines ----------------------------------------------------
+    # -- 8. the default selector ------------------------------------------
+    dsel = default_selector_phase(kernels, data, wdata, errs, bin_errs,
+                                  default_cpu_child, sel_shapes)
+    dpl, dwl = dsel["plain"]["launches"], dsel["workflow_cv"]["launches"]
+
+    # -- 9. result lines ----------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
                 "selector_score": spl["score"][k],
                 "selector_workflow_cv_train": swl["train"][k],
-                "selector_workflow_cv_score": swl["score"][k]}
+                "selector_workflow_cv_score": swl["score"][k],
+                "default_selector_train": dpl["train"][k],
+                "default_selector_score": dpl["score"][k],
+                "default_selector_workflow_cv_train": dwl["train"][k],
+                "default_selector_workflow_cv_score": dwl["score"][k]}
 
     def sel_launches(k):
         return sum(sel_by_path(k).values())
 
-    def sel_shape_rows(k):
+    def sel_shape_rows(k, shapes=sel_shapes):
         return [{"shape": list(shape), **v}
-                for (kname, shape), v in sorted(sel_shapes.items()) if kname == k]
+                for (kname, shape), v in sorted(shapes.items()) if kname == k]
 
     kernel_line = {"kernels": [{
         "name": "fused_moments",
@@ -1228,6 +1437,8 @@ def card_main(cpu_child: subprocess.Popen) -> int:
         "shape": main["shape"],
         "tree_path_shapes": list(tree_moments.values()),
         "selector_path_shapes": sel_shape_rows("fused_moments"),
+        "default_selector_path_shapes": sel_shape_rows("fused_moments",
+                                                       dsel["shapes"]),
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -1255,6 +1466,8 @@ def card_main(cpu_child: subprocess.Popen) -> int:
         "shape": bins_main["shape"],
         "tree_path_shapes": list(bin_shapes.values()),
         "selector_path_shapes": sel_shape_rows("bin_matrix"),
+        "default_selector_path_shapes": sel_shape_rows("bin_matrix",
+                                                       dsel["shapes"]),
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}

@@ -8,7 +8,7 @@ atol 1e-5 of the reference's ``_lr_fit_batched`` (the grid's
 candidate: a converged candidate takes zero steps while another still
 moves, and one candidate's failed Cholesky leaves the others finite.
 
-GBT ``fit_arrays_folds`` and ``fit_arrays_folds_grid``: each fold's heaps
+GBT (and forest) ``fit_arrays_folds`` and ``fit_arrays_folds_grid``: each fold's heaps
 against the reference's (``backend="jax"``, single device) through
 ``compare_trees`` and its tie rules, leaf stats within rtol 1e-4, atol
 1e-5, probabilities within 1e-5; and each fold equal to a one-fold fit of
@@ -271,10 +271,30 @@ def test_gbt_fit_arrays_folds_grid_matches_reference(regression, monkeypatch):
 
 
 def test_forest_fold_fan_outs_raise():
-    rf = mod(PORT, "models.trees").OpRandomForestClassifier(device="cpu")
+    """The forest fold and grid fan-outs, which raised until the per-node
+    subsets were ported: the default forest's folds against the reference's
+    (``compare_trees``, gini counts exact; probabilities within 1e-5 off tie
+    rows), each fold equal to a one-fold fit, and the grid's first point
+    equal to the plain fan-out."""
     X, y = _tree_data()
-    for call in (lambda: rf.fit_arrays_folds(X, y, np.ones((2, len(y)))),
-                 lambda: rf.fit_arrays_folds_grid(X, y, np.ones((2, len(y))),
-                                                  [{}])):
-        with pytest.raises(NotImplementedError, match=r"item 6a\)"):
-            call()
+    W = _fold_masks(y)
+    kw = {"num_trees": 4, "max_depth": 3}
+    ref = mod(REF, "models.trees").OpRandomForestClassifier(backend="jax", **kw)
+    rf = mod(PORT, "models.trees").OpRandomForestClassifier(device="cpu", **kw)
+    want, got = ref.fit_arrays_folds(X, y, W), rf.fit_arrays_folds(X, y, W)
+    by_grid = rf.fit_arrays_folds_grid(X, y, W, [{}, {"min_info_gain": 0.01}])
+    bins = _port_bins(X, got[0])
+    for f in range(3):
+        ties = np.zeros(len(y), bool)
+        for t in range(4):
+            ties |= compare_trees([h[t] for h in got[f]["heaps"]],
+                                  [h[t] for h in want[f]["heaps"]],
+                                  bins, got[f]["max_depth"])[1]
+        assert ties.mean() < 0.5
+        np.testing.assert_allclose(
+            rf.predict_arrays(got[f], X)[2][~ties],
+            np.asarray(ref.predict_arrays(want[f], X)[2])[~ties], atol=1e-5)
+        one = rf.fit_arrays(X, y, W[f])
+        for a, b, c in zip(one["heaps"], got[f]["heaps"], by_grid[0][f]["heaps"]):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(b, c)

@@ -316,3 +316,48 @@ def test_gbt_grid_heaps_are_deterministic_on_the_card(cuda):
             assert a["f0"] == b["f0"]
             for ha, hb in zip(a["heaps"], b["heaps"]):
                 np.testing.assert_array_equal(ha, hb)
+
+
+def test_forest_grid_on_the_card_matches_the_cpu(cuda):
+    """A small forest fold x grid fit with per-node feature subsets on the
+    card against the CPU (gini counts are integers, exact in any order:
+    the heaps equal node for node but for exact split ties, ROADMAP.md
+    queue 3), and bit-identical across two card runs."""
+    from torch_parity import compare_trees
+    from transmogrifai_tpu_torch.models.tree_kernel import bin_data
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+
+    X, y, W, _, _ = _lr_batch_inputs(60_000, 9, 6)
+    W = W[::8]  # the three fold masks
+    grid = [{"max_depth": d, "num_trees": 4, "min_info_gain": g,
+             "min_instances_per_node": 10}
+            for d in (3, 8) for g in (0.001, 0.01)]
+    runs = [OpRandomForestClassifier(device="cuda").fit_arrays_folds_grid(
+        X, y, W, grid) for _ in range(2)]
+    cpu = OpRandomForestClassifier(device="cpu").fit_arrays_folds_grid(
+        X, y, W, grid)
+    ties = 0
+    for a_grid, b_grid, c_grid in zip(*runs, cpu):
+        for a, b, c in zip(a_grid, b_grid, c_grid):
+            for ha, hb in zip(a["heaps"], b["heaps"]):
+                np.testing.assert_array_equal(ha, hb)
+            bins = bin_data(X.astype(np.float32), a["edges"])
+            for t in range(a["heaps"][0].shape[0]):
+                ties += len(compare_trees([h[t] for h in a["heaps"]],
+                                          [h[t] for h in c["heaps"]],
+                                          bins, a["max_depth"])[0])
+    assert ties <= 4, ties
+
+
+def test_batched_svc_on_the_card_matches_the_cpu(cuda):
+    """The 24-candidate linear SVM fold x grid fit on the card against the
+    CPU: rtol 1e-4, atol 1e-5, as the batched LR."""
+    from transmogrifai_tpu_torch.models.linear_svc import OpLinearSVC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X, y, W, regs, ens = _lr_batch_inputs(50_000, 11, 7)
+    got = OpLinearSVC(device="cuda").fit_arrays_batched(X, y, W, regs, ens)
+    want = OpLinearSVC(device="cpu").fit_arrays_batched(X, y, W, regs, ens)
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)

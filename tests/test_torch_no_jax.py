@@ -42,6 +42,18 @@ pred = OpGBTClassifier(num_trees=2).set_input(y, vec).get_output()
 model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
     .set_input_dataset(data).train()
 assert len(model.score(data)[pred.name].prediction) == 300
+from transmogrifai_tpu_torch.selector.factories import (
+    BinaryClassificationModelSelector, rf_grid)
+from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+from transmogrifai_tpu_torch.models.linear_svc import OpLinearSVC
+sel = BinaryClassificationModelSelector.with_cross_validation(
+    models_and_parameters=[
+        (OpRandomForestClassifier(num_trees=2), rf_grid()[:2]),
+        (OpLinearSVC(max_iter=3), [{"reg_param": 0.1}])])
+pred = sel.set_input(y, vec).get_output()
+model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
+    .set_input_dataset(data).train()
+assert len(model.score(data)[pred.name].prediction) == 300
 print("OK")
 """
 
@@ -105,6 +117,30 @@ def test_tree_stages_default_to_cuda():
 
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trees.OpGBTClassifier().fit_arrays(np.ones((4, 2)), np.eye(2)[[0, 1, 0, 1], 0])
+
+
+@pytest.mark.parametrize("path,cls", [
+    ("models.trees", "OpRandomForestClassifier"),
+    ("models.linear_svc", "OpLinearSVC"),
+    ("models.naive_bayes", "OpNaiveBayes"),
+])
+def test_default_selector_families_default_to_cuda(path, cls):
+    """Each family the parameterless selector (and naive Bayes) builds runs
+    on the card unless told otherwise, and its fits and folds raise
+    without one."""
+    import numpy as np
+
+    est = getattr(mod(PORT, path), cls)()
+    assert est.device == "cuda"
+    if not torch.cuda.is_available():
+        X, y = np.ones((4, 2)), np.array([0.0, 1.0, 0.0, 1.0])
+        for call in (lambda: est.fit_arrays(X, y),
+                     lambda: est.fit_arrays_folds(X, y, np.ones((2, 4)))
+                     if hasattr(est, "fit_arrays_folds")
+                     else est.fit_arrays_batched(X, y, np.ones((2, 4)),
+                                                 np.zeros(2), np.zeros(2))):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
 
 
 def test_default_device_is_cuda():

@@ -216,6 +216,47 @@ def test_validate_matches_reference(monkeypatch, mode, atol, cls, kw):
     assert modes == {"OpLogisticRegression": mode, "OpGBTClassifier": "exact"}
 
 
+def _validate_default(pkg, X, y, w, families):
+    from torch_parity import default_selector_models
+
+    val = mod(pkg, "selector.validator")
+    ev = mod(pkg, "evaluators.binary").OpBinaryClassificationEvaluator()
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    return val.OpCrossValidation(evaluator=ev, seed=42, stratify=True,
+                                 num_folds=3, **kw).validate(
+        default_selector_models(pkg, families), X, y, w)
+
+
+def test_svc_metric_follows_the_rank_mode(monkeypatch):
+    """The linear SVM has no probability: under approx the device rank
+    metrics rank its margins, under exact the host evaluator ranks its 0/1
+    prediction (the reference's rule, ROADMAP.md queue 3).  Each mode's
+    fold metrics match the reference's (1e-3 approx, 1e-5 exact); the
+    forest is exact in both.  Unit weights: with the 1.5 class weight of
+    ``test_validate_matches_reference`` one forest tree meets an exact
+    split tie (queue 3, kind 2) and its fold metric moves by 1e-3."""
+    monkeypatch.setenv("TX_PRODUCT_MESH", "0")
+    X, y = _cv_data(n=600)
+    w = None
+    families = ["OpLinearSVC", "OpRandomForestClassifier"]
+    by_mode = {}
+    for mode, atol in (("approx", 1e-3), ("exact", 1e-5)):
+        monkeypatch.setenv("TX_CV_RANK_METRICS", mode)
+        want = _validate_default(REF, X, y, w, families)
+        got = _validate_default(PORT, X, y, w, families)
+        assert len(got.all_results) == len(want.all_results) == 8 + 4
+        for g, r in zip(got.all_results, want.all_results):
+            assert (g["model_type"], g["params"]) == (r["model_type"], r["params"])
+            assert g["rank_metric_mode"] == r["rank_metric_mode"] == (
+                mode if g["model_type"] == "OpLinearSVC" else "exact")
+            np.testing.assert_allclose(g["fold_metrics"], r["fold_metrics"],
+                                       rtol=0, atol=atol)
+        assert got.best_params == want.best_params
+        by_mode[mode] = [r["metric"] for r in got.all_results[:8]]
+    # ranking the 0/1 prediction loses most of the margins' ordering
+    assert min(by_mode["approx"]) > max(by_mode["exact"]) + 0.02
+
+
 def test_approx_rank_gate(monkeypatch):
     """The validator's device is CUDA and n >= 100 000, or the override."""
     import torch
@@ -234,16 +275,48 @@ def test_approx_rank_gate(monkeypatch):
 # -- what is not ported raises, naming its item -------------------------------
 
 def test_unported_families_and_selectors_raise():
+    """Every binary family of the JAX package's registry builds, the
+    default list included; the multiclass and regression selectors still
+    raise, naming their item."""
     fac = mod(PORT, "selector.factories")
     binary = fac.BinaryClassificationModelSelector
-    for types, item in ((None, "6a"), (["OpRandomForestClassifier"], "6a"),
-                        (["OpLinearSVC"], "8"), (["OpNaiveBayes"], "8")):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            binary.with_cross_validation(model_types_to_use=types)
+    for types, want in ((None, ["OpLogisticRegression",
+                                "OpRandomForestClassifier", "OpGBTClassifier",
+                                "OpLinearSVC"]),
+                        (["OpRandomForestClassifier"], None),
+                        (["OpLinearSVC"], None), (["OpNaiveBayes"], None)):
+        sel = binary.with_cross_validation(model_types_to_use=types,
+                                           device="cpu")
+        assert [e.model_type for e, _ in sel.models] == (want or types)
     with pytest.raises(NotImplementedError, match=r"item 5\)"):
         fac.MultiClassificationModelSelector()
     with pytest.raises(NotImplementedError, match=r"item 8\)"):
         fac.RegressionModelSelector.with_train_validation_split()
+
+
+@pytest.mark.parametrize("make", ["with_cross_validation",
+                                  "with_train_validation_split", "__new__"])
+def test_default_families_and_grids_equal_reference(make):
+    """The parameterless factory: the reference's four default families in
+    its order, each at its default params and grid."""
+    def build(pkg):
+        binary = mod(pkg, "selector.factories").BinaryClassificationModelSelector
+        kw = {"device": "cpu"} if pkg == PORT else {}
+        return binary(**kw) if make == "__new__" else getattr(binary, make)(**kw)
+
+    got, want = build(PORT), build(REF)
+    assert [e.model_type for e, _ in got.models] == \
+        [e.model_type for e, _ in want.models] == [
+            "OpLogisticRegression", "OpRandomForestClassifier",
+            "OpGBTClassifier", "OpLinearSVC"]
+    for (ge, gg), (we, wg) in zip(got.models, want.models):
+        assert list(gg) == list(wg)
+        assert ge.params == {**we.params, **({"backend": "auto"}
+                                             if "backend" in we.params else {})}
+        assert ge.device == "cpu"
+    assert [len(g) for _, g in got.models] == [8, 18, 9, 8]
+    assert type(got.validator).__name__ == type(want.validator).__name__
+    assert type(got.splitter).__name__ == type(want.splitter).__name__
 
 
 def test_factory_builds_ported_families_on_its_device():

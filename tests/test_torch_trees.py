@@ -128,15 +128,23 @@ def test_one_hot_pair_tie_is_logged():
 
 
 def test_unported_routes_raise():
+    """The host C++ learner, the fused plan and the traceable scoring
+    mirror raise, naming their item; the forests' per-node subsets (item
+    6a) no longer do: a default forest fits, folds and predicts."""
     X, y = _data(True)
     trees = mod(PORT, "models.trees")
-    with pytest.raises(NotImplementedError, match="item 6a"):
-        trees.OpRandomForestClassifier(device="cpu", num_trees=3).fit_arrays(X, y)
+    rf = trees.OpRandomForestClassifier(device="cpu", num_trees=3)
+    params = rf.fit_arrays(X, y)
+    assert params["heaps"][0].shape == (3, 2 ** (params["max_depth"] + 1) - 1)
+    assert rf.predict_arrays(params, X)[2].shape == (N, 2)
+    folds = rf.fit_arrays_folds(X, y, np.ones((2, N)))
+    for a, b in zip(folds[1]["heaps"], params["heaps"]):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError, match="item 1"):
         trees.OpGBTClassifier(device="cpu", backend="native").fit_arrays(X, y)
-    with pytest.raises(NotImplementedError, match="item 6a"):
-        trees.OpRandomForestClassifier(device="cpu").fit_arrays_folds(
-            X, y, np.ones((3, N)))
+    with pytest.raises(NotImplementedError, match="item 1"):
+        trees.OpRandomForestClassifier(device="cpu", backend="native") \
+            .fit_arrays_folds(X, y, np.ones((3, N)))
     gbt = trees.OpGBTClassifier(device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         gbt.fused_tree_plan(X, y, np.ones((3, N)), [{}])

@@ -93,11 +93,43 @@ def selector_models(pkg: str, gbt_grid=None):
             (gbt, gbt_grid or small_gbt_grid())]
 
 
-def passenger_selector_slice(pkg: str, gbt_grid=None, **selector_kw):
+def small_rf_grid(num_trees: int = 4, depths=(2, 4)) -> list:
+    """A forest grid of the default grid's form at test size."""
+    return [{"max_depth": d, "num_trees": num_trees, "min_info_gain": g,
+             "min_instances_per_node": m}
+            for d in depths for g in (0.001, 0.1) for m in (10,)]
+
+
+def default_selector_models(pkg: str, families=None, rf_grid=None,
+                            gbt_grid=None):
+    """(estimator, grid) pairs of the parameterless binary selector's
+    families (or ``families`` of them), the default LR and SVM grids and
+    test-sized forest and GBT grids; the reference's trees on their JAX
+    backend, the torch package's estimators on the CPU."""
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    tree_kw = kw or {"backend": "jax"}
+    fac, trees = mod(pkg, "selector.factories"), mod(pkg, "models.trees")
+    every = {
+        "OpLogisticRegression": lambda: (mod(
+            pkg, "models.logistic_regression").OpLogisticRegression(**kw),
+            fac.lr_grid()),
+        "OpRandomForestClassifier": lambda: (
+            trees.OpRandomForestClassifier(**tree_kw),
+            rf_grid or small_rf_grid()),
+        "OpGBTClassifier": lambda: (trees.OpGBTClassifier(**tree_kw),
+                                    gbt_grid or small_gbt_grid()),
+        "OpLinearSVC": lambda: (
+            mod(pkg, "models.linear_svc").OpLinearSVC(**kw), fac.lr_grid()),
+    }
+    return [every[f]() for f in (families or every)]
+
+
+def passenger_selector_slice(pkg: str, gbt_grid=None, models=None,
+                             **selector_kw):
     """transmogrify(label=survived) -> SanityChecker ->
-    BinaryClassificationModelSelector.with_cross_validation over
-    ``selector_models`` of ``pkg``; returns (label, checked vector,
-    prediction) features."""
+    BinaryClassificationModelSelector.with_cross_validation over ``models``
+    (by default ``selector_models`` of ``pkg``); returns (label, checked
+    vector, prediction) features."""
     survived, preds = passenger_features(pkg)
     vec = mod(pkg, "ops.transmogrifier").transmogrify(preds, label=survived)
     kw = {"device": "cpu"} if pkg == PORT else {}
@@ -105,8 +137,8 @@ def passenger_selector_slice(pkg: str, gbt_grid=None, **selector_kw):
         **kw).set_input(survived, vec).get_output()
     factory = mod(pkg, "selector.factories").BinaryClassificationModelSelector
     sel = factory.with_cross_validation(
-        models_and_parameters=selector_models(pkg, gbt_grid), **selector_kw,
-        **kw)
+        models_and_parameters=models or selector_models(pkg, gbt_grid),
+        **selector_kw, **kw)
     pred = sel.set_input(survived, checked).get_output()
     return survived, checked, pred
 
@@ -115,6 +147,22 @@ def passengers(pkg: str, n: int, seed: int = 42):
     return mod(pkg, "examples.synthetic").synthetic_passengers(
         n, seed=seed, with_text=False
     )
+
+
+def reference_states(model) -> list:
+    """(class name, state) of each fitted stage of a JAX-package model, as
+    ``interop.load_reference_state`` reads them: ``stage_state``, and for a
+    selected model also its selection summary."""
+    from transmogrifai_tpu.serialization.model_io import stage_state
+
+    out = []
+    for s in model.stages:
+        state = stage_state(s)
+        if type(s).__name__ == "SelectedModel":
+            state["model_selector_summary"] = \
+                s.metadata["model_selector_summary"]
+        out.append((type(s).__name__, state))
+    return out
 
 
 def stage_of(model, cls_name: str):

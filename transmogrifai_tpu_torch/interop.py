@@ -8,6 +8,13 @@ fitted DAG, its class name and its ``stage_state(stage)`` dict of numpy
 arrays and Python values (``serialization/model_io.py`` in either
 package) - so this package never imports the other: the caller extracts
 the state on the JAX side.
+
+A model selector's fitted stage is the JAX package's ``SelectedModel``:
+its state holds the winner's ``model_params`` as every predictor's does,
+and also needs the selection summary (the fitted stage's
+``metadata["model_selector_summary"]``, which names the winning family
+and its grid point) under the key ``"model_selector_summary"``; the
+winner is rebuilt from the selector's own candidates.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from .ops.numeric import (
     RealVectorizer,
 )
 from .preparators.sanity_checker import SanityChecker, SanityCheckerModel
+from .selector.model_selector import ModelSelector, SelectedModel
 from .stages.base import Estimator
 from .utils.device import resolve_device
 from .workflow.dag import compute_dag, flatten
@@ -45,7 +53,33 @@ _FITTED = {
 }
 
 
+def _selected_for(stage: ModelSelector, state: Mapping[str, Any]):
+    """The winner of a reference-fitted selection, rebuilt from ``stage``'s
+    candidates: the first of the winning family, with the winning grid
+    point's params, scoring the carried ``model_params``."""
+    summary = state["model_selector_summary"]
+    family = summary["best_model_type"]
+    ests = [est for est, _ in stage.models if est.model_type == family]
+    if not ests:
+        raise ValueError(
+            f"stage {stage.uid} has no {family} candidate to carry the "
+            "reference's winner"
+        )
+    stage._to_device()
+    model = SelectedModel(ests[0].with_params(**summary["best_params"]),
+                          state["model_params"], stage)
+    model.metadata = {"model_selector_summary": dict(summary)}
+    return model
+
+
 def _fitted_for(stage: Estimator, cls_name: str, state: Mapping[str, Any]):
+    if isinstance(stage, ModelSelector):
+        if cls_name != SelectedModel.__name__:
+            raise ValueError(
+                f"stage {stage.uid} ({type(stage).__name__}) pairs with a "
+                f"fitted {cls_name}, expected {SelectedModel.__name__}"
+            )
+        return _selected_for(stage, state)
     if isinstance(stage, PredictorEstimator):
         if cls_name != PredictorModel.__name__:
             raise ValueError(
@@ -77,8 +111,11 @@ def load_reference_state(
     ``workflow``'s DAG positionally, as the JAX package's ``load_model``
     pairs them.  Carried over: vectorizer fills and vocabularies,
     bucketizer splits, ``indices_to_keep``, and every predictor's
-    ``model_params`` as they are (the logistic regression's ``beta`` and
-    ``intercept``; the tree heaps, edges and GBT margin terms).  Estimators in the result score on ``workflow.device``.
+    ``model_params`` as they are (the linear models' ``beta`` and
+    ``intercept``; the tree heaps, edges, classes and GBT margin terms;
+    naive Bayes' ``theta``, ``prior``, ``classes`` and ``shift``), and a
+    model selector's winner.  Estimators in the result score on
+    ``workflow.device``.
     """
     resolve_device(workflow.device)
     stages = flatten(compute_dag(workflow.result_features))

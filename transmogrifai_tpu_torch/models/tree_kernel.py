@@ -35,16 +35,28 @@ which adds in row order on any number of threads (``index_put_`` there
 does not), so the CPU's partials are the card's.  The same inputs give
 the same bits from run to run.
 
-The GBT fold and grid cores (``fit_gbt_folds``, ``fit_gbt_folds_grid``)
-serve the model selector's cross-validation; the forest ones need the
-per-node feature subsets of ROADMAP.md queue 1, item 6a.  Not here: the
-TPU watchdog chunking of device programs and its knobs, the TPU-sized
-scatter cap and the int8 opt-out switch.
+A forest's trees draw per-node random feature subsets: at each level
+the split search of every node sees only the features of its row of a
+Bernoulli mask that the JAX package draws from its threefry generator
+(``jax.random.bernoulli(fold_in(key, level), p, (L, d))``).  The masks
+depend on the tree's key and the level alone, so ``node_subset_masks``
+computes them on the host (``utils/threefry.py``, bit for bit the JAX
+package's) once for every tree of a fit, and the level loop reads its
+rows from the device.
+
+The GBT and forest fold and grid cores (``fit_gbt_folds``,
+``fit_gbt_folds_grid``, ``fit_forest_folds``, ``fit_forest_folds_grid``)
+serve the model selector's cross-validation: folds and grid points run
+one after another, each fold a one-fold fit.  Not here: the TPU watchdog
+chunking of device programs and its knobs, the TPU-sized scatter cap and
+the int8 opt-out switch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils.threefry import bernoulli, fold_in, prng_key
 
 #: the fewest rows of one partial histogram (a level of L nodes and B bins
 #: takes chunks of max(2048, L * B / _HIST_PARTIAL_RATIO) rows): a fit on
@@ -157,14 +169,16 @@ def fit_tree(
     n_stats: int,
     min_instances_per_node: float = 1.0,
     min_info_gain: float = 0.0,
+    node_mask: torch.Tensor | None = None,  # [2^max_depth - 1, d] bool
 ):
     """Grow one tree on the bins' device; returns heap tensors there:
     feature [M] int32, thr_bin [M] int32, is_leaf [M] bool, value [M, C].
     M = 2^(max_depth+1) - 1; node children of i are 2i+1 / 2i+2.
 
-    The JAX package's per-node random feature subsets (``rng_key``,
-    ``feature_subset_p < 1``) need its threefry generator, which is not
-    ported yet (ROADMAP.md queue 1, item 6a)."""
+    ``node_mask`` holds the features each internal node's split search
+    may use, row i for heap node i (``node_subset_masks``: the JAX
+    package's ``rng_key`` and ``feature_subset_p < 1``); None lets every
+    node use ``feat_mask``."""
     n, d = bins.shape
     C = n_stats
     M = 2 ** (max_depth + 1) - 1
@@ -201,8 +215,11 @@ def fit_tree(
         gain = (node_imp[:, None, None] - left_imp - right_imp) / torch.clamp(
             node_w[:, None, None], min=1e-12
         )
+        level_mask = feat_mask[None, :]
+        if node_mask is not None:
+            level_mask = level_mask & node_mask[base: base + L]
         valid = (
-            feat_mask[None, :, None]
+            level_mask[:, :, None]
             & (left_w >= min_instances_per_node)
             & (right_w >= min_instances_per_node)
         )
@@ -260,22 +277,94 @@ def _stack_heaps(heaps: list) -> tuple:
     return tuple(torch.stack([h[i] for h in heaps]) for i in range(4))
 
 
+def node_subset_masks(seed_ints, subset_p: float, max_depth: int,
+                      d: int) -> np.ndarray | None:
+    """Per-node feature subsets of a forest's trees, [T, 2^max_depth - 1,
+    d] bool on the host, row i for heap node i; None when ``subset_p`` keeps
+    every feature.  Tree t's key is ``PRNGKey(seed_ints[t])`` and the nodes
+    of level l draw ``bernoulli(fold_in(key, l), float32(subset_p), (2^l,
+    d))``, as the JAX package's ``fit_tree`` does (a Bernoulli(k/d) draw
+    standing in for Spark's choose-k-of-d per node)."""
+    if subset_p >= 1.0:
+        return None
+    keys = prng_key(np.asarray(seed_ints))                 # [T, 2]
+    out = np.empty((keys.shape[0], 2 ** max_depth - 1, d), dtype=bool)
+    for level in range(max_depth):
+        L = 2 ** level
+        out[:, L - 1: 2 * L - 1] = bernoulli(
+            fold_in(keys, level), subset_p, (L, d))
+    return out
+
+
 def fit_forest(
     bins, stats_row, w_row, boot_w, feat_masks,
     max_depth: int, max_bins: int, impurity_kind: str, n_stats: int,
     min_instances_per_node: float = 1.0,
     min_info_gain: float = 0.0,
+    node_masks: torch.Tensor | None = None,
 ):
     """Forest fit: trees one after another through the same level
     histograms (the JAX package's ``lax.map``); boot_w [T, n] bootstrap
-    weights, feat_masks [T, d].  Returns heaps with a leading [T] axis."""
-    return _stack_heaps([
-        fit_tree(
-            bins, stats_row, w_row * boot_w[t], feat_masks[t],
+    weights, feat_masks [T, d], node_masks [T, 2^max_depth - 1, d] or
+    None.  Returns heaps with a leading [T] axis.
+
+    A row whose weight in a tree is 0 (out of the fold, or not drawn by
+    the bootstrap: together ~58% of the rows of a CV fit) adds nothing to
+    any histogram, so each tree grows on its weighted rows alone: the
+    same tree from fewer (row, feature) pairs a level.  Gini counts are
+    integers and sum exactly in any order; the variance channels add in
+    another order than over all rows, on every device alike."""
+    heaps = []
+    for t in range(boot_w.shape[0]):
+        w = w_row * boot_w[t]
+        rows = torch.nonzero(w > 0).squeeze(1)
+        heaps.append(fit_tree(
+            bins[rows], stats_row[rows], w[rows], feat_masks[t],
             max_depth, max_bins, impurity_kind, n_stats,
             min_instances_per_node, min_info_gain,
-        )
-        for t in range(boot_w.shape[0])
+            None if node_masks is None else node_masks[t],
+        ))
+    return _stack_heaps(heaps)
+
+
+def fit_forest_folds(
+    bins, stats_row, w_rows,  # w_rows [F, n]: one weight vector per fold
+    boot_w, feat_masks,
+    max_depth: int, max_bins: int, impurity_kind: str, n_stats: int,
+    min_instances_per_node: float = 1.0,
+    min_info_gain: float = 0.0,
+    node_masks: torch.Tensor | None = None,
+):
+    """Forest CV fan-out: the folds ride the weight axis over one shared
+    binning, bootstrap and set of subset masks, one fold after another
+    (the JAX package's fold ``vmap``), each fold's trees those of a
+    one-fold fit.  Returns heaps with leading [F, T]."""
+    return _stack_heaps([
+        fit_forest(bins, stats_row, w_rows[f], boot_w, feat_masks,
+                   max_depth, max_bins, impurity_kind, n_stats,
+                   min_instances_per_node, min_info_gain, node_masks)
+        for f in range(w_rows.shape[0])
+    ])
+
+
+def fit_forest_folds_grid(
+    bins, stats_row, w_rows, boot_w, feat_masks,
+    min_instances_g, min_info_gain_g,  # [G] per-grid-point scalars
+    max_depth: int, max_bins: int, impurity_kind: str, n_stats: int,
+    node_masks: torch.Tensor | None = None,
+):
+    """Grid x fold forest fan-out: grid points sharing the static shapes
+    (depth, bins, trees, subset strategy, seed, subsampling rate) differ
+    only in min instances and min info gain, and each runs
+    :func:`fit_forest_folds`, one after another (the JAX package's
+    ``lax.map``; its host chunking keeps TPU programs under the runtime
+    watchdog, which this card does not need).  Returns heaps with leading
+    [G, F, T]."""
+    return _stack_heaps([
+        fit_forest_folds(bins, stats_row, w_rows, boot_w, feat_masks,
+                         max_depth, max_bins, impurity_kind, n_stats,
+                         float(mi), float(mg), node_masks)
+        for mi, mg in zip(min_instances_g, min_info_gain_g)
     ])
 
 
@@ -492,13 +581,26 @@ def predict_forest_np(bins, heaps, max_depth: int):
     return (stats[..., 1:] / w).mean(axis=0)
 
 
+def seq_sum(parts):
+    """Sum of same-shape tensors added one after another, in list order.
+    A reduction over a stacked tree axis adds in an order that can differ
+    from row to row (a vectorized body and its tail on the CPU) and from
+    device to device; this order is every row's and every device's, and
+    numpy's axis-0 sum over the host route's [T, n, ...] stats."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
 def predict_forest(bins, heaps, max_depth: int):
     """Average normalized per-tree outputs [n, C-1] on the bins' device;
-    heaps are [T, ...] tensors there."""
+    heaps are [T, ...] tensors there.  The trees add in tree order
+    (``seq_sum``): rows with the same leaves get the same bits."""
     hf, ht, hl, hv = heaps
     per_tree = []
     for t in range(hf.shape[0]):
         out = predict_tree(bins, hf[t], ht[t], hl[t], hv[t], max_depth)
         w = torch.clamp(out[:, 0:1], min=1e-12)
         per_tree.append(out[:, 1:] / w)  # normalized stats (probs or mean)
-    return torch.stack(per_tree).mean(dim=0)
+    return seq_sum(per_tree) / len(per_tree)

@@ -19,15 +19,15 @@ split search, row routing and the GBT margins stay on the device; the
 heaps come back as numpy, so ``model_params`` keep the JAX package's
 layout and ``interop.load_reference_state`` carries them as they are.
 
-``backend="auto"`` means the estimator's device.  Not ported yet, and
-raising ``NotImplementedError`` with their ROADMAP.md queue 1 item: the
-host C++ learner (``backend="native"``, item 1), per-node random feature
-subsets (forests with ``feature_subset_p < 1``, item 6a: they need the
-JAX package's threefry generator) and the forests' fold and grid
-fan-outs (item 6a), the fused-training plan (item 9) and the traceable
-scoring mirror (item 7).  The GBT fold and grid fan-outs
+``backend="auto"`` means the estimator's device.  The forests' per-node
+random feature subsets come from the port's threefry generator
+(``utils/threefry.py``), bit for bit the JAX package's, so a forest grows
+the JAX package's trees.  The GBT and forest fold and grid fan-outs
 (``fit_arrays_folds``, ``fit_arrays_folds_grid``) serve the model
-selector's cross-validation.
+selector's cross-validation.  Not ported yet, and raising
+``NotImplementedError`` with their ROADMAP.md queue 1 item: the host C++
+learner (``backend="native"``, item 1), the fused-training plan (item 9)
+and the traceable scoring mirror (item 7).
 """
 from __future__ import annotations
 
@@ -43,14 +43,16 @@ from .tree_kernel import (
     bin_data,
     bins_device_dtype,
     effective_max_depth,
-    fit_forest,
+    fit_forest_folds_grid,
     fit_gbt_folds_grid,
     heap_impurity_importances,
+    node_subset_masks,
     predict_forest,
     predict_forest_np,
     predict_forest_stats_np,
     predict_tree,
     quantile_bin_edges,
+    seq_sum,
 )
 
 
@@ -186,13 +188,11 @@ class _TreeEnsembleBase(PredictorEstimator):
 class _RandomForest(_TreeEnsembleBase):
     single_tree = False
 
-    def fit_arrays_folds(self, X, y, W):
-        raise _not_ported("the forest CV fold fan-out", "6a")
-
-    def fit_arrays_folds_grid(self, X, y, W, grid):
-        raise _not_ported("the forest CV grid fan-out", "6a")
-
     def _forest_inputs(self, X, y):
+        """Host inputs of a forest fit, drawn as the JAX package draws them:
+        the edges, the stat channels, the Poisson bootstrap and then, from
+        the same ``RandomState``, one int32 seed per tree whose threefry
+        key picks the tree's per-node feature subsets."""
         n, d = X.shape
         p = self.params
         edges = _sampled_bin_edges(X, int(p["max_bins"]), int(p["seed"]))
@@ -209,41 +209,82 @@ class _RandomForest(_TreeEnsembleBase):
             subset_p = _subset_fraction(
                 p["feature_subset_strategy"], d, self.is_classification
             )
-        if subset_p < 1.0:
-            raise _not_ported(
-                f"per-node random feature subsets (feature_subset_strategy="
-                f"{p['feature_subset_strategy']!r} keeps {subset_p:.3g} of "
-                "the features; 'all' is ported)", "6a",
-            )
         feat_masks = np.ones((T, d), dtype=bool)
+        seed_ints = rng.randint(0, 2**31 - 1, size=T)
+        depth = self._forest_key(n, d, C)[0]
+        node_masks = node_subset_masks(seed_ints, subset_p, depth, d)
+        return (edges, stats, C, imp, classes, boot, feat_masks, node_masks,
+                depth)
+
+    def _forest_key(self, n: int, d: int, n_stats: int) -> tuple:
+        """What a forest fit's shapes and draws depend on, beyond min
+        instances and min info gain: the JAX package's grouping key."""
+        p = self.params
         depth = effective_max_depth(
             int(p["max_depth"]), n, float(p["min_instances_per_node"]),
-            d, int(p["max_bins"]), C, cap=str(p.get("depth_cap", "auto")),
+            d, int(p["max_bins"]), n_stats,
+            cap=str(p.get("depth_cap", "auto")),
         )
-        return edges, stats, C, imp, classes, boot, feat_masks, depth
+        return (depth, int(p["max_bins"]), int(p["num_trees"]),
+                str(p["feature_subset_strategy"]), int(p["seed"]),
+                float(p["subsampling_rate"]))
 
     def fit_arrays(self, X, y, w=None) -> Any:
-        n, d = X.shape
-        p = self.params
+        n = X.shape[0]
         w = np.ones(n, dtype=np.float32) if w is None else np.asarray(w, np.float32)
-        (edges, stats, C, imp, classes, boot, feat_masks,
-         depth) = self._forest_inputs(X, y)
-        bins = self._device_bins(X, edges)
-        dev = bins.device
-        heaps = fit_forest(
-            bins, _f32(stats, dev), _f32(w, dev), _f32(boot, dev),
-            torch.as_tensor(feat_masks, device=dev),
-            max_depth=depth, max_bins=int(p["max_bins"]),
-            impurity_kind=imp, n_stats=C,
-            min_instances_per_node=float(p["min_instances_per_node"]),
-            min_info_gain=float(p["min_info_gain"]),
-        )
-        return {
-            "edges": edges,
-            "heaps": _heaps_np(heaps),
-            "classes": classes,
-            "max_depth": depth,
-        }
+        return self.fit_arrays_folds(X, y, w[None, :])[0]
+
+    def fit_arrays_folds(self, X, y, W) -> list:
+        """CV fan-out: the folds (weight rows of W [F, n]) share one
+        binning, bootstrap and set of subset masks.  Returns one param dict
+        per fold."""
+        return self.fit_arrays_folds_grid(X, y, W, [{}])[0]
+
+    def fit_arrays_folds_grid(self, X, y, W, grid) -> list:
+        """Whole-grid forest CV: grid points sharing the JAX package's
+        grouping key (effective depth, bins, trees, subset strategy, seed,
+        subsampling rate) form a group that bins once (K2), draws its
+        bootstrap and subset masks once and fits as one grid x fold fan-out
+        over its min instances and min info gains.  Returns, per grid
+        point, one param dict per fold."""
+        _check_backend(str(self.params.get("backend", "auto")))
+        n, d = X.shape
+        cands = [self.with_params(**pmap) for pmap in grid]
+        n_stats = (len(np.unique(y)) + 1) if self.is_classification else 3
+        groups: dict[tuple, list[int]] = {}
+        for j, cand in enumerate(cands):
+            groups.setdefault(cand._forest_key(n, d, n_stats), []).append(j)
+        dev = resolve_device(self.device)
+        # one upload of X and the fold weights for every group
+        X_d, W_d = _f32(X, dev), _f32(W, dev)
+        results: list = [None] * len(grid)
+        for key, js in groups.items():
+            rep = cands[js[0]]
+            (edges, stats, C, imp, classes, boot, feat_masks, node_masks,
+             depth) = rep._forest_inputs(X, y)
+            bins = _bin_for_backend(X_d, edges, key[1])
+            heaps = fit_forest_folds_grid(
+                bins, _f32(stats, dev), W_d, _f32(boot, dev),
+                torch.as_tensor(feat_masks, device=dev),
+                [float(cands[j].params["min_instances_per_node"]) for j in js],
+                [float(cands[j].params["min_info_gain"]) for j in js],
+                max_depth=depth, max_bins=key[1], impurity_kind=imp,
+                n_stats=C,
+                node_masks=(None if node_masks is None
+                            else torch.as_tensor(node_masks, device=dev)),
+            )
+            heaps = _heaps_np(heaps)  # [G', F, T, ...]
+            for gi, j in enumerate(js):
+                results[j] = [
+                    {
+                        "edges": edges,
+                        "heaps": tuple(h[gi][f] for h in heaps),
+                        "classes": classes,
+                        "max_depth": depth,
+                    }
+                    for f in range(W_d.shape[0])
+                ]
+        return results
 
     def predict_arrays(self, params: Any, X: np.ndarray):
         bins = self._device_bins(X, params["edges"])
@@ -410,7 +451,7 @@ class _GBT(_TreeEnsembleBase):
         for t in range(hf.shape[0]):
             out = predict_tree(bins, hf[t], ht[t], hl[t], hv[t], max_depth)
             contribs.append(out[:, 1] / torch.clamp(out[:, 3], min=1e-12))
-        F = params["f0"] + params["step_size"] * torch.stack(contribs).sum(dim=0)
+        F = params["f0"] + params["step_size"] * seq_sum(contribs)
         return self._head(F.cpu().numpy().astype(np.float64))
 
     def predict_arrays_np(self, params: Any, X: np.ndarray):

@@ -8,10 +8,11 @@ core/.../impl/classification/BinaryClassificationModelSelector.scala:
 MaxTrees {50}, MinInfoGain {0.001,0.01,0.1}, MinInstancesPerNode
 {10,100}).  The grids are the JAX package's, constant for constant.
 
-The binary registry builds ``OpLogisticRegression`` and
-``OpGBTClassifier``; the reference's other default binary families raise
-``NotImplementedError`` naming their ROADMAP.md queue 1 item, as do the
-multiclass and regression selectors.  Every estimator a factory builds
+The binary registry builds every family of the JAX package's:
+``OpLogisticRegression``, ``OpRandomForestClassifier``,
+``OpGBTClassifier``, ``OpLinearSVC`` (the parameterless default four) and
+``OpNaiveBayes``.  The multiclass and regression selectors raise
+``NotImplementedError`` naming their ROADMAP.md queue 1 item.  Every estimator a factory builds
 takes the selector's ``device`` (``"cuda"`` by default; ``OpWorkflow``
 overrides it with its own).
 """
@@ -72,22 +73,20 @@ def _not_ported(what: str, item) -> NotImplementedError:
     )
 
 
-#: the reference's binary families that are not ported, by ROADMAP item
-_UNPORTED_BINARY = {
-    "OpRandomForestClassifier": "6a",  # per-node subsets need threefry
-    "OpLinearSVC": 8,
-    "OpNaiveBayes": 8,
-}
-
-
 def _binary_models(model_types: Optional[Sequence[str]], device: str):
+    from ..models.linear_svc import OpLinearSVC
     from ..models.logistic_regression import OpLogisticRegression
-    from ..models.trees import OpGBTClassifier
+    from ..models.naive_bayes import OpNaiveBayes
+    from ..models.trees import OpGBTClassifier, OpRandomForestClassifier
 
     registry = {
         "OpLogisticRegression": lambda: (
             OpLogisticRegression(device=device), lr_grid()),
+        "OpRandomForestClassifier": lambda: (
+            OpRandomForestClassifier(device=device), rf_grid()),
         "OpGBTClassifier": lambda: (OpGBTClassifier(device=device), gbt_grid()),
+        "OpLinearSVC": lambda: (OpLinearSVC(device=device), lr_grid()),
+        "OpNaiveBayes": lambda: (OpNaiveBayes(device=device), [{}]),
     }
     # reference defaults: LR, RF, GBT, LinearSVC
     # (BinaryClassificationModelSelector.scala:46-100)
@@ -97,9 +96,6 @@ def _binary_models(model_types: Optional[Sequence[str]], device: str):
         "OpGBTClassifier",
         "OpLinearSVC",
     ]
-    for m in wanted:
-        if m in _UNPORTED_BINARY:
-            raise _not_ported(f"the {m} family", _UNPORTED_BINARY[m])
     return [registry[m]() for m in wanted]
 
 
@@ -118,10 +114,9 @@ def _selector(validator, model_types, splitter, seed, models_and_parameters,
 
 class BinaryClassificationModelSelector:
     """Factory (reference: BinaryClassificationModelSelector cv/ts
-    constructors).  Only ``OpLogisticRegression`` and ``OpGBTClassifier``
-    are ported, so ``model_types_to_use`` must name those (or
-    ``models_and_parameters`` list estimators); the reference's default
-    family list raises."""
+    constructors); with no ``model_types_to_use`` it cross-validates
+    logistic regression, the random forest, the GBT and the linear SVM at
+    their default grids."""
 
     @staticmethod
     def with_cross_validation(
