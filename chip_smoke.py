@@ -16,7 +16,7 @@ two agree:
 * the selector, transmogrify(label=...) -> SanityChecker ->
   BinaryClassificationModelSelector (3-fold CV over logistic regression's
   8-point and the GBT's 9-point default grids) -> holdout AuROC -> score(),
-  on 1M rows, and under workflow-level CV on 100k rows (both kernels, K1
+  on 200k rows, and under workflow-level CV on 100k rows (both kernels, K1
   once per fold under workflow CV); its device rank metrics on the card
   against the CPU; and at 100k rows on the card against the CPU, whose
   training runs in a child process (``python3 chip_smoke.py --selector-cpu
@@ -27,9 +27,22 @@ two agree:
   its four default families (logistic regression and the linear SVM at 8
   grid points, the random forest with per-node feature subsets at 18, the
   GBT at 9) on 1M rows on the card, counted, every kernel call held
-  against its plain version, and profiled; under workflow CV on 100k rows;
-  and at 20k rows twice on the card (the forest and GBT grid heaps
-  bit-identical) against a CPU child (``--default-selector-cpu N``).
+  against its plain version, and profiled; under workflow CV on 100k rows
+  (its in-fold kernel shapes timed); and at 20k rows twice on the card
+  (the forest and GBT grid heaps bit-identical) against a CPU child
+  (``--default-selector-cpu N``);
+* the multiclass and regression selectors on the planted labels of
+  ``synthetic_passengers_labelled``: transmogrify(label=...) ->
+  SanityChecker -> the parameterless MultiClassificationModelSelector
+  (label ``tier``; LR, the forest, the decision tree, naive Bayes: 36
+  candidates) or RegressionModelSelector (label ``response``; linear
+  regression, the forest and GBT regressors: 35) -> train(), score(),
+  evaluate() on 1M rows on the card, counted, every kernel call held
+  against its plain version, the holdout F1 or RMSE held against the
+  planted ceiling; and at 20k rows with cut tree grids twice on the card
+  (the grid heaps bit-identical) against a CPU child each
+  (``--multiclass-selector-cpu N``, ``--regression-selector-cpu N``); and
+  one one-vs-rest LR fit on the card against the CPU.
 
 Every phase asserts; any failure exits non-zero.
 
@@ -598,7 +611,10 @@ def stage_walls(build, device: str, data) -> list:
 
 # -- the selector -----------------------------------------------------------------
 
-SELECTOR_ROWS = 1_000_000
+#: the LR and GBT selector's plain run (1M rows until the parameterless
+#: selector's 1M-row run came to drive the same families; cut to keep the
+#: whole run in its limit as the multiclass and regression phases came)
+SELECTOR_ROWS = 200_000
 SELECTOR_CMP_ROWS = 100_000       # card against CPU
 SELECTOR_TYPES = ["OpLogisticRegression", "OpGBTClassifier"]
 SELECTOR_AUROC_RANGE = (0.70, 0.755)  # the holdout AuROC gate of PERF.md
@@ -609,8 +625,9 @@ CMP_METRIC_ATOL = {"approx": 1e-3, "exact": 1e-5}
 #: (the margins of a winner without probabilities, the linear SVM)
 CMP_PROB_ATOL = {"OpLogisticRegression": 1e-4, "OpGBTClassifier": 1e-3,
                  "OpRandomForestClassifier": 1e-3, "OpLinearSVC": 1e-4}
-#: the batched fits inside a validation (its scoring is the rest)
-FIT_PHASES = ("lr_batch", "svc_batch", "gbt_grid", "rf_grid")
+#: the fits inside a validation (its scoring is the rest)
+FIT_PHASES = ("lr_batch", "lr_folds", "svc_batch", "linreg_batch",
+              "nb_folds", "gbt_grid", "rf_grid", "dt_grid")
 #: trees deeper than this split nodes of a few dozen rows, where the card's
 #: and the CPU's float32 roundings (exp, reduction orders) flip near-tied
 #: splits: their mean metrics are held to CMP_DEEP_TREE_ATOL (the depth-12
@@ -628,7 +645,7 @@ RANK_METRICS_ATOL = 1e-6          # device rank metrics, card against CPU
 #: repeats their fits, so a smaller size keeps the whole run in its limit)
 WCV_ROWS = 100_000
 #: the parameterless selector (LR 8, forest 18 at 50 trees, GBT 9 at 20
-#: trees, linear SVM 8 grid points): at SELECTOR_ROWS plain, under workflow
+#: trees, linear SVM 8 grid points): at SLICE_ROWS plain, under workflow
 #: CV at WCV_ROWS, and card against CPU at DEFAULT_CMP_ROWS
 DEFAULT_CMP_ROWS = 20_000
 DEFAULT_CANDIDATES = 8 + 18 + 9 + 8
@@ -658,39 +675,54 @@ def build_selector(device: str, model_types=SELECTOR_TYPES):
 def selector_walls(sync: bool, keep_grid: bool = False):
     """Within the block, time the selector's phases by a shim on each
     method (the card synchronised at both ends of a call, so a wall holds
-    its device work): the LR and SVM fold x grid fits, the GBT and forest
-    grid fits, the whole validation, the winner's refit (a forest's refit
-    runs through its grid fit, which then counts as refit only), workflow
-    CV and the selector's fit.  With ``keep_grid``, also keep what every
-    GBT and forest grid fit returned.  Yields {"walls": {phase: s},
-    "grid": [GBT grid fits], "rf_grid": [forest grid fits]}."""
+    its device work): the linear families' fold x grid fits (LR, SVM and
+    linear regression batches, the multiclass LR's fold fits, naive
+    Bayes' fold fits), the GBT, forest and decision-tree grid fits, the
+    whole validation, the winner's refit, workflow CV and the selector's
+    fit.  A fit inside another fit or a refit counts as the outer one
+    only.  With ``keep_grid``, also keep what every GBT, forest and tree
+    grid fit returned.  Yields {"walls": {phase: s}, "grid": [GBT grid
+    fits], "rf_grid": [forest grid fits], "dt_grid": [tree grid fits]}."""
+    from transmogrifai_tpu_torch.models.linear_regression import (
+        OpLinearRegression,
+    )
     from transmogrifai_tpu_torch.models.linear_svc import OpLinearSVC
     from transmogrifai_tpu_torch.models.logistic_regression import (
         OpLogisticRegression,
     )
+    from transmogrifai_tpu_torch.models.naive_bayes import OpNaiveBayes
     from transmogrifai_tpu_torch.models.trees import _GBT, _RandomForest
     from transmogrifai_tpu_torch.selector.model_selector import ModelSelector
     from transmogrifai_tpu_torch.selector.validator import OpValidator
 
-    rec = {"walls": {}, "grid": [], "rf_grid": []}
+    rec = {"walls": {}, "grid": [], "rf_grid": [], "dt_grid": []}
     targets = [(OpLogisticRegression, "fit_arrays_batched", "lr_batch"),
+               (OpLogisticRegression, "fit_arrays_folds", "lr_folds"),
                (OpLinearSVC, "fit_arrays_batched", "svc_batch"),
+               (OpLinearRegression, "fit_arrays_batched", "linreg_batch"),
+               (OpNaiveBayes, "fit_arrays_folds", "nb_folds"),
                (_GBT, "fit_arrays_folds_grid", "gbt_grid"),
                (_RandomForest, "fit_arrays_folds_grid", "rf_grid"),
                (OpValidator, "validate", "validate"),
                (OpLogisticRegression, "fit_arrays", "refit"),
                (OpLinearSVC, "fit_arrays", "refit"),
+               (OpLinearRegression, "fit_arrays", "refit"),
+               (OpNaiveBayes, "fit_arrays", "refit"),
                (_GBT, "fit_arrays", "refit"),
                (_RandomForest, "fit_arrays", "refit"),
                (ModelSelector, "find_best_estimator", "workflow_cv"),
                (ModelSelector, "fit_model", "selector_fit")]
     saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in targets]
+    containers = ("validate", "workflow_cv", "selector_fit")
     active: list = []
 
     def shim(fn, phase):
         def timed_call(*args, **kw):
-            counted = "refit" not in active
-            active.append(phase)
+            name = phase
+            if phase == "rf_grid" and getattr(args[0], "single_tree", False):
+                name = "dt_grid"
+            counted = not any(a not in containers for a in active)
+            active.append(name)
             if sync:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -701,10 +733,10 @@ def selector_walls(sync: bool, keep_grid: bool = False):
             if sync:
                 torch.cuda.synchronize()
             if counted:
-                rec["walls"][phase] = (rec["walls"].get(phase, 0.0)
-                                       + time.perf_counter() - t0)
-                if keep_grid and phase in ("gbt_grid", "rf_grid"):
-                    rec["grid" if phase == "gbt_grid" else phase].append(out)
+                rec["walls"][name] = (rec["walls"].get(name, 0.0)
+                                      + time.perf_counter() - t0)
+                if keep_grid and name in ("gbt_grid", "rf_grid", "dt_grid"):
+                    rec["grid" if name == "gbt_grid" else name].append(out)
             return out
         return timed_call
 
@@ -764,6 +796,7 @@ def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
     return {
         "model": model, "train_s": t1 - t0, "score_s": t3 - t2,
         "walls": walls, "grid": rec["grid"], "rf_grid": rec["rf_grid"],
+        "dt_grid": rec["dt_grid"],
         "launches": counts,
         "summary": summary, "chosen": chosen,
         "results": summary["validation_results"],
@@ -941,8 +974,11 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
     assert (SELECTOR_AUROC_RANGE[0] <= dw["holdout_auroc"]
             <= SELECTOR_AUROC_RANGE[1]), dw["holdout_auroc"]
     assert_counted(dw, wkept)
-    hold_path_inputs(kernels, wkept, {}, errs, bin_errs, timed=False)
+    # the in-fold shapes (30-90k rows) timed too
+    wshapes: dict = {}
+    hold_path_inputs(kernels, wkept, wshapes, errs, bin_errs)
     del wkept
+    log_path_shapes(f"the {tag} workflow CV path's", wshapes)
 
     # card against CPU at DEFAULT_CMP_ROWS, the rank-metric mode pinned
     cdata = synthetic_passengers(DEFAULT_CMP_ROWS, seed=42, with_text=False)
@@ -992,7 +1028,410 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
         f"card's forest and GBT grid heaps ({n_heaps} trees) bit-identical "
         "across two trainings")
     return {"plain": dp, "workflow_cv": dw, "shapes": shapes,
-            "busy_ms": busy_ms}
+            "wcv_shapes": wshapes, "busy_ms": busy_ms}
+
+
+# -- the multiclass and regression selectors -------------------------------------
+
+#: the planted labels of ``synthetic_passengers_labelled`` and the
+#: parameterless selector of each problem
+PROBLEM_LABEL = {"multiclass": "tier", "regression": "response"}
+PROBLEM_CANDIDATES = {"multiclass": 8 + 18 + 9 + 1, "regression": 8 + 18 + 9}
+PROBLEM_EVALUATOR = {"multiclass": "OpMultiClassificationEvaluator",
+                     "regression": "OpRegressionEvaluator"}
+#: card against CPU on PROBLEM_CMP_ROWS rows, the grids cut so that a CPU
+#: child's level loops stay short (full grids of the linear families, the
+#: decision tree and naive Bayes; the forest and the GBT at depths 3 and 6)
+PROBLEM_CMP_ROWS = 20_000
+CMP_F1_ATOL = 5e-4   # one flipped argmax row moves F1 by ~1.5e-4 here
+CMP_RMSE_RTOL = {"OpLinearRegression": 1e-5}  # trees: CMP_TREE_RMSE_RTOL
+CMP_TREE_RMSE_RTOL = 1e-4
+#: winner scores card against CPU: probabilities (atol) of a classifier,
+#: predictions (rtol) of a regressor, where an atol of the same size
+#: times the predictions' standard deviation covers predictions near 0
+#: (the response is centred near 0: a relative error alone is unbounded)
+CMP_SCORE_TOL = {"OpLogisticRegression": 1e-4, "OpLinearRegression": 1e-4}
+CMP_TREE_SCORE_TOL = 1e-3
+#: the holdout gates against the planted ceilings
+F1_GATE = (-0.05, 0.005)            # ceiling less 0.05, ceiling plus 0.005
+RMSE_GATE = (0.98, 1.05)            # times the ceiling RMSE
+
+
+def problem_cmp_models(problem: str, device: str):
+    """The card-against-CPU grids of ``problem``'s default families."""
+    from transmogrifai_tpu_torch.models import trees
+    from transmogrifai_tpu_torch.selector import factories as fac
+
+    forest = [{"max_depth": d, "num_trees": 50, "min_info_gain": 0.001,
+               "min_instances_per_node": 10} for d in (3, 6)]
+    if problem == "multiclass":
+        from transmogrifai_tpu_torch.models.logistic_regression import (
+            OpLogisticRegression,
+        )
+        from transmogrifai_tpu_torch.models.naive_bayes import OpNaiveBayes
+
+        return [
+            (OpLogisticRegression(device=device), fac.lr_grid()),
+            (trees.OpRandomForestClassifier(device=device), forest),
+            (trees.OpDecisionTreeClassifier(device=device),
+             [{"max_depth": d, "min_info_gain": g}
+              for d in fac.MAX_DEPTH for g in fac.MIN_INFO_GAIN]),
+            (OpNaiveBayes(device=device), [{}]),
+        ]
+    from transmogrifai_tpu_torch.models.linear_regression import (
+        OpLinearRegression,
+    )
+
+    return [
+        (OpLinearRegression(device=device), fac.linreg_grid()),
+        (trees.OpRandomForestRegressor(device=device), forest),
+        (trees.OpGBTRegressor(device=device),
+         [{"max_depth": d, "num_trees": 20, "min_info_gain": 0.001}
+          for d in (3, 6)]),
+    ]
+
+
+def build_problem_selector(device: str, problem: str, models=None):
+    """transmogrify(label=...) -> SanityChecker -> the parameterless
+    multiclass or regression selector (``models``: other candidates)."""
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.selector import factories
+
+    label = FeatureBuilder.RealNN(PROBLEM_LABEL[problem]).as_response()
+    _, preds = passenger_features()
+    vec = transmogrify(preds, label=label)
+    checked = SanityChecker().set_input(label, vec).get_output()
+    factory = (factories.MultiClassificationModelSelector
+               if problem == "multiclass" else
+               factories.RegressionModelSelector)
+    selector = (factory() if models is None else
+                factory.with_cross_validation(models_and_parameters=models))
+    pred = selector.set_input(label, checked).get_output()
+    wf = OpWorkflow(device=device).set_result_features(pred)
+    return wf, label, checked, pred
+
+
+def run_problem_selector(device: str, data, problem: str, kernels=None,
+                         keep_grid: bool = False, models=None) -> dict:
+    """train(), score() and evaluate() of ``problem``'s selector workflow
+    on ``device``; with ``kernels``, count each kernel's launches in
+    train() and score()."""
+    from transmogrifai_tpu_torch.evaluators import multiclass, regression
+
+    wf, label, checked, pred = build_problem_selector(device, problem, models)
+    wf.set_input_dataset(data)
+    counts = {}
+    if kernels is not None:
+        kernels.reset_launches()
+    with selector_walls(device == "cuda", keep_grid) as rec:
+        t0 = time.perf_counter()
+        model = wf.train()
+        t1 = time.perf_counter()
+    if kernels is not None:
+        counts["train"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        kernels.reset_launches()
+    t2 = time.perf_counter()
+    scored = model.score(data)
+    t3 = time.perf_counter()
+    if kernels is not None:
+        counts["score"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    ev_mod = multiclass if problem == "multiclass" else regression
+    evaluator = getattr(ev_mod, PROBLEM_EVALUATOR[problem])()
+    train_metrics = model.evaluate(evaluator).to_json()  # the training rows
+    (chosen,) = [s for s in model.stages if type(s).__name__ == "SelectedModel"]
+    summary = chosen.metadata["model_selector_summary"]
+    walls = rec["walls"]
+    walls["scoring"] = walls.get("validate", 0.0) - sum(
+        walls.get(k, 0.0) for k in FIT_PHASES)
+    col = scored[pred.name]
+    (checker,) = [s for s in model.stages
+                  if type(s).__name__ == "SanityCheckerModel"]
+    return {
+        "train_s": t1 - t0, "score_s": t3 - t2, "walls": walls,
+        "grid": rec["grid"], "rf_grid": rec["rf_grid"],
+        "dt_grid": rec["dt_grid"], "launches": counts, "summary": summary,
+        "results": summary["validation_results"],
+        "keep": checker.indices_to_keep,
+        "holdout": summary["holdout_metrics"][PROBLEM_EVALUATOR[problem]],
+        "train_metrics": {k: v for k, v in train_metrics.items()
+                          if isinstance(v, float)},
+        "scores": np.asarray(col.probability if col.probability is not None
+                             else col.prediction, np.float64),
+        # the design matrix and label the card-against-CPU checks reuse
+        "design": (np.asarray(scored[checked.name].values),
+                   np.asarray(data[label.name].values)) if keep_grid else None,
+    }
+
+
+def log_problem_selector(tag: str, r: dict) -> None:
+    w = r["walls"]
+    fits = ", ".join(f"{k} {w[k]:.3f} s" for k in FIT_PHASES if k in w)
+    log(f"[{tag}] train {r['train_s']:.3f} s, score {r['score_s']:.3f} s; "
+        f"{fits}, validation scoring {w['scoring']:.3f} s, refit "
+        f"{w.get('refit', 0.0):.3f} s, selector fit "
+        f"{w.get('selector_fit', 0.0):.3f} s; kept columns {len(r['keep'])}")
+    for c in r["results"]:
+        log(f"[{tag}]   {c['model_type']} {json.dumps(c['params'], sort_keys=True)}: "
+            f"mean {c['metric']:.6f}, folds "
+            f"{', '.join(f'{m:.6f}' for m in c['fold_metrics'])}")
+    s = r["summary"]
+    log(f"[{tag}] winner {s['best_model_type']} "
+        f"{json.dumps(s['best_params'], sort_keys=True)} (mean "
+        f"{s['validation_metric']['name']} "
+        f"{s['validation_metric']['value']:.6f}); holdout "
+        f"{json.dumps(r['holdout'], sort_keys=True)}; evaluate() on the "
+        f"training rows {json.dumps(r['train_metrics'], sort_keys=True)}; "
+        f"launches {r['launches']}")
+
+
+def problem_cpu_main(problem: str, rows: int) -> int:
+    """``--multiclass-selector-cpu N`` / ``--regression-selector-cpu N``:
+    train and score ``problem``'s selector workflow with the cut grids on
+    the CPU at N rows and write what the card's run is held against (the
+    metrics, the winner's scores, the grid fits' heaps) to stdout as a
+    pickle."""
+    import pickle
+
+    torch.set_num_threads(2)  # the card's phases run beside this process
+    torch.set_float32_matmul_precision("highest")
+    from transmogrifai_tpu_torch.examples.synthetic import (
+        synthetic_passengers_labelled,
+    )
+
+    data = synthetic_passengers_labelled(rows, seed=42, with_text=False)
+    r = run_problem_selector("cpu", data, problem, keep_grid=True,
+                             models=problem_cmp_models(problem, "cpu"))
+    out = {k: r[k] for k in ("train_s", "score_s", "walls", "results",
+                             "holdout", "scores", "grid", "rf_grid",
+                             "dt_grid", "keep")}
+    out["winner"] = [r["summary"]["best_model_type"],
+                     r["summary"]["best_params"]]
+    sys.stdout.buffer.write(pickle.dumps(out))
+    return 0
+
+
+def start_problem_cpu(problem: str) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, __file__, f"--{problem}-selector-cpu",
+         str(PROBLEM_CMP_ROWS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def finish_problem_cpu(child: subprocess.Popen) -> dict:
+    import pickle
+
+    out, err = child.communicate(timeout=900)
+    assert child.returncode == 0, (
+        f"the CPU selector run failed ({child.returncode}): "
+        f"{err.decode()[-3000:]}")
+    return pickle.loads(out)
+
+
+def heap_agreement(card: dict, cpu: dict, x: np.ndarray, rtol: float,
+                   atol: float) -> dict:
+    """Trees of one grid fit, card against CPU, as
+    ``tests/torch_parity.compare_trees`` compares them but counting
+    instead of asserting: trees equal node for node (stats within rtol,
+    atol), nodes where the two split differently with the same children
+    (exact ties: the same rows either way), nodes where they split
+    differently with other children (near ties, float32 sums rounding
+    apart), and the rows whose path passes either kind."""
+    from transmogrifai_tpu_torch.models.tree_kernel import bin_data
+
+    bins = bin_data(np.asarray(x, np.float32), cpu["edges"])
+    rows = np.arange(bins.shape[0])
+    out = {"trees": 0, "equal_trees": 0, "tie_nodes": 0, "near_tie_nodes": 0}
+    off_rows = np.zeros(bins.shape[0], bool)
+    depth = cpu["max_depth"]
+    for t in range(cpu["heaps"][0].shape[0]):
+        g = [np.asarray(h[t]) for h in card["heaps"]]
+        w = [np.asarray(h[t]) for h in cpu["heaps"]]
+        out["trees"] += 1
+        stop, todo = [], [0]
+        while todo:
+            i = todo.pop()
+            if w[2][i] or g[2][i] != w[2][i] or 2 * i + 2 >= len(w[0]):
+                continue
+            kids = [2 * i + 1, 2 * i + 2]
+            if (g[0][i], g[1][i]) == (w[0][i], w[1][i]):
+                todo.extend(kids)
+                continue
+            same = (np.allclose(g[3][kids], w[3][kids], rtol=rtol, atol=atol)
+                    or np.allclose(g[3][kids], w[3][kids][::-1], rtol=rtol,
+                                   atol=atol))
+            out["tie_nodes" if same else "near_tie_nodes"] += 1
+            stop.append(i)
+        if not stop and all(np.array_equal(a, b) for a, b in zip(g[:3], w[:3])) \
+                and np.allclose(g[3], w[3], rtol=rtol, atol=atol):
+            out["equal_trees"] += 1
+        for heap in (g, w):
+            idx = np.zeros(bins.shape[0], np.int64)
+            for _ in range(depth):
+                halt = heap[2][idx] | np.isin(idx, stop)
+                nxt = idx * 2 + 1 + (bins[rows, heap[0][idx]] > heap[1][idx])
+                idx = np.where(halt, idx, nxt)
+            off_rows |= np.isin(idx, stop)
+    out["rows"] = int(off_rows.sum())
+    return out
+
+
+def problem_selector_phase(kernels, problem: str, data, errs: list,
+                           bin_errs: list, cpu_child: subprocess.Popen,
+                           timings: dict) -> dict:
+    """``[multiclass_selector]`` / ``[regression_selector]``: the
+    parameterless selector of ``problem`` trained, scored and evaluated on
+    the card on ``data`` (counted, every kernel call held against its
+    plain version and timed per shape unless ``timings`` hold the shape),
+    its holdout metric held against the planted ceiling; then at
+    PROBLEM_CMP_ROWS twice on the card (the grid fits' heaps
+    bit-identical) against the CPU child's training."""
+    from transmogrifai_tpu_torch.examples import synthetic
+
+    tag = f"{problem}_selector"
+    # import every module of the path first: kernel_inputs shims the
+    # wrappers that loaded modules hold
+    build_problem_selector("cuda", problem)
+    with kernel_inputs(kernels) as kept:
+        r = run_problem_selector("cuda", data, problem, kernels)
+    log_problem_selector(tag, r)
+    assert len(r["results"]) == PROBLEM_CANDIDATES[problem], len(r["results"])
+    assert {c["rank_metric_mode"] for c in r["results"]} == {"exact"}
+    rl = r["launches"]
+    assert rl["train"]["fused_moments"] == 1, rl
+    # 3 bucketizer fits, one binning per tree depth group, one per tree
+    # validation prediction (3 folds x 18 forest and 9 tree or GBT points)
+    assert rl["train"]["bin_matrix"] >= 3 + 3 + 3 + 3 * (18 + 9), rl
+    assert_counted(r, kept)
+    if problem == "multiclass":
+        ceiling = synthetic.BAYES_F1_OBSERVED
+        f1 = r["holdout"]["F1"]
+        lo, hi = ceiling + F1_GATE[0], ceiling + F1_GATE[1]
+        assert lo <= f1 <= hi, (f1, lo, hi)
+        gate = (f"holdout F1 {f1:.6f} in [{lo:.4f}, {hi:.4f}] (planted "
+                f"ceiling {ceiling})")
+    else:
+        ceiling = synthetic.BEST_RMSE_OBSERVED
+        rmse = r["holdout"]["RootMeanSquaredError"]
+        lo, hi = RMSE_GATE[0] * ceiling, RMSE_GATE[1] * ceiling
+        assert lo <= rmse <= hi, (rmse, lo, hi)
+        gate = (f"holdout RMSE {rmse:.6f} in [{lo:.6f}, {hi:.6f}] (planted "
+                f"ceiling {ceiling}), R2 {r['holdout']['R2']:.6f} (ceiling "
+                f"{synthetic.BEST_R2_OBSERVED})")
+    log(f"[{tag}] gate: {gate}")
+    shapes: dict = {}
+    hold_path_inputs(kernels, kept, shapes, errs, bin_errs, timings=timings)
+    del kept
+    log_path_shapes(f"the {tag} path's", shapes)
+
+    # card against CPU at PROBLEM_CMP_ROWS with the cut grids
+    cdata = synthetic.synthetic_passengers_labelled(
+        PROBLEM_CMP_ROWS, seed=42, with_text=False)
+    d1, d2 = (run_problem_selector("cuda", cdata, problem, keep_grid=True,
+                                   models=problem_cmp_models(problem, "cuda"))
+              for _ in range(2))
+    ctag = f"{tag} {PROBLEM_CMP_ROWS} rows"
+    log_problem_selector(ctag, d1)
+    n_heaps = 0
+    for grid in ("grid", "rf_grid", "dt_grid"):
+        assert len(d1[grid]) == len(d2[grid])
+        for by_grid1, by_grid2 in zip(d1[grid], d2[grid]):
+            for folds1, folds2 in zip(by_grid1, by_grid2):
+                for p1, p2 in zip(folds1, folds2):
+                    assert all(np.array_equal(a, b)
+                               for a, b in zip(p1["heaps"], p2["heaps"])), \
+                        f"the card's {grid} heaps differ between two trainings"
+                    n_heaps += int(p1["heaps"][0].shape[0])
+    sc = finish_problem_cpu(cpu_child)
+    log(f"[{ctag}] cpu: train {sc['train_s']:.3f} s, score "
+        f"{sc['score_s']:.3f} s, holdout {json.dumps(sc['holdout'], sort_keys=True)}")
+    assert d1["keep"] == sc["keep"], (d1["keep"], sc["keep"])
+    metric_diff = 0.0
+    assert len(d1["results"]) == len(sc["results"])
+    for c_gpu, c_cpu in zip(d1["results"], sc["results"]):
+        assert (c_gpu["model_type"], c_gpu["params"]) == \
+            (c_cpu["model_type"], c_cpu["params"])
+        diff = abs(c_gpu["metric"] - c_cpu["metric"])
+        if problem == "multiclass":
+            tol = CMP_F1_ATOL
+        else:
+            tol = CMP_RMSE_RTOL.get(c_gpu["model_type"],
+                                    CMP_TREE_RMSE_RTOL) * abs(c_cpu["metric"])
+        log(f"[{ctag}]   {c_gpu['model_type']} "
+            f"{json.dumps(c_gpu['params'], sort_keys=True)}: card "
+            f"{c_gpu['metric']:.7f}, cpu {c_cpu['metric']:.7f}, |diff| "
+            f"{diff:.3g} (tolerance {tol:.3g})")
+        assert diff <= tol, (c_gpu, c_cpu)
+        metric_diff = max(metric_diff, diff)
+    win_gpu = [d1["summary"]["best_model_type"], d1["summary"]["best_params"]]
+    assert win_gpu == sc["winner"], (win_gpu, sc["winner"])
+    tol = CMP_SCORE_TOL.get(win_gpu[0], CMP_TREE_SCORE_TOL)
+    if problem == "multiclass":
+        sdiff = float(np.abs(d1["scores"] - sc["scores"]).max())
+    else:
+        scale = np.abs(sc["scores"]) + float(np.std(sc["scores"]))
+        sdiff = float((np.abs(d1["scores"] - sc["scores"]) / scale).max())
+    assert sdiff <= tol, (sdiff, tol)
+    # the trees card against CPU (gini counts exact; variance channels
+    # float32 sums in other orders), counted, not asserted: the metric
+    # gates above are the check
+    x_cmp = d1["design"][0]
+    trees_cmp = {}
+    for grid in ("grid", "rf_grid", "dt_grid"):
+        tally: dict = {}
+        for by_grid_c, by_grid_h in zip(d1[grid], sc[grid]):
+            for folds_c, folds_h in zip(by_grid_c, by_grid_h):
+                for p_c, p_h in zip(folds_c, folds_h):
+                    for k, v in heap_agreement(p_c, p_h, x_cmp, 1e-4,
+                                               1e-5).items():
+                        tally[k] = tally.get(k, 0) + v
+        if tally:
+            trees_cmp[grid] = tally
+    log(f"[{ctag}] cuda vs cpu: the same kept columns and winner {win_gpu}, "
+        f"max |mean metric diff| {metric_diff:.3g}, max winner score diff "
+        f"{sdiff:.3g} ({'abs' if problem == 'multiclass' else 'rel to |cpu| + sd'}, "
+        f"tolerance {tol:g}); the card's grid heaps ({n_heaps} trees) "
+        f"bit-identical across two trainings; trees card vs cpu {trees_cmp} "
+        "(tie and near-tie nodes, the rows they touch summed over trees)")
+    out = {"run": r, "shapes": shapes, "cmp": {
+        "metric_diff": metric_diff, "score_diff": sdiff,
+        "trees": trees_cmp, "cpu_train_s": sc["train_s"]}}
+    if problem == "multiclass":
+        out["ovr"] = ovr_card_vs_cpu(*d1["design"])
+    return out
+
+
+def ovr_card_vs_cpu(x: np.ndarray, y: np.ndarray) -> dict:
+    """One ``family="ovr"`` multiclass LR fit on the card against the CPU
+    on the 20k-row design matrix: betas within rtol 1e-4, atol 1e-5 (the
+    binary Newton's card-against-CPU tolerance), probabilities within
+    1e-4."""
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+
+    kw = dict(family="ovr", reg_param=0.01, elastic_net_param=0.1)
+    card = OpLogisticRegression(device="cuda", **kw)
+    cpu = OpLogisticRegression(device="cpu", **kw)
+    t0 = time.perf_counter()
+    g = card.fit_arrays(x, y)
+    t1 = time.perf_counter()
+    w = cpu.fit_arrays(x, y)
+    assert g["family"] == w["family"] == "ovr", (g["family"], w["family"])
+    np.testing.assert_allclose(g["betas"], w["betas"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(g["intercepts"], w["intercepts"], rtol=1e-4,
+                               atol=1e-5)
+    pdiff = float(np.abs(card.predict_arrays(g, x)[2]
+                         - cpu.predict_arrays(w, x)[2]).max())
+    assert pdiff <= 1e-4, pdiff
+    bdiff = float(np.abs(g["betas"] - w["betas"]).max())
+    log(f"[multiclass_selector] family='ovr' LR on {tuple(x.shape)}, "
+        f"{len(w['classes'])} classes: card {1e3 * (t1 - t0):.1f} ms, max "
+        f"|beta diff| {bdiff:.3g}, max |prob diff| {pdiff:.3g}")
+    return {"beta_diff": bdiff, "prob_diff": pdiff}
 
 
 def main() -> int:
@@ -1000,6 +1439,9 @@ def main() -> int:
         return selector_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--default-selector-cpu":
         return selector_cpu_main(int(sys.argv[2]), None)
+    for problem in PROBLEM_LABEL:
+        if len(sys.argv) == 3 and sys.argv[1] == f"--{problem}-selector-cpu":
+            return problem_cpu_main(problem, int(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1007,7 +1449,9 @@ def main() -> int:
     # the start, beside the card's phases (the [default_selector] phase's
     # launch-bound forest loop then runs with the host to itself)
     children = [start_selector_cpu(SELECTOR_CMP_ROWS),
-                start_selector_cpu(DEFAULT_CMP_ROWS, "--default-selector-cpu")]
+                start_selector_cpu(DEFAULT_CMP_ROWS, "--default-selector-cpu"),
+                start_problem_cpu("multiclass"),
+                start_problem_cpu("regression")]
     try:
         return card_main(*children)
     finally:
@@ -1018,11 +1462,14 @@ def main() -> int:
 
 
 def card_main(cpu_child: subprocess.Popen,
-              default_cpu_child: subprocess.Popen) -> int:
+              default_cpu_child: subprocess.Popen,
+              multiclass_cpu_child: subprocess.Popen,
+              regression_cpu_child: subprocess.Popen) -> int:
     from transmogrifai_tpu_torch.examples.synthetic import (
         BAYES_AUROC_OBSERVED,
         synthetic_design_matrix,
         synthetic_passengers,
+        synthetic_passengers_labelled,
     )
     from transmogrifai_tpu_torch.models.trees import _sampled_bin_edges
     from transmogrifai_tpu_torch.parallel import kernels
@@ -1275,7 +1722,7 @@ def card_main(cpu_child: subprocess.Popen,
     from transmogrifai_tpu_torch.evaluators.binary import masked_rank_metrics
     from transmogrifai_tpu_torch.selector import validator as validator_mod
 
-    assert SELECTOR_ROWS == SLICE_ROWS
+    sdata = synthetic_passengers(SELECTOR_ROWS, seed=42, with_text=False)
     wdata = synthetic_passengers(WCV_ROWS, seed=42, with_text=False)
     rank_inputs = []
 
@@ -1288,7 +1735,7 @@ def card_main(cpu_child: subprocess.Popen,
     validator_mod.masked_rank_metrics = keep_rank_inputs
     try:
         with kernel_inputs(kernels) as sel_inputs:
-            sp, sby_name = profile(lambda: run_selector("cuda", data, kernels))
+            sp, sby_name = profile(lambda: run_selector("cuda", sdata, kernels))
     finally:
         validator_mod.masked_rank_metrics = masked_rank_metrics
     log_selector("selector", sp)
@@ -1315,14 +1762,15 @@ def card_main(cpu_child: subprocess.Popen,
     assert_counted(sp, sel_inputs)
     assert_counted(swc, cv_inputs)
     # each kernel on every input the two selector runs gave it, timed at
-    # the 1M-row run's shapes
+    # the plain run's shapes
     sel_shapes: dict = {}
     hold_path_inputs(kernels, sel_inputs, sel_shapes, errs, bin_errs)
     hold_path_inputs(kernels, cv_inputs, {}, errs, bin_errs, timed=False)
     del sel_inputs, cv_inputs
-    log_path_shapes("the selector path's (the 1M-row run)", sel_shapes)
+    log_path_shapes(f"the selector path's (the {SELECTOR_ROWS}-row run)",
+                    sel_shapes)
 
-    # (c) the device rank metrics on the 1M-row run's LR margins and masks
+    # (c) the device rank metrics on the plain run's LR margins and masks
     scores, yv, vmask = rank_inputs.pop()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1389,8 +1837,20 @@ def card_main(cpu_child: subprocess.Popen,
     dsel = default_selector_phase(kernels, data, wdata, errs, bin_errs,
                                   default_cpu_child, sel_shapes)
     dpl, dwl = dsel["plain"]["launches"], dsel["workflow_cv"]["launches"]
+    del data
 
-    # -- 9. result lines ----------------------------------------------------
+    # -- 9. the multiclass and regression selectors ---------------------------
+    ldata = synthetic_passengers_labelled(SLICE_ROWS, seed=42, with_text=False)
+    timings = {**sel_shapes, **dsel["shapes"]}
+    problems = {}
+    for problem, child in (("multiclass", multiclass_cpu_child),
+                           ("regression", regression_cpu_child)):
+        problems[problem] = problem_selector_phase(
+            kernels, problem, ldata, errs, bin_errs, child, timings)
+        timings.update(problems[problem]["shapes"])
+    del ldata
+
+    # -- 10. result lines ---------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
                 "selector_score": spl["score"][k],
@@ -1399,7 +1859,9 @@ def card_main(cpu_child: subprocess.Popen,
                 "default_selector_train": dpl["train"][k],
                 "default_selector_score": dpl["score"][k],
                 "default_selector_workflow_cv_train": dwl["train"][k],
-                "default_selector_workflow_cv_score": dwl["score"][k]}
+                "default_selector_workflow_cv_score": dwl["score"][k],
+                **{f"{p}_selector_{phase}": v["run"]["launches"][phase][k]
+                   for p, v in problems.items() for phase in ("train", "score")}}
 
     def sel_launches(k):
         return sum(sel_by_path(k).values())
@@ -1439,6 +1901,10 @@ def card_main(cpu_child: subprocess.Popen,
         "selector_path_shapes": sel_shape_rows("fused_moments"),
         "default_selector_path_shapes": sel_shape_rows("fused_moments",
                                                        dsel["shapes"]),
+        "default_selector_workflow_cv_path_shapes": sel_shape_rows(
+            "fused_moments", dsel["wcv_shapes"]),
+        **{f"{p}_selector_path_shapes": sel_shape_rows(
+            "fused_moments", v["shapes"]) for p, v in problems.items()},
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -1468,6 +1934,10 @@ def card_main(cpu_child: subprocess.Popen,
         "selector_path_shapes": sel_shape_rows("bin_matrix"),
         "default_selector_path_shapes": sel_shape_rows("bin_matrix",
                                                        dsel["shapes"]),
+        "default_selector_workflow_cv_path_shapes": sel_shape_rows(
+            "bin_matrix", dsel["wcv_shapes"]),
+        **{f"{p}_selector_path_shapes": sel_shape_rows(
+            "bin_matrix", v["shapes"]) for p, v in problems.items()},
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}

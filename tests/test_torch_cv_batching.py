@@ -178,9 +178,16 @@ def test_lr_fit_arrays_folds_matches_batched():
         assert folds[f]["intercept"] == float(b0s[f])
         np.testing.assert_allclose(folds[f]["beta"], want_b[f], rtol=1e-4,
                                    atol=1e-5)
+    # a 3-class label takes the multinomial fold batch: the reference's
+    # per-fold betas within rtol 1e-4, atol 1e-5
     y3 = np.arange(len(y)) % 3.0
-    with pytest.raises(NotImplementedError, match=r"item 5\)"):
-        est.fit_arrays_folds(X, y3, W)
+    got = est.fit_arrays_folds(X, y3, W)
+    want = mod(REF, "models.logistic_regression").OpLogisticRegression(
+        reg_param=0.01, elastic_net_param=0.1).fit_arrays_folds(X, y3, W)
+    for g, w in zip(got, want):
+        assert g["family"] == w["family"] == "multinomial"
+        np.testing.assert_allclose(g["betas"], w["betas"], rtol=1e-4,
+                                   atol=1e-5)
 
 
 # -- GBT fold and grid fan-outs -----------------------------------------------

@@ -361,3 +361,48 @@ def test_batched_svc_on_the_card_matches_the_cpu(cuda):
     for g, w in zip(got, want):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_softmax_folds_on_the_card_match_the_cpu(cuda):
+    """The 3-fold softmax Newton (K = 3, reg > 0) on the card against the
+    CPU: betas within rtol 1e-4, atol 1e-5, intercepts centred across
+    classes (never penalized, so fixed only up to a common shift) within
+    1e-5, probabilities within 1e-4."""
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X, y, W, _, _ = _lr_batch_inputs(50_000, 11, 8)
+    y3 = y + (X[:, 1] > 0.8)  # a third class
+    W = W[::8]  # the three fold masks
+    kw = dict(reg_param=0.01, elastic_net_param=0.1)
+    got = OpLogisticRegression(device="cuda", **kw).fit_arrays_folds(X, y3, W)
+    est = OpLogisticRegression(device="cpu", **kw)
+    want = est.fit_arrays_folds(X, y3, W)
+    for g, w in zip(got, want):
+        assert g["family"] == "multinomial" and np.isfinite(g["betas"]).all()
+        np.testing.assert_allclose(g["betas"], w["betas"], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(g["intercepts"] - g["intercepts"].mean(),
+                                   w["intercepts"] - w["intercepts"].mean(),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(est.predict_arrays(g, X)[2],
+                                   est.predict_arrays(w, X)[2],
+                                   rtol=0, atol=1e-4)
+
+
+def test_batched_linreg_on_the_card_matches_the_cpu(cuda):
+    """The 24-candidate linear regression fold x grid fit on the card
+    against the CPU: rtol 1e-4, atol 1e-5, as the batched LR."""
+    from transmogrifai_tpu_torch.models.linear_regression import (
+        OpLinearRegression,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X, _, W, regs, ens = _lr_batch_inputs(50_000, 11, 9)
+    y = X @ np.linspace(-1.0, 1.0, X.shape[1]) + 0.3
+    got = OpLinearRegression(device="cuda").fit_arrays_batched(X, y, W, regs, ens)
+    want = OpLinearRegression(device="cpu").fit_arrays_batched(X, y, W, regs, ens)
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)

@@ -105,8 +105,18 @@ def test_guarded_step_matches_reference():
 
 
 def test_multiclass_raises_with_roadmap_item():
+    """Multiclass labels no longer raise the item-5 NotImplementedError:
+    they take the reference's multinomial route (its betas within rtol
+    1e-4, atol 1e-5 at reg > 0).  What still raises is the reference's
+    own contract: ``family="binomial"`` refuses more than two classes."""
     X, _, _ = _data(n=60)
-    y = np.arange(60) % 3
-    est = lr.OpLogisticRegression(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        est.fit_arrays(X, y.astype(np.float64))
+    y = (np.arange(60) % 3).astype(np.float64)
+    est = lr.OpLogisticRegression(reg_param=0.1, device="cpu")
+    got = est.fit_arrays(X, y)
+    want = ref_lr.OpLogisticRegression(reg_param=0.1).fit_arrays(X, y)
+    assert got["family"] == want["family"] == "multinomial"
+    np.testing.assert_allclose(got["betas"], want["betas"], rtol=1e-4,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="at most 2 outcome classes"):
+        lr.OpLogisticRegression(family="binomial", device="cpu").fit_arrays(
+            X, y)

@@ -276,8 +276,9 @@ def test_approx_rank_gate(monkeypatch):
 
 def test_unported_families_and_selectors_raise():
     """Every binary family of the JAX package's registry builds, the
-    default list included; the multiclass and regression selectors still
-    raise, naming their item."""
+    default list included; the multiclass and regression selectors no
+    longer raise: they build their default families, and, as in the
+    reference, have no train-validation-split entry point."""
     fac = mod(PORT, "selector.factories")
     binary = fac.BinaryClassificationModelSelector
     for types, want in ((None, ["OpLogisticRegression",
@@ -288,9 +289,14 @@ def test_unported_families_and_selectors_raise():
         sel = binary.with_cross_validation(model_types_to_use=types,
                                            device="cpu")
         assert [e.model_type for e, _ in sel.models] == (want or types)
-    with pytest.raises(NotImplementedError, match=r"item 5\)"):
-        fac.MultiClassificationModelSelector()
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
+    multi = fac.MultiClassificationModelSelector(device="cpu")
+    assert [e.model_type for e, _ in multi.models] == [
+        "OpLogisticRegression", "OpRandomForestClassifier",
+        "OpDecisionTreeClassifier", "OpNaiveBayes"]
+    regression = fac.RegressionModelSelector(device="cpu")
+    assert [e.model_type for e, _ in regression.models] == [
+        "OpLinearRegression", "OpRandomForestRegressor", "OpGBTRegressor"]
+    with pytest.raises(AttributeError):
         fac.RegressionModelSelector.with_train_validation_split()
 
 

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import PORT, REF, compare_trees, mod
+from torch_parity import PORT, REF, compare_trees, mod, tree_fits_agree
 
 N, D = 1200, 8
 
@@ -37,14 +37,6 @@ def _pair(cls_name: str, **kw):
     ref = getattr(mod(REF, "models.trees"), cls_name)(backend="jax", **kw)
     port = getattr(mod(PORT, "models.trees"), cls_name)(device="cpu", **kw)
     return ref, port
-
-
-def _heap_stats(hv, gbt: bool):
-    """Node stats as scoring reads them: GBT [w, h, leaf value]."""
-    if not gbt:
-        return hv
-    leaf = hv[..., 1] / np.maximum(hv[..., 3], 1e-12)
-    return np.concatenate([hv[..., [0, 3]], leaf[..., None]], axis=-1)
 
 
 ESTIMATORS = [
@@ -72,23 +64,7 @@ def test_fit_and_predict_match_reference(cls_name, classification, kw):
         assert got["step_size"] == want["step_size"]
     else:
         np.testing.assert_array_equal(got["classes"], want["classes"])
-    assert got["max_depth"] == want["max_depth"]
-    np.testing.assert_array_equal(got["edges"], want["edges"])
-    assert [h.dtype for h in got["heaps"]] == \
-        [np.asarray(h).dtype for h in want["heaps"]]
-    depth = want["max_depth"]
-    bins = mod(REF, "models.tree_kernel").bin_data(
-        X.astype(np.float32), want["edges"])
-    exact = classification and not gbt  # gini counts
-    tol = dict(rtol=0.0, atol=0.0) if exact else dict(rtol=1e-4, atol=1e-5)
-    tied = np.zeros(N, bool)
-    for t in range(len(want["heaps"][0])):
-        g = [h[t] for h in got["heaps"][:3]] + [
-            _heap_stats(got["heaps"][3][t], gbt)]
-        w = [np.asarray(h[t]) for h in want["heaps"][:3]] + [
-            _heap_stats(np.asarray(want["heaps"][3][t]), gbt)]
-        _, rows = compare_trees(g, w, bins, depth, **tol)
-        tied |= rows
+    tied = tree_fits_agree(want, got, X, classification, gbt)
     assert tied.mean() < 0.2
 
     pred_w, raw_w, prob_w = ref.predict_arrays(want, X)

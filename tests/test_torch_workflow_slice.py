@@ -152,3 +152,100 @@ def test_reference_tree_state_scored_by_port():
         workflow(PORT, pred, data), states)
     got = probabilities(model.score(data), pred.name)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def _kept(ds, checked_name):
+    """(the checked vector's values, its column names) of a dataset."""
+    col = ds[checked_name]
+    return (np.asarray(col.values),
+            [c.column_name() for c in col.metadata.columns])
+
+
+def _upto(pkg: str, data_seed: int = 42):
+    reset_uids(pkg)
+    survived, checked, pred = passenger_slice(pkg)
+    wf = workflow(pkg, pred, passengers(pkg, N, seed=data_seed))
+    return wf, checked, pred
+
+
+def test_compute_data_up_to_matches_reference():
+    """OpWorkflow.compute_data_up_to(pred) fits and applies the stages
+    strictly upstream of the prediction: the vectorizers and the
+    SanityChecker, not the LR.  The same kept columns and the same
+    design matrix, bit-equal, in both packages."""
+    out = []
+    for pkg in (REF, PORT):
+        wf, checked, pred = _upto(pkg)
+        data = wf.compute_data_up_to(pred)
+        assert pred.name not in data and checked.name in data
+        out.append(_kept(data, checked.name))
+    (x_ref, cols_ref), (x_port, cols_port) = out
+    assert cols_port == cols_ref
+    np.testing.assert_array_equal(x_port, x_ref)
+
+
+def test_model_compute_data_up_to_matches_reference():
+    """OpWorkflowModel.compute_data_up_to(feature, data=) applies the
+    fitted upstream stages to new data: bit-equal to the reference's and
+    to the checked column that score() computes on the same rows."""
+    out = []
+    for pkg in (REF, PORT):
+        wf, checked, pred = _upto(pkg)
+        model = wf.train()
+        new = passengers(pkg, 500, seed=9)
+        data = model.compute_data_up_to(checked, data=new)
+        assert checked.name not in data
+        vec_name = checked.origin_stage.input_features[1].name
+        up_to_pred = model.compute_data_up_to(pred, data=new)
+        np.testing.assert_array_equal(
+            np.asarray(up_to_pred[checked.name].values),
+            np.asarray(model.score(new)[checked.name].values))
+        out.append(np.asarray(data[vec_name].values))
+        if pkg == PORT:
+            with pytest.raises(ValueError, match="needs data="):
+                model.compute_data_up_to(checked)
+            with pytest.raises(NotImplementedError, match="item 12"):
+                model.compute_data_up_to(checked, data=new, path="out.avro")
+            with pytest.raises(NotImplementedError, match="item 12"):
+                wf.compute_data_up_to(checked, path="out.avro")
+    np.testing.assert_array_equal(out[1], out[0])
+
+
+def test_with_model_stages_warm_start_matches_reference():
+    """with_model_stages: the vectorizers and the SanityChecker fitted by
+    a first workflow (data seed 42) are swapped in by uid when a second
+    workflow over the same features trains on other rows (seed 7); only
+    the LR fits.  The same kept columns and design matrix, bit-equal,
+    and the LR coefficients within rtol 1e-4, atol 1e-5, in both
+    packages."""
+    out = []
+    for pkg in (REF, PORT):
+        reset_uids(pkg)
+        _, checked, pred = passenger_slice(pkg)
+        first = workflow(pkg, checked, passengers(pkg, N)).train()
+        checker = stage_of(first, "SanityCheckerModel")
+        wf = workflow(pkg, pred, passengers(pkg, N, seed=7))
+        wf.with_model_stages(first)
+        warm = wf.train()
+        assert stage_of(warm, "SanityCheckerModel") is checker
+        data = wf.compute_data_up_to(pred)
+        np.testing.assert_array_equal(
+            np.asarray(data[checked.name].values),
+            np.asarray(warm.score()[checked.name].values))
+        scored = warm.score()
+        out.append((checker.indices_to_keep,
+                    np.asarray(scored[checked.name].values),
+                    identified(warm, scored, checked.name)))
+    (keep_ref, x_ref, (b_ref, c_ref)), (keep_port, x_port, (b_port, c_port)) \
+        = out
+    assert keep_port == keep_ref
+    np.testing.assert_array_equal(x_port, x_ref)
+    np.testing.assert_allclose(b_port, b_ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(c_port, c_ref, rtol=1e-4, atol=1e-5)
+
+
+def test_summary_pretty_raises_with_its_item():
+    wf, _, _ = _upto(PORT)
+    model = wf.train()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        model.summary_pretty()

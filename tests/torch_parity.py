@@ -149,6 +149,77 @@ def passengers(pkg: str, n: int, seed: int = 42):
     )
 
 
+def labelled_passengers(pkg: str, n: int, seed: int = 42):
+    """The torch package's ``synthetic_passengers_labelled`` (the passenger
+    columns with the planted ``tier`` and ``response`` labels); for the
+    JAX package, the same numpy columns in its own ``Dataset``."""
+    ds = mod(PORT, "examples.synthetic").synthetic_passengers_labelled(
+        n, seed=seed, with_text=False)
+    if pkg == PORT:
+        return ds
+    cols, ft = mod(REF, "types.columns"), mod(REF, "types.feature_types")
+    out = {}
+    for name in ds:
+        c = ds[name]
+        ftype = getattr(ft, c.feature_type.__name__)
+        if isinstance(c, mod(PORT, "types.columns").NumericColumn):
+            out[name] = cols.NumericColumn(c.values, c.mask, ftype)
+        else:
+            out[name] = cols.TextColumn(c.values, ftype)
+    return mod(REF, "types.dataset").Dataset(out)
+
+
+def problem_selector_slice(pkg: str, problem: str, models=None,
+                           **selector_kw):
+    """transmogrify(label=...) -> SanityChecker -> the parameterless
+    ``MultiClassificationModelSelector`` (``problem="multiclass"``, label
+    ``tier``) or ``RegressionModelSelector`` (``"regression"``, label
+    ``response``) of ``pkg`` over ``models`` (None: the defaults); returns
+    (label, checked vector, prediction) features."""
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    label = fb.RealNN("tier" if problem == "multiclass"
+                      else "response").as_response()
+    _, preds = passenger_features(pkg)
+    vec = mod(pkg, "ops.transmogrifier").transmogrify(preds, label=label)
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    checked = mod(pkg, "preparators.sanity_checker").SanityChecker(
+        **kw).set_input(label, vec).get_output()
+    fac = mod(pkg, "selector.factories")
+    factory = (fac.MultiClassificationModelSelector if problem == "multiclass"
+               else fac.RegressionModelSelector)
+    sel = factory.with_cross_validation(models_and_parameters=models,
+                                        **selector_kw, **kw)
+    pred = sel.set_input(label, checked).get_output()
+    return label, checked, pred
+
+
+def problem_models(pkg: str, problem: str, rf_grid=None, gbt_grid=None):
+    """(estimator, grid) pairs of a problem selector's default families:
+    the linear family and the decision tree at their default grids, naive
+    Bayes, and test-sized forest and GBT grids (the reference's trees on
+    their JAX backend, the torch package's estimators on the CPU)."""
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    tree_kw = kw or {"backend": "jax"}
+    fac, trees = mod(pkg, "selector.factories"), mod(pkg, "models.trees")
+    rf = rf_grid or small_rf_grid()
+    if problem == "multiclass":
+        return [
+            (mod(pkg, "models.logistic_regression").OpLogisticRegression(**kw),
+             fac.lr_grid()),
+            (trees.OpRandomForestClassifier(**tree_kw), rf),
+            (trees.OpDecisionTreeClassifier(**tree_kw),
+             [{"max_depth": d, "min_info_gain": g}
+              for d in fac.MAX_DEPTH for g in fac.MIN_INFO_GAIN]),
+            (mod(pkg, "models.naive_bayes").OpNaiveBayes(**kw), [{}]),
+        ]
+    return [
+        (mod(pkg, "models.linear_regression").OpLinearRegression(**kw),
+         fac.linreg_grid()),
+        (trees.OpRandomForestRegressor(**tree_kw), rf),
+        (trees.OpGBTRegressor(**tree_kw), gbt_grid or small_gbt_grid()),
+    ]
+
+
 def reference_states(model) -> list:
     """(class name, state) of each fitted stage of a JAX-package model, as
     ``interop.load_reference_state`` reads them: ``stage_state``, and for a
@@ -252,3 +323,34 @@ def compare_trees(got, want, bins, depth, rtol=0.0, atol=0.0):
     lg = leaf_index(bins, got, depth, stop=ties)
     lw = leaf_index(bins, want, depth, stop=ties)
     return ties, np.isin(lg, ties) | np.isin(lw, ties)
+
+
+def tree_fits_agree(want, got, X, classification: bool, gbt: bool = False):
+    """A tree family's params fitted by each package on the same X: the
+    same edges, depth and heap dtypes; every tree equal node by node but
+    at exact ties (``compare_trees``) - gini counts exactly, variance and
+    gradient channels (a GBT's as its Newton leaf values) within rtol
+    1e-4, atol 1e-5.  Returns the mask of the rows a tie touches."""
+    np.testing.assert_array_equal(got["edges"], want["edges"])
+    assert got["max_depth"] == want["max_depth"]
+    assert [h.dtype for h in got["heaps"]] == \
+        [np.asarray(h).dtype for h in want["heaps"]]
+
+    def stats(hv):
+        if not gbt:
+            return hv
+        leaf = hv[..., 1] / np.maximum(hv[..., 3], 1e-12)
+        return np.concatenate([hv[..., [0, 3]], leaf[..., None]], axis=-1)
+
+    depth = want["max_depth"]
+    bins = mod(REF, "models.tree_kernel").bin_data(
+        np.asarray(X, np.float32), want["edges"])
+    exact = classification and not gbt
+    tol = dict(rtol=0.0, atol=0.0) if exact else dict(rtol=1e-4, atol=1e-5)
+    tied = np.zeros(bins.shape[0], bool)
+    for t in range(len(want["heaps"][0])):
+        g = [h[t] for h in got["heaps"][:3]] + [stats(got["heaps"][3][t])]
+        w = [np.asarray(h[t]) for h in want["heaps"][:3]] + [
+            stats(np.asarray(want["heaps"][3][t]))]
+        tied |= compare_trees(g, w, bins, depth, **tol)[1]
+    return tied

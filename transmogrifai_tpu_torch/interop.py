@@ -111,10 +111,12 @@ def load_reference_state(
     ``workflow``'s DAG positionally, as the JAX package's ``load_model``
     pairs them.  Carried over: vectorizer fills and vocabularies,
     bucketizer splits, ``indices_to_keep``, and every predictor's
-    ``model_params`` as they are (the linear models' ``beta`` and
-    ``intercept``; the tree heaps, edges, classes and GBT margin terms;
-    naive Bayes' ``theta``, ``prior``, ``classes`` and ``shift``), and a
-    model selector's winner.  Estimators in the result score on
+    ``model_params`` as they are (the binary linear models' and linear
+    regression's ``beta`` and ``intercept``; multiclass logistic
+    regression's ``betas``, ``intercepts``, ``classes`` and ``family``,
+    multinomial or OvR; the tree heaps, edges, classes and GBT margin
+    terms; naive Bayes' ``theta``, ``prior``, ``classes`` and ``shift``),
+    and a model selector's winner - binary, multiclass or regression.  Estimators in the result score on
     ``workflow.device``.
     """
     resolve_device(workflow.device)

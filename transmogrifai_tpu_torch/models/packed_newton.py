@@ -9,7 +9,10 @@ fixed-length scan form), ``pd_jitter`` and ``guarded_step``, plus
 The batched helpers of the cross-validation fan-out are here too:
 ``guarded_step`` with a per-candidate ``axis``, ``_batched_diag``, and
 ``solve_pos`` over a leading batch axis, each candidate's NaN on its own.
-The JAX package's MXU-packed Gram (``lr_fit_batched_packed*``,
+So is the class-pair Gram of the softmax Hessian, ``_gram_2d``, with its
+row-chunk budget ``_gram_chunk_rows`` (``TX_PACKED_GRAM_ELEMS``): plain
+matmuls, as the JAX package computes them outside any Pallas kernel.
+The JAX package's MXU-packed CV Gram (``lr_fit_batched_packed*``,
 ``use_packed``) is a TPU-only route - off the TPU it takes the vmap
 route this package mirrors - and its bitwise fixed-point early exit
 (``newton_fixed_point``) belongs to the fused training programs
@@ -17,7 +20,35 @@ route this package mirrors - and its bitwise fixed-point early exit
 """
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+def _gram_chunk_rows(n: int, B: int, d: int) -> int:
+    """Rows per Gram chunk: the [c, B*d] packed temporary stays within an
+    element budget (``TX_PACKED_GRAM_ELEMS``, default 2^27 elements =
+    512 MiB of float32), the JAX package's rule."""
+    budget = int(os.environ.get("TX_PACKED_GRAM_ELEMS", 1 << 27))
+    c = max(128, budget // max(B * d, 1))
+    return min(n, c - (c % 8))
+
+
+def _gram_2d(Xh: torch.Tensor, wt_nB: torch.Tensor) -> torch.Tensor:
+    """Packed weighted Gram [d, B*d]: column b*d+j holds
+    X^T diag(wt[:, b]) X[:, j].  ``Xh`` [n, d], ``wt_nB`` [n, B] in one
+    float dtype.  Row-chunked so that the [c, B*d] packed temporary stays
+    within ``_gram_chunk_rows``' budget; the chunks' partial Grams add in
+    row order."""
+    n, d = Xh.shape
+    B = wt_nB.shape[1]
+    c = _gram_chunk_rows(n, B, d)
+    G = None
+    for s in range(0, n, c):
+        Xc, Wc = Xh[s:s + c], wt_nB[s:s + c]
+        part = Xc.T @ (Wc[:, :, None] * Xc[:, None, :]).reshape(-1, B * d)
+        G = part if G is None else G + part
+    return G
 
 
 def run_newton(step, init, length: int):

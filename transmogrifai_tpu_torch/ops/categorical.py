@@ -6,9 +6,9 @@ support into indicator columns plus OTHER and (optionally) null-indicator
 columns.  Label order is count descending then value ascending -
 deterministic, matching the reference's sorted pivots.
 
-The JAX package's StringIndexer / IndexToString come with the model-selector
-slice (ROADMAP.md queue 1, item 5), and its ``lower_block`` seam with the
-fused-scoring slice (item 7).
+The JAX package's StringIndexer / IndexToString come with the rest of the
+vectorizers (ROADMAP.md queue 1, item 2), and its ``lower_block`` seam with
+the fused-scoring slice (item 7).
 """
 from __future__ import annotations
 

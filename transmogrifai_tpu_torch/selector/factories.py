@@ -11,10 +11,12 @@ MaxTrees {50}, MinInfoGain {0.001,0.01,0.1}, MinInstancesPerNode
 The binary registry builds every family of the JAX package's:
 ``OpLogisticRegression``, ``OpRandomForestClassifier``,
 ``OpGBTClassifier``, ``OpLinearSVC`` (the parameterless default four) and
-``OpNaiveBayes``.  The multiclass and regression selectors raise
-``NotImplementedError`` naming their ROADMAP.md queue 1 item.  Every estimator a factory builds
-takes the selector's ``device`` (``"cuda"`` by default; ``OpWorkflow``
-overrides it with its own).
+``OpNaiveBayes``.  ``MultiClassificationModelSelector`` (LR, the forest,
+the decision tree, naive Bayes) and ``RegressionModelSelector`` (linear
+regression, the forest and GBT regressors) mirror the JAX package's
+entry points: ``with_cross_validation`` and the parameterless call.
+Every estimator a factory builds takes the selector's ``device``
+(``"cuda"`` by default; ``OpWorkflow`` overrides it with its own).
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ from itertools import product
 from typing import Optional, Sequence
 
 from ..evaluators.binary import OpBinaryClassificationEvaluator
+from ..evaluators.multiclass import OpMultiClassificationEvaluator
+from ..evaluators.regression import OpRegressionEvaluator
 from .model_selector import ModelSelector
-from .splitters import DataBalancer, Splitter
+from .splitters import DataBalancer, DataCutter, DataSplitter, Splitter
 from .validator import OpCrossValidation, OpTrainValidationSplit
 
 REGULARIZATION = [0.001, 0.01, 0.1, 0.2]
@@ -64,13 +68,6 @@ def gbt_grid() -> list[dict]:
         {"max_depth": d, "num_trees": 20, "min_info_gain": g}
         for d, g in product(MAX_DEPTH, MIN_INFO_GAIN)
     ]
-
-
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        f"(ROADMAP.md queue 1, item {item})"
-    )
 
 
 def _binary_models(model_types: Optional[Sequence[str]], device: str):
@@ -163,29 +160,120 @@ class BinaryClassificationModelSelector:
         return cls.with_cross_validation(*args, **kw)
 
 
+def _multiclass_models(model_types: Optional[Sequence[str]], device: str):
+    from ..models.logistic_regression import OpLogisticRegression
+    from ..models.naive_bayes import OpNaiveBayes
+    from ..models.trees import OpDecisionTreeClassifier, OpRandomForestClassifier
+
+    registry = {
+        "OpLogisticRegression": lambda: (
+            OpLogisticRegression(device=device), lr_grid()),
+        "OpRandomForestClassifier": lambda: (
+            OpRandomForestClassifier(device=device), rf_grid()),
+        "OpDecisionTreeClassifier": lambda: (
+            OpDecisionTreeClassifier(device=device),
+            [{"max_depth": d, "min_info_gain": g}
+             for d, g in product(MAX_DEPTH, MIN_INFO_GAIN)],
+        ),
+        "OpNaiveBayes": lambda: (OpNaiveBayes(device=device), [{}]),
+    }
+    # reference defaults: LR, RF, DT, NB
+    wanted = model_types or [
+        "OpLogisticRegression",
+        "OpRandomForestClassifier",
+        "OpDecisionTreeClassifier",
+        "OpNaiveBayes",
+    ]
+    return [registry[m]() for m in wanted]
+
+
 class MultiClassificationModelSelector:
-    """Not ported: multiclass logistic regression (softmax, one-vs-rest)
-    comes with ROADMAP.md queue 1, item 5."""
+    """Factory (reference: MultiClassificationModelSelector); with no
+    ``model_types_to_use`` it cross-validates (stratified folds) logistic
+    regression (softmax, or one-vs-rest past 2048 parameters), the random
+    forest, the decision tree over depth x min_info_gain and naive Bayes,
+    after a ``DataCutter`` holdout of 10%, by weighted F1."""
 
     @staticmethod
-    def with_cross_validation(*args, **kw):
-        raise _not_ported("MultiClassificationModelSelector (multiclass LR)", 5)
+    def with_cross_validation(
+        num_folds: int = 3,
+        validation_metric=None,
+        model_types_to_use: Optional[Sequence[str]] = None,
+        splitter: Optional[Splitter] = None,
+        seed: int = 42,
+        models_and_parameters=None,
+        autotune=None,
+        device: str = "cuda",
+    ) -> ModelSelector:
+        ev = validation_metric or OpMultiClassificationEvaluator()
+        return ModelSelector(
+            validator=OpCrossValidation(
+                num_folds=num_folds, evaluator=ev, seed=seed, stratify=True,
+                autotune=autotune, device=device,
+            ),
+            models=models_and_parameters
+            or _multiclass_models(model_types_to_use, device),
+            splitter=splitter
+            if splitter is not None
+            else DataCutter(reserve_test_fraction=0.1, seed=seed),
+            evaluators=[OpMultiClassificationEvaluator()],
+            device=device,
+        )
 
-    with_train_validation_split = with_cross_validation
-
-    def __new__(cls, *args, **kw):  # type: ignore[misc]
+    def __new__(cls, *args, **kw) -> ModelSelector:  # type: ignore[misc]
         return cls.with_cross_validation(*args, **kw)
 
 
+def _regression_models(model_types: Optional[Sequence[str]], device: str):
+    from ..models.linear_regression import OpLinearRegression
+    from ..models.trees import OpGBTRegressor, OpRandomForestRegressor
+
+    registry = {
+        "OpLinearRegression": lambda: (
+            OpLinearRegression(device=device), linreg_grid()),
+        "OpRandomForestRegressor": lambda: (
+            OpRandomForestRegressor(device=device), rf_grid()),
+        "OpGBTRegressor": lambda: (OpGBTRegressor(device=device), gbt_grid()),
+    }
+    # reference defaults: LinReg, RF, GBT
+    wanted = model_types or [
+        "OpLinearRegression",
+        "OpRandomForestRegressor",
+        "OpGBTRegressor",
+    ]
+    return [registry[m]() for m in wanted]
+
+
 class RegressionModelSelector:
-    """Not ported: linear regression comes with ROADMAP.md queue 1,
-    item 8."""
+    """Factory (reference: RegressionModelSelector); with no
+    ``model_types_to_use`` it cross-validates (unstratified folds) linear
+    regression, the random forest regressor and the GBT regressor, after a
+    ``DataSplitter`` holdout of 10%, by RMSE (smaller is better)."""
 
     @staticmethod
-    def with_cross_validation(*args, **kw):
-        raise _not_ported("RegressionModelSelector (linear regression)", 8)
+    def with_cross_validation(
+        num_folds: int = 3,
+        validation_metric=None,
+        model_types_to_use: Optional[Sequence[str]] = None,
+        splitter: Optional[Splitter] = None,
+        seed: int = 42,
+        models_and_parameters=None,
+        autotune=None,
+        device: str = "cuda",
+    ) -> ModelSelector:
+        ev = validation_metric or OpRegressionEvaluator()
+        return ModelSelector(
+            validator=OpCrossValidation(num_folds=num_folds, evaluator=ev,
+                                        seed=seed, autotune=autotune,
+                                        device=device),
+            models=models_and_parameters
+            or _regression_models(model_types_to_use, device),
+            splitter=splitter
+            if splitter is not None
+            else DataSplitter(reserve_test_fraction=0.1, seed=seed),
+            evaluators=[OpRegressionEvaluator()],
+            device=device,
+        )
 
-    with_train_validation_split = with_cross_validation
-
-    def __new__(cls, *args, **kw):  # type: ignore[misc]
+    def __new__(cls, *args, **kw) -> ModelSelector:  # type: ignore[misc]
         return cls.with_cross_validation(*args, **kw)

@@ -146,6 +146,7 @@ class OpWorkflow:
         self._input_data: Any = None
         self.parameters: dict[str, Any] = {}
         self._workflow_cv = False
+        self._warm_stages: dict[str, PipelineStage] = {}
 
     def set_result_features(self, *features: Feature) -> "OpWorkflow":
         self.result_features = tuple(features)
@@ -187,6 +188,52 @@ class OpWorkflow:
             raise ValueError("no input data: call set_input_dataset")
         return _as_dataset(self._input_data, self.raw_features)
 
+    def with_model_stages(self, model: "OpWorkflowModel") -> "OpWorkflow":
+        """Warm start: fitted stages of ``model`` replace their unfitted
+        counterparts (matched by uid) when this workflow trains, so only
+        new estimators fit (reference: OpWorkflow.withModelStages:457).
+        The swap happens inside ``train()`` and ``compute_data_up_to``,
+        because the layers are rebuilt from the features on every call."""
+        self._warm_stages = {s.uid: s for s in model.stages}
+        return self
+
+    def _warm(self, dag: Sequence[Layer]) -> list[Layer]:
+        """``dag`` with every stage that ``with_model_stages`` recorded
+        swapped for its fitted counterpart, which adopts the current
+        wiring (a fitted stage is a Transformer: it is not refit)."""
+        if not self._warm_stages:
+            return list(dag)
+
+        def sub(s):
+            w = self._warm_stages.get(s.uid)
+            if w is None or w is s:
+                return s
+            w.input_features = s.input_features
+            w._output = s.get_output()
+            return w
+
+        return [[sub(s) for s in layer] for layer in dag]
+
+    def compute_data_up_to(self, feature: Feature,
+                           path: Optional[str] = None) -> Dataset:
+        """Fit and transform only the stages strictly upstream of
+        ``feature`` on the workflow's device and return the dataset of
+        every column generated before it (reference:
+        OpWorkflowCore.computeDataUpTo:273-284).  Saving it as Avro
+        (``path``) comes with the Avro reader (ROADMAP.md queue 1,
+        item 12)."""
+        if path is not None:
+            raise _not_ported("compute_data_up_to's Avro output (path=)", 12)
+        resolve_device(self.device)
+        raw = self.generate_raw_data()
+        upto = [
+            [s for s in layer if s is not feature.origin_stage]
+            for layer in compute_dag([feature])
+        ]
+        upto = self._warm([layer for layer in upto if layer])
+        _, data, _ = fit_and_transform_dag(upto, raw, device=self.device)
+        return data
+
     def train(self) -> "OpWorkflowModel":
         """(reference: OpWorkflow.train:332-357)"""
         resolve_device(self.device)
@@ -194,6 +241,7 @@ class OpWorkflow:
         raw = self.generate_raw_data()
         dag = compute_dag(self.result_features)
         validate_dag(dag)
+        dag = self._warm(dag)
 
         # non-nullable response gate (reference: .toRealNN throws on empty
         # values at extraction): a missing label must fail loudly here, not
@@ -354,8 +402,48 @@ class OpWorkflowModel:
             "trainTimeSeconds": self.train_time_s,
         }
 
+    def compute_data_up_to(self, feature: Feature, data: Any = None,
+                           path: Optional[str] = None) -> Dataset:
+        """All columns generated before ``feature``, by the fitted stages
+        (reference: OpWorkflowModel's side of computeDataUpTo).  Saving it
+        as Avro (``path``) comes with the Avro reader (ROADMAP.md queue 1,
+        item 12)."""
+        if path is not None:
+            raise _not_ported("compute_data_up_to's Avro output (path=)", 12)
+        if data is None:
+            # the training cache holds fully-transformed columns, not raw
+            raise ValueError("compute_data_up_to on a fitted model needs data=")
+        out = _as_dataset(data, self.raw_features)
+        keep = {
+            s.uid
+            for layer in compute_dag([feature])
+            for s in layer
+            if s is not feature.origin_stage
+        }
+        applied: set[str] = set()
+        for layer in self._dag():
+            for stage in layer:
+                if stage.uid in keep:
+                    if not isinstance(stage, Transformer):
+                        raise ValueError(
+                            f"unfitted estimator {stage.uid}; train first"
+                        )
+                    out = stage.transform(out)
+                    applied.add(stage.uid)
+        missing = keep - applied
+        if missing:
+            raise ValueError(
+                "compute_data_up_to: the feature depends on stages not in "
+                f"this trained model's DAG (uids {sorted(missing)}); train "
+                "a workflow containing them first"
+            )
+        return out
+
     def summary(self) -> str:
         return json.dumps(self.summary_json(), indent=2, default=str)
+
+    def summary_pretty(self) -> str:
+        raise _not_ported("summary_pretty (ModelInsights)", 8)
 
     def score_function(self):
         raise _not_ported("local (engine-free) scoring", 7)
