@@ -22,15 +22,23 @@ two agree:
   training runs in a child process (``python3 chip_smoke.py --selector-cpu
   N``, CPU only) started at the beginning so that it overlaps the card's
   phases;
-* the parameterless selector, the same front ->
+* the README example (README.md's first code block, the port's imports,
+  ``OpWorkflow()`` on the card): a 1M-row CSV written by
+  ``examples.synthetic.write_readme_csv`` read through
+  ``CSVReader`` on the native scanner -> ``age.fill_missing_with_mean()
+  .z_normalize()`` -> transmogrify -> ``survived.sanity_check(...)`` ->
   BinaryClassificationModelSelector.with_cross_validation(num_folds=3) over
   its four default families (logistic regression and the linear SVM at 8
   grid points, the random forest with per-node feature subsets at 18, the
-  GBT at 9) on 1M rows on the card, counted, every kernel call held
-  against its plain version, and profiled; under workflow CV on 100k rows
-  (its in-fold kernel shapes timed); and at 20k rows twice on the card
-  (the forest and GBT grid heaps bit-identical) against a CPU child
-  (``--default-selector-cpu N``);
+  GBT at 9) -> train(), score(), ``summary_pretty()``, counted, every
+  kernel call held against its plain version, and profiled;
+* the same four families on the passenger data's front
+  (transmogrify(label=...) -> SanityChecker), their forest and GBT grids
+  cut to depths 3 and 6, at 200k rows on the card, counted; under
+  workflow CV on 100k rows (its in-fold kernel shapes timed); and, at
+  their full grids (the depth-12 forest and GBT too), at 20k rows twice
+  on the card (the forest and GBT grid heaps bit-identical) against a CPU
+  child (``--default-selector-cpu N``);
 * the multiclass and regression selectors on the planted labels of
   ``synthetic_passengers_labelled``: transmogrify(label=...) ->
   SanityChecker -> the parameterless MultiClassificationModelSelector
@@ -200,6 +208,14 @@ def measure(call, *args) -> dict:
             "may hold host gaps: the card may have waited on the host")
     return {"ms": cold["ms"], "ms_warm": warm["ms"], "host_us": warm["host_us"],
             "calls": cold["calls"], "windows_with_host_gaps": gaps}
+
+
+def file_digest(path: str) -> tuple:
+    """(mtime in ns, SHA-256) of a file."""
+    import hashlib
+
+    with open(path, "rb") as f:
+        return os.stat(path).st_mtime_ns, hashlib.sha256(f.read()).hexdigest()
 
 
 def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -572,9 +588,10 @@ def profile(fn):
     return out, by_name
 
 
-def log_profile(tag: str, wall_ms: float, by_name: dict, top: int) -> float:
+def log_profile(tag: str, wall_ms: float, by_name: dict, top: int,
+                what: str = "train+score") -> float:
     device_ms = 1e-3 * sum(sum(v) for v in by_name.values())
-    log(f"[{tag}] cuda, profiled run: train+score {wall_ms:.1f} ms, device "
+    log(f"[{tag}] cuda, profiled run: {what} {wall_ms:.1f} ms, device "
         f"busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.2f}% of it)")
     for k, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]:
         log(f"[{tag}]   device time {1e-3 * sum(v):.3f} ms in {len(v)} x "
@@ -645,15 +662,36 @@ RANK_METRICS_ATOL = 1e-6          # device rank metrics, card against CPU
 #: repeats their fits, so a smaller size keeps the whole run in its limit)
 WCV_ROWS = 100_000
 #: the parameterless selector (LR 8, forest 18 at 50 trees, GBT 9 at 20
-#: trees, linear SVM 8 grid points): at SLICE_ROWS plain, under workflow
-#: CV at WCV_ROWS, and card against CPU at DEFAULT_CMP_ROWS
-DEFAULT_CMP_ROWS = 20_000
+#: trees, linear SVM 8 grid points), which the [readme] phase trains on
+#: README_ROWS rows read from a CSV, and [default_selector] card against
+#: CPU at DEFAULT_CMP_ROWS
 DEFAULT_CANDIDATES = 8 + 18 + 9 + 8
+#: [default_selector] trains the same families on the passenger front with
+#: the forest and GBT grids cut to DEFAULT_CUT_DEPTHS (their depth-12 level
+#: loops, launch-bound whatever the rows, took 60% of its walls) plain at
+#: DEFAULT_SELECTOR_ROWS and under workflow CV at WCV_ROWS
+DEFAULT_CUT = "default families, cut tree depths"
+DEFAULT_CUT_DEPTHS = (3, 6)
+DEFAULT_CUT_CANDIDATES = 8 + 12 + 6 + 8
+DEFAULT_SELECTOR_ROWS = 200_000
+DEFAULT_CMP_ROWS = 20_000
+
+
+def default_cut_models(device: str) -> list:
+    """The parameterless binary selector's (estimator, grid) pairs with
+    the tree grids cut to DEFAULT_CUT_DEPTHS."""
+    from transmogrifai_tpu_torch.selector.factories import _binary_models
+
+    return [(est, [p for p in grid
+                   if p.get("max_depth", DEFAULT_CUT_DEPTHS[0])
+                   in DEFAULT_CUT_DEPTHS])
+            for est, grid in _binary_models(None, device)]
 
 
 def build_selector(device: str, model_types=SELECTOR_TYPES):
     """The selector workflow over ``model_types`` (None: the parameterless
-    selector's default families)."""
+    selector's default families; DEFAULT_CUT: those with cut tree
+    grids)."""
     from transmogrifai_tpu_torch import OpWorkflow
     from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
     from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
@@ -664,25 +702,30 @@ def build_selector(device: str, model_types=SELECTOR_TYPES):
     survived, preds = passenger_features()
     vec = transmogrify(preds, label=survived)
     checked = SanityChecker().set_input(survived, vec).get_output()
-    selector = BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=3, model_types_to_use=model_types)
+    if model_types == DEFAULT_CUT:
+        selector = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=3, models_and_parameters=default_cut_models(device))
+    else:
+        selector = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=3, model_types_to_use=model_types)
     pred = selector.set_input(survived, checked).get_output()
     wf = OpWorkflow(device=device).set_result_features(pred)
     return wf, survived, checked, pred
 
 
 @contextlib.contextmanager
-def selector_walls(sync: bool, keep_grid: bool = False):
+def selector_walls(sync: bool, keep_grid: bool = False, extra=()):
     """Within the block, time the selector's phases by a shim on each
     method (the card synchronised at both ends of a call, so a wall holds
     its device work): the linear families' fold x grid fits (LR, SVM and
     linear regression batches, the multiclass LR's fold fits, naive
     Bayes' fold fits), the GBT, forest and decision-tree grid fits, the
     whole validation, the winner's refit, workflow CV and the selector's
-    fit.  A fit inside another fit or a refit counts as the outer one
-    only.  With ``keep_grid``, also keep what every GBT, forest and tree
-    grid fit returned.  Yields {"walls": {phase: s}, "grid": [GBT grid
-    fits], "rf_grid": [forest grid fits], "dt_grid": [tree grid fits]}."""
+    fit, and each (class, method, label) of ``extra``, summed by label.
+    A fit inside another fit or a refit counts as the outer one only.
+    With ``keep_grid``, also keep what every GBT, forest and tree grid fit
+    returned.  Yields {"walls": {phase: s}, "grid": [GBT grid fits],
+    "rf_grid": [forest grid fits], "dt_grid": [tree grid fits]}."""
     from transmogrifai_tpu_torch.models.linear_regression import (
         OpLinearRegression,
     )
@@ -711,7 +754,7 @@ def selector_walls(sync: bool, keep_grid: bool = False):
                (_GBT, "fit_arrays", "refit"),
                (_RandomForest, "fit_arrays", "refit"),
                (ModelSelector, "find_best_estimator", "workflow_cv"),
-               (ModelSelector, "fit_model", "selector_fit")]
+               (ModelSelector, "fit_model", "selector_fit"), *extra]
     saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in targets]
     containers = ("validate", "workflow_cv", "selector_fit")
     active: list = []
@@ -837,8 +880,9 @@ def log_selector(tag: str, r: dict) -> None:
 
 
 def selector_cpu_main(rows: int, model_types=SELECTOR_TYPES) -> int:
-    """``--selector-cpu N`` (``--default-selector-cpu N``: the default
-    families): train and score the selector workflow on the CPU at N rows
+    """``--selector-cpu N`` (``--default-selector-cpu N``: the
+    parameterless selector's default families): train and score the
+    selector workflow on the CPU at N rows
     with the card's rank-metric mode and write what the card's run is held
     against to stdout as an npz archive."""
     os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
@@ -926,25 +970,22 @@ def assert_counted(run: dict, kept: dict) -> None:
 def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
                            cpu_child: subprocess.Popen,
                            timings: dict) -> dict:
-    """``[default_selector]``: the parameterless selector's four families
-    trained and scored on the card on ``data`` (counted and profiled, every
-    kernel call held against its plain version and timed per shape unless
-    ``timings``, the [selector] path's, hold the shape), under workflow
-    CV on ``wdata``, and at DEFAULT_CMP_ROWS twice on the card (the forest
-    and GBT grid heaps bit-identical) against the CPU child's training.
-    Returns what the result lines need."""
+    """``[default_selector]``: the parameterless selector's four families,
+    their tree grids cut to DEFAULT_CUT_DEPTHS, trained and scored on the
+    card on ``data`` (counted, every kernel call
+    held against its plain version and timed per shape unless ``timings``,
+    the earlier paths', hold the shape) and under workflow CV on
+    ``wdata``; at their full grids, at DEFAULT_CMP_ROWS twice on the card
+    (the forest and GBT grid heaps bit-identical) against the CPU child's
+    training.  Returns what
+    the result lines need."""
     from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
 
     tag = "default_selector"
-    # one run, counted and profiled: a second 1M-row training costs
-    # minutes, and the profiler's overhead is in its walls (PERF.md)
     with kernel_inputs(kernels) as kept:
-        dp, by_name = profile(
-            lambda: run_selector("cuda", data, kernels, model_types=None))
-    log_selector(tag, dp)
-    busy_ms = log_profile(tag, 1e3 * (dp["train_s"] + dp["score_s"]),
-                          by_name, 14)
-    assert len(dp["results"]) == DEFAULT_CANDIDATES, len(dp["results"])
+        dp = run_selector("cuda", data, kernels, model_types=DEFAULT_CUT)
+    log_selector(f"{tag}, {len(data)} rows", dp)
+    assert len(dp["results"]) == DEFAULT_CUT_CANDIDATES, len(dp["results"])
     modes = {c["model_type"]: c["rank_metric_mode"] for c in dp["results"]}
     # CUDA and n >= 100 000: the linear families rank their margins on the
     # card, the trees on the host
@@ -954,8 +995,8 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
     dl = dp["launches"]
     assert dl["train"]["fused_moments"] == 1, dl
     # 3 bucketizer fits, one binning per GBT and forest depth group, and
-    # the 27 GBT and 54 forest validation predictions
-    assert dl["train"]["bin_matrix"] >= 3 + 3 + 3 + 27 + 54, dl
+    # the 18 GBT and 36 forest validation predictions
+    assert dl["train"]["bin_matrix"] >= 3 + 2 + 2 + 18 + 36, dl
     assert (SELECTOR_AUROC_RANGE[0] <= dp["holdout_auroc"]
             <= SELECTOR_AUROC_RANGE[1]), dp["holdout_auroc"]
     assert_counted(dp, kept)
@@ -967,9 +1008,9 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
     # under workflow CV
     with kernel_inputs(kernels) as wkept:
         dw = run_selector("cuda", wdata, kernels, workflow_cv=True,
-                          model_types=None)
+                          model_types=DEFAULT_CUT)
     log_selector(f"{tag}, workflow CV, {len(wdata)} rows", dw)
-    assert len(dw["results"]) == DEFAULT_CANDIDATES
+    assert len(dw["results"]) == DEFAULT_CUT_CANDIDATES
     assert dw["launches"]["train"]["fused_moments"] == 4, dw["launches"]
     assert (SELECTOR_AUROC_RANGE[0] <= dw["holdout_auroc"]
             <= SELECTOR_AUROC_RANGE[1]), dw["holdout_auroc"]
@@ -1028,7 +1069,184 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
         f"card's forest and GBT grid heaps ({n_heaps} trees) bit-identical "
         "across two trainings")
     return {"plain": dp, "workflow_cv": dw, "shapes": shapes,
-            "wcv_shapes": wshapes, "busy_ms": busy_ms}
+            "wcv_shapes": wshapes}
+
+
+# -- the README example -------------------------------------------------------
+
+#: the README example's CSV (``examples.synthetic.write_readme_csv``): the
+#: 1M-row default-selector run of the script (README.md's selector is the
+#: parameterless one), read from a CSV through the native scanner
+README_ROWS = 1_000_000
+
+
+def readme_stage_targets() -> list:
+    """The README path's host stages and the SanityChecker: each fit and
+    each transform."""
+    from transmogrifai_tpu_torch.ops import categorical, numeric, scalers
+    from transmogrifai_tpu_torch.ops.vectorizer_base import (
+        SequenceVectorizerModel,
+    )
+    from transmogrifai_tpu_torch.preparators import sanity_checker
+
+    return [(scalers.FillMissingWithMean, "fit_model", "FillMissingWithMean fit"),
+            (scalers._FillMeanModel, "transform_columns",
+             "FillMissingWithMean transform"),
+            (scalers.OpScalarStandardScaler, "fit_model",
+             "OpScalarStandardScaler fit"),
+            (scalers._ScaleModel, "transform_columns",
+             "OpScalarStandardScaler transform"),
+            (categorical.OneHotVectorizer, "fit_model", "vectorizers fit"),
+            (numeric.RealVectorizer, "fit_model", "vectorizers fit"),
+            (numeric.RealNNVectorizer, "fit_model", "vectorizers fit"),
+            (SequenceVectorizerModel, "transform_columns",
+             "vectorizers transform"),
+            (sanity_checker.SanityChecker, "fit_model", "SanityChecker fit"),
+            (sanity_checker.SanityCheckerModel, "transform_columns",
+             "SanityChecker transform")]
+
+
+def readme_example(path: str):
+    """README.md's example, word for word with the port's imports and
+    ``OpWorkflow()`` left at its default device (the card), over the CSV
+    at ``path``; returns (workflow, reader, prediction)."""
+    import transmogrifai_tpu_torch.dsl  # noqa: F401  feature operators
+    from transmogrifai_tpu_torch import FeatureBuilder, OpWorkflow
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.selector.factories import (
+        BinaryClassificationModelSelector,
+    )
+    from transmogrifai_tpu_torch.types import feature_types as ft
+
+    # Typed raw features
+    survived = FeatureBuilder(ft.RealNN, "survived").as_response()
+    sex = FeatureBuilder(ft.PickList, "sex").as_predictor()
+    age = FeatureBuilder(ft.Real, "age").as_predictor()
+    fare = FeatureBuilder(ft.Real, "fare").as_predictor()
+
+    # Derived features (feature math DSL)
+    normed_age = age.fill_missing_with_mean().z_normalize()
+
+    # Automated feature engineering
+    features = transmogrify([sex, age, fare, normed_age])
+
+    # Automated feature validation
+    checked = survived.sanity_check(features, remove_bad_features=True)
+
+    # Automated model selection
+    prediction = (
+        BinaryClassificationModelSelector.with_cross_validation(num_folds=3)
+        .set_input(survived, checked)
+        .get_output()
+    )
+
+    reader = CSVReader(path)
+    wf = OpWorkflow().set_result_features(prediction).set_reader(reader)
+    return wf, reader, prediction
+
+
+def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
+    """``[readme]``: README.md's example on the card over a README_ROWS-row
+    CSV: train() counted (K1 once, K2 for the GBT and forest depth groups
+    and the 81 tree validation predictions), every kernel call held against
+    its plain version and timed per shape unless ``timings`` hold the
+    shape, and profiled; the reader's native route, the holdout AuROC and
+    ``summary_pretty()`` checked; score() of the CSV's rows.  Returns the
+    run and its kernel shapes."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+    from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+    from transmogrifai_tpu_torch.obs import trace as obs_trace
+
+    tag = "readme"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_readme_csv(os.path.join(tmp, "titanic.csv"), README_ROWS)
+        write_s = time.perf_counter() - t0
+        log(f"[{tag}] wrote {README_ROWS} rows to a CSV in {write_s:.3f} s "
+            f"({os.path.getsize(path) / 1e6:.1f} MB)")
+        wf, reader, prediction = readme_example(path)
+        tracer = obs_trace.reset_tracer()
+        kernels.reset_launches()
+        stage_targets = readme_stage_targets()
+        with kernel_inputs(kernels) as kept, \
+                selector_walls(True, extra=stage_targets) as rec:
+            def train():
+                t0 = time.perf_counter()
+                model = wf.train()
+                return model, time.perf_counter() - t0
+            (model, train_s), by_name = profile(train)
+        train_launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        spans = tracer.spans()
+        data = reader.generate_dataset(wf.raw_features)
+        kernels.reset_launches()
+        with kernel_inputs(kernels) as score_kept:
+            t0 = time.perf_counter()
+            scored = model.score(data)
+            score_s = time.perf_counter() - t0
+        score_launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    reads = {sp["attrs"]["format"]: sp for sp in spans
+             if sp["name"] == "ingest.read"}
+    assert reader.route == "native", reader.route
+    assert set(reads) == {"csv", "csv_native"}, spans
+    assert reads["csv"]["attrs"]["route"] == "native"
+    assert reads["csv"]["attrs"]["rows"] == README_ROWS
+    log(f"[{tag}] CSV read {reads['csv']['wall_ms']:.1f} ms (the native "
+        f"scan and assembly {reads['csv_native']['wall_ms']:.1f} ms), "
+        f"{README_ROWS / (1e-3 * reads['csv']['wall_ms']):.0f} rows/s; "
+        f"route {reader.route}")
+
+    walls = rec["walls"]
+    fits = sum(walls.get(k, 0.0) for k in FIT_PHASES)
+    walls["scoring"] = walls.get("validate", 0.0) - fits
+    (chosen,) = [s for s in model.stages if type(s).__name__ == "SelectedModel"]
+    summary = chosen.metadata["model_selector_summary"]
+    run = {"train_s": train_s, "score_s": score_s, "walls": walls,
+           "launches": {"train": train_launches, "score": score_launches},
+           "summary": summary, "results": summary["validation_results"],
+           "modes": sorted({r["rank_metric_mode"]
+                            for r in summary["validation_results"]}),
+           "holdout_auroc": float(summary["holdout_metrics"][
+               "OpBinaryClassificationEvaluator"]["AuROC"])}
+    run["auroc"] = float(OpBinaryClassificationEvaluator().evaluate(
+        scored, label_col="survived", pred_col=prediction.name).AuROC)
+    log_selector(tag, run)
+    for label in sorted({label for _, _, label in stage_targets}):
+        log(f"[{tag}] cuda stage {label}: {1e3 * walls.get(label, 0.0):.1f} ms")
+    log(f"[{tag}] cuda: train {train_s:.3f} s ({README_ROWS / train_s:.0f} "
+        f"rows/s, profiled), score {score_s:.3f} s "
+        f"({README_ROWS / score_s:.0f} rows/s)")
+    log_profile(tag, 1e3 * train_s, by_name, 14, what="train")
+
+    assert len(run["results"]) == DEFAULT_CANDIDATES, len(run["results"])
+    assert train_launches["fused_moments"] == 1, train_launches
+    # one binning per GBT and forest depth group, the 27 GBT and 54 forest
+    # validation predictions (no label-aware bucketizers on this path)
+    assert train_launches["bin_matrix"] >= 3 + 3 + 27 + 54, train_launches
+    assert (SELECTOR_AUROC_RANGE[0] <= run["holdout_auroc"]
+            <= SELECTOR_AUROC_RANGE[1]), run["holdout_auroc"]
+    for k in kept:
+        kept[k] += score_kept[k]
+    assert_counted(run, kept)
+    pretty = model.summary_pretty()
+    best = summary["best_model_type"]
+    assert pretty and f"Selected model {best}" in pretty, pretty[:2000]
+    assert ("Evaluated 8 OpLogisticRegression, 18 OpRandomForestClassifier, "
+            "9 OpGBTClassifier, 8 OpLinearSVC models with AuROC metric."
+            in pretty), pretty[:2000]
+    assert "Hold Out Set Value" in pretty
+    for line in pretty.splitlines()[:24]:
+        log(f"[{tag}] summary_pretty | {line}")
+
+    shapes: dict = {}
+    hold_path_inputs(kernels, kept, shapes, errs, bin_errs, timings=timings)
+    del kept
+    log_path_shapes(f"the {tag} path's", shapes)
+    return {"run": run, "shapes": shapes}
 
 
 # -- the multiclass and regression selectors -------------------------------------
@@ -1446,8 +1664,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     # the CPU sides of the selectors' card-against-CPU phases train from
-    # the start, beside the card's phases (the [default_selector] phase's
-    # launch-bound forest loop then runs with the host to itself)
+    # the start, beside the card's phases (the [readme] and
+    # [default_selector] phases' launch-bound forest loops then run with
+    # the host to themselves)
     children = [start_selector_cpu(SELECTOR_CMP_ROWS),
                 start_selector_cpu(DEFAULT_CMP_ROWS, "--default-selector-cpu"),
                 start_problem_cpu("multiclass"),
@@ -1473,6 +1692,7 @@ def card_main(cpu_child: subprocess.Popen,
     )
     from transmogrifai_tpu_torch.models.trees import _sampled_bin_edges
     from transmogrifai_tpu_torch.parallel import kernels
+    from transmogrifai_tpu_torch.utils import native as native_bridge
 
     torch.set_float32_matmul_precision("highest")
     torch.backends.cudnn.allow_tf32 = False
@@ -1488,10 +1708,23 @@ def card_main(cpu_child: subprocess.Popen,
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
+    # the CSV scanner's host library: built by the port's own bridge into
+    # its _build/, never over the JAX package's native/libtxkernels.so
+    native_so = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "native", "libtxkernels.so")
+    native_before = file_digest(native_so)
+    t0 = time.perf_counter()
+    lib = native_bridge.get_lib()
+    native_s = time.perf_counter() - t0
+    assert lib is not None and lib._name == native_bridge.lib_path(), \
+        "the port's native CSV scanner did not build"
     log(f"[header] card: {smi}")
     log(f"[header] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log(f"[header] kernels built in {build_s:.1f} s: {', '.join(kernels.KERNELS)}")
+    log(f"[header] the CSV scanner's host library "
+        f"{os.path.relpath(native_bridge.lib_path())} built and loaded in "
+        f"{native_s:.1f} s")
     ptxas = {}
     for kname in kernels.KERNELS:
         ptxas[kname] = ptxas_report(kernels.BUILD_LOG.get(kname, ""))
@@ -1833,15 +2066,23 @@ def card_main(cpu_child: subprocess.Popen,
         f"|prob diff| of the winner {cmp_prob}; the card's GBT grid heaps "
         "bit-identical across two trainings")
 
-    # -- 8. the default selector ------------------------------------------
-    dsel = default_selector_phase(kernels, data, wdata, errs, bin_errs,
-                                  default_cpu_child, sel_shapes)
-    dpl, dwl = dsel["plain"]["launches"], dsel["workflow_cv"]["launches"]
     del data
 
-    # -- 9. the multiclass and regression selectors ---------------------------
+    # -- 8. the README example, 1M rows from a CSV -----------------------------
+    readme = readme_phase(kernels, errs, bin_errs, sel_shapes)
+    rml = readme["run"]["launches"]
+
+    # -- 9. the default selector ------------------------------------------
+    dsel = default_selector_phase(
+        kernels, synthetic_passengers(DEFAULT_SELECTOR_ROWS, seed=42,
+                                      with_text=False),
+        wdata, errs, bin_errs, default_cpu_child,
+        {**sel_shapes, **readme["shapes"]})
+    dpl, dwl = dsel["plain"]["launches"], dsel["workflow_cv"]["launches"]
+
+    # -- 10. the multiclass and regression selectors ---------------------------
     ldata = synthetic_passengers_labelled(SLICE_ROWS, seed=42, with_text=False)
-    timings = {**sel_shapes, **dsel["shapes"]}
+    timings = {**sel_shapes, **readme["shapes"], **dsel["shapes"]}
     problems = {}
     for problem, child in (("multiclass", multiclass_cpu_child),
                            ("regression", regression_cpu_child)):
@@ -1850,12 +2091,14 @@ def card_main(cpu_child: subprocess.Popen,
         timings.update(problems[problem]["shapes"])
     del ldata
 
-    # -- 10. result lines ---------------------------------------------------
+    # -- 11. result lines ---------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
                 "selector_score": spl["score"][k],
                 "selector_workflow_cv_train": swl["train"][k],
                 "selector_workflow_cv_score": swl["score"][k],
+                "readme_train": rml["train"][k],
+                "readme_score": rml["score"][k],
                 "default_selector_train": dpl["train"][k],
                 "default_selector_score": dpl["score"][k],
                 "default_selector_workflow_cv_train": dwl["train"][k],
@@ -1899,6 +2142,8 @@ def card_main(cpu_child: subprocess.Popen,
         "shape": main["shape"],
         "tree_path_shapes": list(tree_moments.values()),
         "selector_path_shapes": sel_shape_rows("fused_moments"),
+        "readme_path_shapes": sel_shape_rows("fused_moments",
+                                             readme["shapes"]),
         "default_selector_path_shapes": sel_shape_rows("fused_moments",
                                                        dsel["shapes"]),
         "default_selector_workflow_cv_path_shapes": sel_shape_rows(
@@ -1932,6 +2177,7 @@ def card_main(cpu_child: subprocess.Popen,
         "shape": bins_main["shape"],
         "tree_path_shapes": list(bin_shapes.values()),
         "selector_path_shapes": sel_shape_rows("bin_matrix"),
+        "readme_path_shapes": sel_shape_rows("bin_matrix", readme["shapes"]),
         "default_selector_path_shapes": sel_shape_rows("bin_matrix",
                                                        dsel["shapes"]),
         "default_selector_workflow_cv_path_shapes": sel_shape_rows(
@@ -1941,6 +2187,8 @@ def card_main(cpu_child: subprocess.Popen,
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}
+    assert file_digest(native_so) == native_before, \
+        "native/libtxkernels.so changed during the run"
     print(smi)
     print(json.dumps(kernel_line))
     # the run used one card, whatever the host holds

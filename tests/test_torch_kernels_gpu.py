@@ -406,3 +406,79 @@ def test_batched_linreg_on_the_card_matches_the_cpu(cuda):
     for g, w in zip(got, want):
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+# -- the README example --------------------------------------------------------
+
+def test_readme_path_on_the_card_holds_both_kernels(cuda, tmp_path):
+    """README.md's example on the card at 20k rows from a CSV: the reader
+    takes the native route, train() launches K1 once and K2 for the GBT
+    and forest depth groups and the 81 tree validation predictions, every
+    call matches its plain version on the inputs the path gave it, and
+    summary_pretty() names the winner."""
+    import sys
+
+    import transmogrifai_tpu_torch.dsl  # noqa: F401  feature operators
+    from transmogrifai_tpu_torch import FeatureBuilder, OpWorkflow
+    from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.selector.factories import (
+        BinaryClassificationModelSelector,
+    )
+    from transmogrifai_tpu_torch.types import feature_types as ft
+
+    survived = FeatureBuilder(ft.RealNN, "survived").as_response()
+    sex = FeatureBuilder(ft.PickList, "sex").as_predictor()
+    age = FeatureBuilder(ft.Real, "age").as_predictor()
+    fare = FeatureBuilder(ft.Real, "fare").as_predictor()
+    normed_age = age.fill_missing_with_mean().z_normalize()
+    features = transmogrify([sex, age, fare, normed_age])
+    checked = survived.sanity_check(features, remove_bad_features=True)
+    prediction = (
+        BinaryClassificationModelSelector.with_cross_validation(num_folds=3)
+        .set_input(survived, checked)
+        .get_output()
+    )
+    reader = CSVReader(write_readme_csv(str(tmp_path / "t.csv"), 20_000))
+    wf = OpWorkflow().set_result_features(prediction).set_reader(reader)
+
+    # keep a copy of every wrapper call's arguments (each module of the
+    # package that holds a wrapper by name gets a counting-neutral shim)
+    seen = {w.__name__: [] for w in tk.WRAPPERS}
+    patched = []
+    for mod in list(sys.modules.values()):
+        if mod is tk or not getattr(mod, "__name__", "").startswith(
+                "transmogrifai_tpu_torch."):
+            continue
+        for w in tk.WRAPPERS:
+            if getattr(mod, w.__name__, None) is w:
+                def shim(*args, _w=w):
+                    seen[_w.__name__].append(tuple(
+                        a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args))
+                    return _w(*args)
+                setattr(mod, w.__name__, shim)
+                patched.append((mod, w))
+    tk.reset_launches()
+    try:
+        model = wf.train()
+    finally:
+        for mod, w in patched:
+            setattr(mod, w.__name__, w)
+    assert reader.route == "native"
+    assert tk.fused_moments.launches == len(seen["fused_moments"]) == 1
+    assert tk.bin_matrix.launches == len(seen["bin_matrix"]) >= 3 + 3 + 27 + 54
+    for x, y in seen["fused_moments"]:
+        assert x.is_cuda
+        _assert_moments_match(tk.fused_moments(x, y),
+                              tk.fused_moments_plain(x, y))
+    for x, edges, dtype in seen["bin_matrix"]:
+        assert x.is_cuda
+        assert torch.equal(tk.bin_matrix(x, edges, dtype),
+                           tk.bin_matrix_plain(x, edges, dtype))
+    summary = model.summary_pretty()
+    (chosen,) = [s for s in model.stages
+                 if type(s).__name__ == "SelectedModel"]
+    best = chosen.metadata["model_selector_summary"]["best_model_type"]
+    assert f"Selected model {best}" in summary

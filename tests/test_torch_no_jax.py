@@ -54,6 +54,27 @@ pred = sel.set_input(y, vec).get_output()
 model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
     .set_input_dataset(data).train()
 assert len(model.score(data)[pred.name].prediction) == 300
+import os, tempfile
+import transmogrifai_tpu_torch.dsl
+from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+from transmogrifai_tpu_torch.selector.factories import lr_grid
+with tempfile.TemporaryDirectory() as tmp:
+    reader = CSVReader(write_readme_csv(os.path.join(tmp, "t.csv"), 300))
+    age = FeatureBuilder.Real("age").as_predictor()
+    vec = transmogrify([FeatureBuilder.PickList("sex").as_predictor(),
+                        age.fill_missing_with_mean().z_normalize()])
+    checked = y.sanity_check(vec, remove_bad_features=True)
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, models_and_parameters=[
+            (OpLogisticRegression(max_iter=3), lr_grid()[:2])])
+    pred = sel.set_input(y, checked).get_output()
+    model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
+        .set_reader(reader).train()
+    assert reader.route == "native", reader.route
+    assert "Selected model OpLogisticRegression" in model.summary_pretty()
+assert not any(k == "transmogrifai_tpu" or k.startswith("transmogrifai_tpu.")
+               for k in sys.modules), "the JAX package was imported"
 print("OK")
 """
 

@@ -13,8 +13,11 @@ column) -> ``SanityChecker`` (on the hand-written CUDA kernel
 learner (``models/trees.py``: GBT, XGBoost-style GBT, decision trees and
 forests without per-node feature subsets, binning on the hand-written CUDA
 kernel ``bin_matrix``) -> ``OpWorkflow.train()`` /
-``OpWorkflowModel.score()`` -> ``OpBinaryClassificationEvaluator``.
-ROADMAP.md lists what is still to come.
+``OpWorkflowModel.score()`` -> ``OpBinaryClassificationEvaluator``, and
+README.md's example: ``CSVReader`` (the C++ CSV scanner, built by
+``utils/native.py`` into ``_build/``) -> the ``dsl`` feature math and
+scalers -> the model selectors -> ``summary_pretty()``.  ROADMAP.md lists
+what is still to come.
 """
 from .features.feature import Feature
 from .features.feature_builder import FeatureBuilder, from_dataframe, from_schema

@@ -87,6 +87,35 @@ def synthetic_passengers(
     return Dataset(_passengers(n, seed, with_text)[0])
 
 
+#: the README example's CSV columns and the passenger columns they hold:
+#: ``fare`` holds ``height``, so the planted latent (age, height, gender)
+#: stays whole and the AuROC ceiling above still holds
+README_CSV_COLUMNS = (("survived", "survived"), ("sex", "gender"),
+                      ("age", "age"), ("fare", "height"))
+
+
+def write_readme_csv(path: str, n: int, seed: int = 42) -> str:
+    """Write ``synthetic_passengers(n, seed, with_text=False)`` as a CSV
+    with a header under the README example's column names
+    (``README_CSV_COLUMNS``): a missing age is an empty cell, integral
+    values are written as integers and heights by their shortest
+    round-trip repr, so either CSV route reads back the generated values.
+    Returns ``path``."""
+    cols = _passengers(n, seed, with_text=False)[0]
+    survived = cols["survived"].values.astype(np.int64)
+    gender = cols["gender"].values
+    age = cols["age"]
+    ages = [str(int(a)) if m else ""
+            for a, m in zip(age.values.tolist(), age.mask.tolist())]
+    heights = cols["height"].values.tolist()
+    lines = [",".join(name for name, _ in README_CSV_COLUMNS)]
+    lines += [f"{s},{g},{a},{h!r}" for s, g, a, h
+              in zip(survived.tolist(), gender.tolist(), ages, heights)]
+    with open(path, "w", newline="") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
 # -- planted multiclass and regression labels ----------------------------------
 # Both rest on the latent L = f + 0.5*eps of ``survived`` above:
 #   tier     = the tercile of L that the row falls in (0.0, 1.0 or 2.0), cut at

@@ -65,6 +65,10 @@ class PredictorModel(Transformer):
         )
         return PredictionColumn(pred, raw, prob)
 
+    # interpretability hooks (reference: ModelInsights contributions)
+    def feature_contributions(self) -> Optional[np.ndarray]:
+        return self.estimator_ref.contributions(self.model_params)
+
 
 class PredictorEstimator(Estimator):
     """Base estimator over (label, features).  ``device`` is where its

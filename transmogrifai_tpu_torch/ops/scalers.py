@@ -1,0 +1,151 @@
+"""Scaling and imputation stages on single numeric features.
+
+Counterpart of ``transmogrifai_tpu/ops/scalers.py``: OpScalarStandardScaler,
+FillMissingWithMean and PercentileCalibrator (reference: core/.../impl/
+feature/OpScalarStandardScaler.scala, FillMissingWithMean.scala,
+PercentileCalibrator.scala), host numpy in both packages.  Their
+``lower``/``lower_xla`` compile seams come with local and fused scoring
+(ROADMAP.md queue 1, item 7).  ``partial_fit_chunk`` and
+``_merge_partial_fits`` give the mergeable per-chunk statistics; the
+estimator seam that fits a model from them comes with streaming ingest
+(item 12).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+from ..stages.base import Estimator, Transformer
+from ..types.columns import Column, NumericColumn
+from ..types.dataset import Dataset
+from ..types.feature_types import Real, RealNN
+from ..utils.masked_stats import masked_mean
+
+
+class _ScaleModel(Transformer):
+    input_types = [Real]
+    output_type = RealNN
+
+    def __init__(self, mean: float, std: float, **kw) -> None:
+        super().__init__(**kw)
+        self.mean = mean
+        self.std = std
+
+    def transform_columns(self, cols: Sequence[Column], ds: Dataset) -> Column:
+        (c,) = cols
+        assert isinstance(c, NumericColumn)
+        vals = (c.values - self.mean) / (self.std if self.std > 0 else 1.0)
+        return NumericColumn(np.where(c.mask, vals, 0.0), c.mask, RealNN)
+
+
+class OpScalarStandardScaler(Estimator):
+    """z-normalization (reference: OpScalarStandardScaler.scala)."""
+
+    input_types = [Real]
+    output_type = RealNN
+
+    def __init__(self, with_mean: bool = True, with_std: bool = True, **kw) -> None:
+        super().__init__(**kw)
+        self.with_mean = with_mean
+        self.with_std = with_std
+
+    def partial_fit_chunk(self, cols: Sequence[Column], ds: Dataset):
+        """Mergeable moments (n, Σx, Σx²) of the present values."""
+        (c,) = cols
+        present = c.values[c.mask]
+        return (int(present.size), float(present.sum()),
+                float(np.square(present).sum()))
+
+    def _merge_partial_fits(self, stats: list):
+        n = sum(s[0] for s in stats)
+        sx = sum(s[1] for s in stats)
+        sxx = sum(s[2] for s in stats)
+        return (n, sx, sxx)
+
+    def fit_model(self, cols: Sequence[Column], ds: Dataset):
+        (c,) = cols
+        assert isinstance(c, NumericColumn)
+        present = c.values[c.mask]
+        mean = float(present.mean()) if self.with_mean and present.size else 0.0
+        std = float(present.std()) if self.with_std and present.size else 1.0
+        return _ScaleModel(mean, std)
+
+
+class _FillMeanModel(Transformer):
+    input_types = [Real]
+    output_type = RealNN
+
+    def __init__(self, fill: float, **kw) -> None:
+        super().__init__(**kw)
+        self.fill = fill
+
+    def transform_columns(self, cols: Sequence[Column], ds: Dataset) -> Column:
+        (c,) = cols
+        assert isinstance(c, NumericColumn)
+        vals = np.where(c.mask, c.values, self.fill)
+        return NumericColumn(vals, np.ones(len(c), dtype=bool), RealNN)
+
+
+class FillMissingWithMean(Estimator):
+    """Real -> RealNN mean imputation (reference: FillMissingWithMean.scala)."""
+
+    input_types = [Real]
+    output_type = RealNN
+
+    def __init__(self, default: float = 0.0, **kw) -> None:
+        super().__init__(**kw)
+        self.default = default
+
+    def partial_fit_chunk(self, cols: Sequence[Column], ds: Dataset):
+        """Mergeable (n_present, Σx) of the present values."""
+        (c,) = cols
+        present = c.values[c.mask]
+        return (int(present.size), float(present.sum()))
+
+    def _merge_partial_fits(self, stats: list):
+        return (sum(s[0] for s in stats), sum(s[1] for s in stats))
+
+    def fit_model(self, cols: Sequence[Column], ds: Dataset):
+        (c,) = cols
+        assert isinstance(c, NumericColumn)
+        return _FillMeanModel(masked_mean(c.values, c.mask, self.default))
+
+
+class _PercentileModel(Transformer):
+    input_types = [Real]
+    output_type = RealNN
+
+    def __init__(self, splits: np.ndarray, buckets: int, **kw) -> None:
+        super().__init__(**kw)
+        self.splits = np.asarray(splits)
+        self.buckets = buckets
+
+    def transform_columns(self, cols: Sequence[Column], ds: Dataset) -> Column:
+        (c,) = cols
+        assert isinstance(c, NumericColumn)
+        ranks = np.searchsorted(self.splits, c.values, side="right")
+        scaled = ranks.astype(np.float64) * (99.0 / max(len(self.splits), 1))
+        return NumericColumn(
+            np.where(c.mask, np.clip(scaled, 0, 99), 0.0), c.mask, RealNN
+        )
+
+
+class PercentileCalibrator(Estimator):
+    """Map scores into 0-99 percentile buckets (reference:
+    PercentileCalibrator.scala)."""
+
+    input_types = [Real]
+    output_type = RealNN
+
+    def __init__(self, buckets: int = 100, **kw) -> None:
+        super().__init__(**kw)
+        self.buckets = buckets
+
+    def fit_model(self, cols: Sequence[Column], ds: Dataset):
+        (c,) = cols
+        assert isinstance(c, NumericColumn)
+        present = c.values[c.mask]
+        qs = np.linspace(0, 1, self.buckets + 1)[1:-1]
+        splits = np.quantile(present, qs) if present.size else np.array([])
+        return _PercentileModel(np.unique(splits), self.buckets)

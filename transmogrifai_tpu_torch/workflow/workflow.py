@@ -21,6 +21,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 
 from ..features.feature import Feature
+from ..obs import trace as _obs_trace
 from ..stages.base import Estimator, PipelineStage, Transformer
 from ..types.columns import Column, column_from_list
 from ..types.dataset import Dataset
@@ -144,6 +145,7 @@ class OpWorkflow:
         self.result_features: tuple[Feature, ...] = ()
         self.raw_features: tuple[Feature, ...] = ()
         self._input_data: Any = None
+        self._reader = None
         self.parameters: dict[str, Any] = {}
         self._workflow_cv = False
         self._warm_stages: dict[str, PipelineStage] = {}
@@ -162,7 +164,10 @@ class OpWorkflow:
         return self
 
     def set_reader(self, reader) -> "OpWorkflow":
-        raise _not_ported("reading through a DataReader", 1)
+        """Read the raw features through ``reader`` (``generate_dataset``,
+        e.g. ``readers.csv_reader.CSVReader``) when the workflow trains."""
+        self._reader = reader
+        return self
 
     def set_parameters(self, **params: Any) -> "OpWorkflow":
         if params.get("schema_contract"):
@@ -184,9 +189,14 @@ class OpWorkflow:
         return self
 
     def generate_raw_data(self) -> Dataset:
-        if self._input_data is None:
-            raise ValueError("no input data: call set_input_dataset")
-        return _as_dataset(self._input_data, self.raw_features)
+        """Reader hand-off (reference: OpWorkflow.generateRawData:222-246);
+        the RawFeatureFilter comes with item 8."""
+        if self._reader is not None:
+            return self._reader.generate_dataset(self.raw_features,
+                                                 self.parameters)
+        if self._input_data is not None:
+            return _as_dataset(self._input_data, self.raw_features)
+        raise ValueError("no input data: call set_input_dataset or set_reader")
 
     def with_model_stages(self, model: "OpWorkflowModel") -> "OpWorkflow":
         """Warm start: fitted stages of ``model`` replace their unfitted
@@ -235,10 +245,18 @@ class OpWorkflow:
         return data
 
     def train(self) -> "OpWorkflowModel":
-        """(reference: OpWorkflow.train:332-357)"""
+        """(reference: OpWorkflow.train:332-357).  The run is one
+        ``workflow.train`` trace span (obs/), with the reader's ingest
+        inside a ``workflow.ingest`` span."""
         resolve_device(self.device)
+        with _obs_trace.span("workflow.train") as train_span:
+            return self._train_traced(train_span)
+
+    def _train_traced(self, train_span) -> "OpWorkflowModel":
         t0 = time.perf_counter()
-        raw = self.generate_raw_data()
+        with _obs_trace.span("workflow.ingest"):
+            raw = self.generate_raw_data()
+        train_span.set_attr("rows", len(raw))
         dag = compute_dag(self.result_features)
         validate_dag(dag)
         dag = self._warm(dag)
@@ -443,13 +461,17 @@ class OpWorkflowModel:
         return json.dumps(self.summary_json(), indent=2, default=str)
 
     def summary_pretty(self) -> str:
-        raise _not_ported("summary_pretty (ModelInsights)", 8)
+        from ..insights.model_insights import ModelInsights
+
+        return ModelInsights.from_model(self).pretty()
 
     def score_function(self):
         raise _not_ported("local (engine-free) scoring", 7)
 
     def model_insights(self, feature: Optional[Feature] = None):
-        raise _not_ported("ModelInsights", 8)
+        from ..insights.model_insights import ModelInsights
+
+        return ModelInsights.from_model(self, feature)
 
     def save(self, path: str) -> None:
         raise _not_ported("model save", 1)
