@@ -32,6 +32,15 @@ two agree:
   grid points, the random forest with per-node feature subsets at 18, the
   GBT at 9) -> train(), score(), ``summary_pretty()``, counted, every
   kernel call held against its plain version, and profiled;
+* the serving path (``[serve]``): the README model, and a 50-tree
+  depth-12 forest and a 20-tree depth-12 GBT fitted on the README front at
+  200k rows, each saved, loaded into its rebuilt workflow with
+  ``OpWorkflowModel.load`` and served through ``score_function()`` - one
+  torch program on the card per batch, every tree head binning its batch
+  with ``bin_matrix`` - over 50k held-out CSV records at batches of 1,
+  64, 1 024 and 16 384, row for row against the numpy-fused scorer,
+  counted, every kernel call held against its plain version, ``bin_matrix``
+  timed at the serving shapes (``--serve-only`` runs this phase alone);
 * the same four families on the passenger data's front
   (transmogrify(label=...) -> SanityChecker), their forest and GBT grids
   cut to depths 3 and 6, at 200k rows on the card, counted; under
@@ -182,14 +191,21 @@ def timed(call, arg_sets) -> dict:
             "calls": calls, "windows_with_host_gaps": gaps}
 
 
+#: at most this many copies: a serving batch of one row would need
+#: millions to fill COLD_BYTES, and a launch that small is bound by the
+#: launch, not by the reads
+MAX_COLD_COPIES = 4096
+
+
 def cold_sets(*args) -> list:
     """``args`` and enough clones of its tensors that all of them together
-    exceed COLD_BYTES."""
+    exceed COLD_BYTES, or MAX_COLD_COPIES of them."""
     size = sum(a.numel() * a.element_size() for a in args
                if isinstance(a, torch.Tensor))
     copies = max(1, int(np.ceil(COLD_BYTES / max(size, 1) + 1e-9)))
     if copies * size <= COLD_BYTES:
         copies += 1
+    copies = min(copies, MAX_COLD_COPIES)
     return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
                            for a in args) for _ in range(copies - 1)]
 
@@ -1246,7 +1262,317 @@ def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
     hold_path_inputs(kernels, kept, shapes, errs, bin_errs, timings=timings)
     del kept
     log_path_shapes(f"the {tag} path's", shapes)
-    return {"run": run, "shapes": shapes}
+    return {"run": run, "shapes": shapes, "model": model}
+
+
+# -- the serving path ------------------------------------------------------------
+
+#: held-out records the served models score (a CSV of its own seed; 50k,
+#: not 100k, to keep the whole script well inside its 1 200 s), and the
+#: rows the served forest and GBT are fitted on
+SERVE_RECORDS = 50_000
+SERVE_FIT_ROWS = 200_000
+SERVE_SEED, SERVE_FIT_SEED = 7, 11
+#: score_batch's batch sizes; batch-of-1 scores this many records
+SERVE_BATCHES = (1, 64, 1024, 16384)
+SERVE_ONE_CALLS = 200
+#: torch-fused rows against numpy-fused rows, in ULPs of the numpy value:
+#: the JAX package's tests/test_fused_xla.py ULP_BUDGETS (its XLA backend
+#: against its numpy-fused one), copied, but for LR's, which the card
+#: forces from 4 to 16: the margins agree to the bit, but CUDA's float64
+#: exp differs from numpy's by an ULP, and probability_0 = 1 - p1 turns
+#: that into 16 ULP of the smaller probability, the same in each of four
+#: runs at 50k and 100k records on an NVIDIA H100 80GB HBM3 at 700 W
+SERVE_ULP_BUDGETS = {"lr": 16, "svc": 1, "rf": 1, "gbt": 64}
+#: torch-fused probabilities against the loaded model's interpreted
+#: score() (the device DAG: float32 heads)
+SERVE_SCORE_ATOL = 1e-6
+#: the default grids' deepest points (JAX package selector/factories.py:
+#: 26-29 and 42-53 for the forest, 56-60 for the GBT)
+SERVE_FOREST = dict(num_trees=50, max_depth=12, min_info_gain=0.001,
+                    min_instances_per_node=10)
+SERVE_GBT = dict(num_trees=20, max_depth=12, min_info_gain=0.001)
+
+
+def serve_front(path: str, head):
+    """README.md's front over the CSV at ``path`` (``age.fill_missing_with
+    _mean().z_normalize()``, the label-free ``transmogrify``,
+    ``sanity_check``) and ``head`` on it, on the card; returns the
+    workflow."""
+    import transmogrifai_tpu_torch.dsl  # noqa: F401  feature operators
+    from transmogrifai_tpu_torch import FeatureBuilder, OpWorkflow
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.types import feature_types as ft
+
+    survived = FeatureBuilder(ft.RealNN, "survived").as_response()
+    sex = FeatureBuilder(ft.PickList, "sex").as_predictor()
+    age = FeatureBuilder(ft.Real, "age").as_predictor()
+    fare = FeatureBuilder(ft.Real, "fare").as_predictor()
+    features = transmogrify([sex, age, fare,
+                             age.fill_missing_with_mean().z_normalize()])
+    checked = survived.sanity_check(features, remove_bad_features=True)
+    pred = head.set_input(survived, checked).get_output()
+    return OpWorkflow().set_result_features(pred).set_reader(CSVReader(path))
+
+
+def serve_rows(rows: list) -> np.ndarray:
+    """Result dicts of a one-Prediction model -> [n, k] float64 (prediction,
+    rawPrediction_*, probability_*)."""
+    return np.array([list(next(iter(r.values())).values()) for r in rows],
+                    dtype=np.float64)
+
+
+def max_ulps(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest difference in ULPs of the wanted float64 value."""
+    diff = np.abs(got - want)
+    return float(np.max(np.where(diff == 0.0, 0.0,
+                                 diff / np.spacing(np.abs(want))),
+                        initial=0.0))
+
+
+def serve_batches(scorer, records: list, bs: int):
+    """(rows, per-call walls in s) of ``score_batch`` over ``records`` in
+    batches of ``bs`` (SERVE_ONE_CALLS records for a batch of 1)."""
+    recs = records[:SERVE_ONE_CALLS] if bs == 1 else records
+    rows, walls = [], []
+    for i in range(0, len(recs), bs):
+        t0 = time.perf_counter()
+        rows += scorer.score_batch(recs[i: i + bs])
+        walls.append(time.perf_counter() - t0)
+    return rows, walls
+
+
+def head_family(model) -> str:
+    (head,) = [s for s in model.stages if hasattr(s, "estimator_ref")]
+    kind = type(head.estimator_ref).__name__
+    return {"OpLogisticRegression": "lr", "OpLinearSVC": "svc",
+            "OpRandomForestClassifier": "rf", "OpGBTClassifier": "gbt"}[kind]
+
+
+def serve_one(kernels, tag: str, model, rebuild, records: list, data,
+              tmp: str, bin_errs: list) -> dict:
+    """Save ``model``, load it into ``rebuild()``, serve ``records`` through
+    the loaded model's ``score_function()`` on the card (torch-fused) and
+    on the host (numpy-fused) at every SERVE_BATCHES size, counted and
+    held; returns what the result lines need."""
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    path = os.path.join(tmp, tag)
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    wf = rebuild()
+    t0 = time.perf_counter()
+    loaded = OpWorkflowModel.load(path, wf)
+    load_s = time.perf_counter() - t0
+    assert loaded.device == "cuda" and loaded.schema_contract is not None
+    fam = head_family(loaded)
+    budget = SERVE_ULP_BUDGETS[fam]
+    # the device program's tensors: the served head's inputs and params
+    (head,) = [s for s in loaded.stages if hasattr(s, "estimator_ref")]
+    est, devices = head.estimator_ref, set()
+    predict = est.predict_arrays_torch
+
+    def seen_predict(params, X):
+        devices.add(X.device.type)
+        devices.update(v.device.type for v in params.values()
+                       if isinstance(v, torch.Tensor))
+        return predict(params, X)
+
+    est.predict_arrays_torch = seen_predict
+    scorer = loaded.score_function()
+    numpy_scorer = loaded.score_function(fused_backend="numpy")
+    assert scorer.fused_backend == "torch", scorer.fused_reason
+    assert scorer.fused_reason is None and scorer.fused.cache == "none"
+    assert scorer.fused.device.type == "cuda", scorer.fused.device
+    assert numpy_scorer.fused_backend == "numpy"
+    log(f"[serve {tag}] saved in {save_s:.3f} s ({size} bytes, files "
+        f"{sorted(os.listdir(path))}), loaded in {load_s:.3f} s; head {fam}, "
+        f"backend torch on {scorer.fused.device}, plan routes "
+        f"{[e[-1]['route'] for e in scorer.fused.plan]}, cache "
+        f"{scorer.fused.cache}")
+
+    kernels.reset_launches()
+    out = {"save_s": save_s, "load_s": load_s, "bytes": size, "family": fam,
+           "batches": {}, "max_ulps": 0.0}
+    n_batches = 0
+    with kernel_inputs(kernels) as kept:
+        for bs in SERVE_BATCHES:
+            rows, walls = serve_batches(scorer, records, bs)
+            n_batches += len(walls)
+            out["batches"][bs] = {"rows": len(rows), "walls": walls,
+                                  "torch": serve_rows(rows)}
+        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    est.predict_arrays_torch = predict
+    assert devices == {"cuda"}, devices
+    want_k2 = n_batches if fam in ("rf", "gbt") else 0
+    assert launches == {"fused_moments": 0, "bin_matrix": want_k2}, launches
+    assert len(kept["bin_matrix"]) == want_k2
+    for args in kept["bin_matrix"]:
+        assert args[0].is_cuda
+        bin_errs.append(check_bins(kernels, *args))
+    out["launches"] = launches
+    # one input of each padded row count (the shape bucket), and the
+    # launches at each
+    out["k2_inputs"] = {int(args[0].shape[0]): args
+                        for args in kept["bin_matrix"]}
+    out["k2_launches_by_rows"] = {}
+    for args in kept["bin_matrix"]:
+        m = int(args[0].shape[0])
+        out["k2_launches_by_rows"][m] = out["k2_launches_by_rows"].get(m, 0) + 1
+    del kept
+
+    for bs in SERVE_BATCHES:
+        b = out["batches"][bs]
+        rows, walls = serve_batches(numpy_scorer, records, bs)
+        want = serve_rows(rows)
+        got = b.pop("torch")
+        assert got.shape == want.shape, (got.shape, want.shape)
+        assert np.array_equal(got[:, 0], want[:, 0]), \
+            f"[serve {tag}] predictions differ at batch {bs}"
+        # each field's largest distance (raw margins, then probabilities),
+        # asserted once every batch size is logged
+        k = (got.shape[1] - 1) // 2
+        b["ulps"] = {"raw": max_ulps(got[:, 1:1 + k], want[:, 1:1 + k]),
+                     "prob": max_ulps(got[:, 1 + k:], want[:, 1 + k:])}
+        ulps = max(b["ulps"].values())
+        out["max_ulps"] = max(out["max_ulps"], ulps)
+        b["numpy_walls"] = walls
+        if bs == SERVE_BATCHES[-1]:
+            out["rows"] = got
+        t_ms = 1e3 * np.array(b["walls"])
+        n_ms = 1e3 * np.array(walls)
+        b["rows_per_s"] = b["rows"] / (t_ms.sum() / 1e3)
+        b["numpy_rows_per_s"] = b["rows"] / (n_ms.sum() / 1e3)
+        b["p50_ms"], b["p99_ms"] = (float(np.percentile(t_ms, 50)),
+                                    float(np.percentile(t_ms, 99)))
+        b["numpy_p50_ms"], b["numpy_p99_ms"] = (
+            float(np.percentile(n_ms, 50)), float(np.percentile(n_ms, 99)))
+        log(f"[serve {tag}] batch {bs}: {len(t_ms)} calls, torch-fused "
+            f"{b['rows_per_s']:.0f} rows/s (p50 {b['p50_ms']:.3f} ms, p99 "
+            f"{b['p99_ms']:.3f} ms a call), numpy-fused "
+            f"{b['numpy_rows_per_s']:.0f} rows/s (p50 {b['numpy_p50_ms']:.3f}"
+            f" ms, p99 {b['numpy_p99_ms']:.3f} ms); predictions equal, raw "
+            f"within {b['ulps']['raw']:g} ULP and probabilities within "
+            f"{b['ulps']['prob']:g} ULP of numpy-fused (budget {budget})")
+    assert out["max_ulps"] <= budget, (
+        f"[serve {tag}] torch-fused rows are {out['max_ulps']:g} ULP from "
+        f"numpy-fused (budget {budget})")
+    # one call of the largest batch, profiled: the card's busy share of
+    # the call's wall and where its device time goes
+    big = records[:SERVE_BATCHES[-1]]
+
+    def one_call():
+        t0 = time.perf_counter()
+        scorer.score_batch(big)
+        return time.perf_counter() - t0
+
+    wall_s, by_name = profile(one_call)
+    out["profiled"] = {"wall_ms": 1e3 * wall_s, "device_ms": log_profile(
+        f"serve {tag}", 1e3 * wall_s, by_name, 6,
+        what=f"score_batch of {len(big)} records")}
+    for m, st in sorted(scorer.fused.bucket_stats.items()):
+        log(f"[serve {tag}] bucket {m}: first call {st['compile_ms']:.3f} ms"
+            f" (device program {st['first_exec_ms']:.3f} ms)")
+    out["bucket_stats"] = dict(scorer.fused.bucket_stats)
+
+    # the loaded model re-scores bit-identically to the model before save
+    before = model.score_function(drift_policy=None)
+    n_cmp = SERVE_BATCHES[-1]
+    assert before.fused_backend == "torch"
+    assert np.array_equal(serve_rows(before.score_batch(records[:n_cmp])),
+                          out["rows"][:n_cmp]), \
+        f"[serve {tag}] the loaded model scores differently from the saved"
+    # the interpreted device DAG of the loaded model on the same records
+    name = loaded.result_features[0].name
+    prob = np.asarray(loaded.score(data)[name].probability, np.float64)
+    k = prob.shape[1]
+    pdiff = float(np.abs(out["rows"][:, -k:] - prob).max())
+    assert pdiff <= SERVE_SCORE_ATOL, pdiff
+    log(f"[serve {tag}] the loaded model re-scores {n_cmp} records "
+        f"bit-identically to the saved one; torch-fused probabilities within "
+        f"{pdiff:.3g} of the loaded model's score() (tolerance "
+        f"{SERVE_SCORE_ATOL:g})")
+    out["score_pdiff"] = pdiff
+    del out["rows"]
+    return out
+
+
+def serve_phase(kernels, readme_model, bin_errs: list,
+                readme_build=None) -> dict:
+    """``[serve]``: three models served on the card through save ->
+    ``OpWorkflowModel.load`` -> ``score_function()``: the README model,
+    a forest and a GBT at the default grids' deepest points fitted on the
+    README front at SERVE_FIT_ROWS.  Each scores SERVE_RECORDS held-out
+    CSV records at every SERVE_BATCHES size, torch-fused against
+    numpy-fused; K2 is launched once per tree-head batch and each launch
+    is held against its plain version; K2 is timed at the serving shapes.
+    ``readme_build(csv path)`` rebuilds the README model's workflow for the
+    load (``readme_example``'s by default).  Returns the result lines'
+    pieces."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTClassifier,
+        OpRandomForestClassifier,
+    )
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_csv = write_readme_csv(os.path.join(tmp, "serve.csv"),
+                                     SERVE_RECORDS, seed=SERVE_SEED)
+        fit_csv = write_readme_csv(os.path.join(tmp, "fit.csv"),
+                                   SERVE_FIT_ROWS, seed=SERVE_FIT_SEED)
+        raw = readme_example(serve_csv)[0].raw_features
+        data = CSVReader(serve_csv).generate_dataset(raw)
+        names = [f.name for f in raw if not f.is_response]
+        records = [dict(zip(names, row))
+                   for row in zip(*(data[n].to_list() for n in names))]
+        log(f"[serve] {len(records)} held-out records from a CSV of seed "
+            f"{SERVE_SEED}; fields {names}")
+        build = readme_build or (lambda path: readme_example(path)[0])
+        out["readme"] = serve_one(
+            kernels, "readme", readme_model, lambda: build(serve_csv),
+            records, data, tmp, bin_errs)
+        for tag, cls, params in (("forest", OpRandomForestClassifier,
+                                  SERVE_FOREST),
+                                 ("gbt", OpGBTClassifier, SERVE_GBT)):
+            t0 = time.perf_counter()
+            kernels.reset_launches()
+            model = serve_front(fit_csv, cls(**params)).train()
+            fit = {w.__name__: w.launches for w in kernels.WRAPPERS}
+            fit_s = time.perf_counter() - t0
+            log(f"[serve {tag}] {cls.__name__}({params}) fitted on "
+                f"{SERVE_FIT_ROWS} rows on the card in {fit_s:.3f} s "
+                f"(launches {fit})")
+            out[tag] = serve_one(
+                kernels, tag, model,
+                lambda c=cls, p=params: serve_front(serve_csv, c(**p)),
+                records, data, tmp, bin_errs)
+            out[tag]["fit_s"], out[tag]["fit_launches"] = fit_s, fit
+            del model
+    # K2 at the serving shapes: the served forest's own inputs
+    shapes = []
+    for m in SERVE_BATCHES:
+        x, edges, dtype = out["forest"]["k2_inputs"][m]
+        b = time_bins(kernels, x, edges, dtype)
+        b["serve_launches"] = sum(v["k2_launches_by_rows"].get(m, 0)
+                                  for v in (out["forest"], out["gbt"]))
+        shapes.append(b)
+        log_bins_times(f"serving {tuple(x.shape)} x {edges.shape[1]} edges "
+                       f"-> {dtype}", b)
+    for v in out.values():
+        v.pop("k2_inputs", None)
+    out["k2_shapes"] = shapes
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[serve] phase wall {out['wall_s']:.1f} s")
+    return out
 
 
 # -- the multiclass and regression selectors -------------------------------------
@@ -1652,7 +1978,48 @@ def ovr_card_vs_cpu(x: np.ndarray, y: np.ndarray) -> dict:
     return {"beta_diff": bdiff, "prob_diff": pdiff}
 
 
+def serve_by_path(serve: dict, k: str) -> dict:
+    """A kernel's launches on the [serve] phase's paths: each served
+    model's scoring, and the forest's and GBT's fits."""
+    out = {f"serve_{tag}": serve[tag]["launches"][k]
+           for tag in ("readme", "forest", "gbt")}
+    out.update({f"serve_{tag}_fit": serve[tag]["fit_launches"][k]
+                for tag in ("forest", "gbt")})
+    return out
+
+
+def serve_only_main() -> int:
+    """``--serve-only``: the kernels' build and the [serve] phase alone,
+    with a logistic regression on the README front in the README model's
+    place: a quick check of the serving path while it changes.  Without
+    arguments the script runs every phase."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.set_float32_matmul_precision("highest")
+    kernels.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = write_readme_csv(os.path.join(tmp, "t.csv"), 50_000)
+        model = serve_front(csv, OpLogisticRegression()).train()
+    bin_errs: list = []
+    serve = serve_phase(kernels, model, bin_errs, readme_build=lambda path:
+                        serve_front(path, OpLogisticRegression()))
+    print(json.dumps({k: serve_by_path(serve, k) for k in
+                      ("fused_moments", "bin_matrix")}))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] == "--serve-only":
+        return serve_only_main()
     if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
         return selector_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--default-selector-cpu":
@@ -2072,6 +2439,9 @@ def card_main(cpu_child: subprocess.Popen,
     readme = readme_phase(kernels, errs, bin_errs, sel_shapes)
     rml = readme["run"]["launches"]
 
+    # -- 8b. the serving path: save, load, score_function() -------------------
+    serve = serve_phase(kernels, readme.pop("model"), bin_errs)
+
     # -- 9. the default selector ------------------------------------------
     dsel = default_selector_phase(
         kernels, synthetic_passengers(DEFAULT_SELECTOR_ROWS, seed=42,
@@ -2104,7 +2474,8 @@ def card_main(cpu_child: subprocess.Popen,
                 "default_selector_workflow_cv_train": dwl["train"][k],
                 "default_selector_workflow_cv_score": dwl["score"][k],
                 **{f"{p}_selector_{phase}": v["run"]["launches"][phase][k]
-                   for p, v in problems.items() for phase in ("train", "score")}}
+                   for p, v in problems.items() for phase in ("train", "score")},
+                **serve_by_path(serve, k)}
 
     def sel_launches(k):
         return sum(sel_by_path(k).values())
@@ -2184,6 +2555,7 @@ def card_main(cpu_child: subprocess.Popen,
             "bin_matrix", dsel["wcv_shapes"]),
         **{f"{p}_selector_path_shapes": sel_shape_rows(
             "bin_matrix", v["shapes"]) for p, v in problems.items()},
+        "serve_path_shapes": serve["k2_shapes"],
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}

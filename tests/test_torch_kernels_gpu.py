@@ -482,3 +482,61 @@ def test_readme_path_on_the_card_holds_both_kernels(cuda, tmp_path):
                  if type(s).__name__ == "SelectedModel"]
     best = chosen.metadata["model_selector_summary"]["best_model_type"]
     assert f"Selected model {best}" in summary
+
+
+def test_torch_fused_forest_scores_on_card_through_k2(cuda, tmp_path,
+                                                      monkeypatch):
+    """The README front and a 20-tree forest, trained on the card, saved
+    and loaded: the loaded model's torch-fused scorer runs on the card,
+    launches K2 once per batch, and its rows equal the numpy-fused
+    scorer's bit for bit on the C++ walk, and within a float32 ULP on the
+    numpy walk (which divides the tree sum by T, not times float32 1/T)."""
+    import transmogrifai_tpu_torch.dsl  # noqa: F401  feature operators
+    from transmogrifai_tpu_torch import FeatureBuilder, OpWorkflow
+    from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.types import feature_types as ft
+
+    path = write_readme_csv(str(tmp_path / "t.csv"), 3000)
+
+    def build():
+        survived = FeatureBuilder(ft.RealNN, "survived").as_response()
+        sex = FeatureBuilder(ft.PickList, "sex").as_predictor()
+        age = FeatureBuilder(ft.Real, "age").as_predictor()
+        fare = FeatureBuilder(ft.Real, "fare").as_predictor()
+        vec = transmogrify([sex, age, fare,
+                            age.fill_missing_with_mean().z_normalize()])
+        checked = survived.sanity_check(vec, remove_bad_features=True)
+        pred = OpRandomForestClassifier(num_trees=20, max_depth=8) \
+            .set_input(survived, checked).get_output()
+        return OpWorkflow().set_result_features(pred) \
+            .set_reader(CSVReader(path))
+
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    build().train().save(str(tmp_path / "m"))
+    model = OpWorkflowModel.load(str(tmp_path / "m"), build())
+    assert model.device == "cuda"
+    reader = CSVReader(path)
+    data = reader.generate_dataset(model.raw_features)
+    names = [f.name for f in model.raw_features if not f.is_response]
+    cols = [data[n].to_list() for n in names]
+    records = [dict(zip(names, row)) for row in zip(*cols)][:777]
+    fused = model.score_function(drift_policy=None)
+    assert fused.fused_backend == "torch" and fused.fused_reason is None
+    assert fused.fused.device.type == "cuda"
+    npf = model.score_function(drift_policy=None, fused_backend="numpy")
+    tk.reset_launches()
+    batches = [records[i: i + 100] for i in range(0, len(records), 100)]
+    got = [row for b in batches for row in fused.score_batch(b)]
+    assert tk.bin_matrix.launches == len(batches)
+    from torch_parity import assert_rows_close
+
+    from transmogrifai_tpu_torch.models import native_trees
+
+    assert got == [row for b in batches for row in npf.score_batch(b)]
+    monkeypatch.setattr(native_trees, "predict_forest", lambda *a, **k: None)
+    assert_rows_close(got, [row for b in batches for row in npf.score_batch(b)],
+                      1, unit=np.float32)

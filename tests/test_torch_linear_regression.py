@@ -160,13 +160,25 @@ def test_high_mean_low_variance_columns():
 
 
 def test_unported_routes_raise():
+    """The fused training seam and the streamed fit raise with their
+    items; the scoring mirror of the device-fused program is ported
+    (``predict_arrays_torch``: a float64 matmul, whose row sums may take
+    another order than numpy's BLAS, so within a few ULP of it)."""
     est = lin.OpLinearRegression(device="cpu")
     for call, item in ((lambda: est.fused_train_core(False), 9),
                        (lambda: est.streaming_fit_stats(None, None), 12),
-                       (lambda: est.fit_from_stats([]), 12),
-                       (lambda: est.predict_arrays_xla({}, None), 7)):
+                       (lambda: est.fit_from_stats([]), 12)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
+    assert not hasattr(est, "predict_arrays_xla")
+    rng = np.random.RandomState(4)
+    X = rng.randn(50, 3)
+    params = est.fit_arrays(X, X @ [1.0, -2.0, 0.5] + 0.1)
+    got = est.predict_arrays_torch(
+        est.torch_params(params, torch.device("cpu")), torch.from_numpy(X))
+    np.testing.assert_allclose(got[0].numpy(),
+                               est.predict_arrays_np(params, X)[0],
+                               rtol=16 * 2.0 ** -52, atol=0)
 
 
 REGRESSORS = [

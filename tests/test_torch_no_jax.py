@@ -59,8 +59,8 @@ import transmogrifai_tpu_torch.dsl
 from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
 from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
 from transmogrifai_tpu_torch.selector.factories import lr_grid
-with tempfile.TemporaryDirectory() as tmp:
-    reader = CSVReader(write_readme_csv(os.path.join(tmp, "t.csv"), 300))
+def readme_wf(reader):
+    y = FeatureBuilder.RealNN("survived").as_response()
     age = FeatureBuilder.Real("age").as_predictor()
     vec = transmogrify([FeatureBuilder.PickList("sex").as_predictor(),
                         age.fill_missing_with_mean().z_normalize()])
@@ -69,10 +69,24 @@ with tempfile.TemporaryDirectory() as tmp:
         num_folds=3, models_and_parameters=[
             (OpLogisticRegression(max_iter=3), lr_grid()[:2])])
     pred = sel.set_input(y, checked).get_output()
-    model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
-        .set_reader(reader).train()
+    return tt.OpWorkflow(device="cpu").set_result_features(pred) \
+        .set_reader(reader)
+with tempfile.TemporaryDirectory() as tmp:
+    reader = CSVReader(write_readme_csv(os.path.join(tmp, "t.csv"), 300))
+    model = readme_wf(reader).train()
     assert reader.route == "native", reader.route
     assert "Selected model OpLogisticRegression" in model.summary_pretty()
+    model.save(os.path.join(tmp, "m"))
+    loaded = tt.OpWorkflowModel.load(os.path.join(tmp, "m"),
+                                     readme_wf(reader))
+    rec = [{"sex": "male", "age": 30.0}, {"sex": None}]
+    for backend in ("numpy", "torch"):
+        scorer = loaded.score_function(fused_backend=backend)
+        assert scorer.fused_backend == backend, scorer.fused_reason
+        # the loaded model adopts the fresh workflow's uids: compare values
+        got = [list(r.values()) for r in scorer.score_batch(rec)]
+        want = model.score_function(fused_backend=backend).score_batch(rec)
+        assert got == [list(r.values()) for r in want]
 assert not any(k == "transmogrifai_tpu" or k.startswith("transmogrifai_tpu.")
                for k in sys.modules), "the JAX package was imported"
 print("OK")

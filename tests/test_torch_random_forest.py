@@ -230,14 +230,20 @@ def test_rows_with_the_same_leaves_score_the_same_bits():
     """A forest whose trees never split (no gain reaches min_info_gain)
     scores every row alike, bit for bit, at a row count off any vector
     width: the trees add in tree order (``tree_kernel.seq_sum``), the
-    host route's numpy order.  A stacked mean added some rows' trees in
-    another order, and the CV metric of such a candidate left 0.5."""
+    numpy walk's order (``predict_forest_np``).  A stacked mean added some
+    rows' trees in another order, and the CV metric of such a candidate
+    left 0.5.  The host serving route (``predict_arrays_np``, the C++ walk
+    where the native library is built) scores every row alike too."""
     X, y = _data(True, seed=3)
     X, y = np.tile(X, (6, 1))[:6001], np.tile(y, 6)[:6001]
+    tk_mod = mod(PORT, "models.tree_kernel")
     port = mod(PORT, "models.trees").OpRandomForestClassifier(
         device="cpu", num_trees=50, max_depth=3, min_info_gain=0.5)
     params = port.fit_arrays(X, y)
     assert params["heaps"][2].all()
     prob = port.predict_arrays(params, X)[2]
     assert np.unique(prob[:, 1]).size == 1
-    np.testing.assert_array_equal(prob, port.predict_arrays_np(params, X)[2])
+    bins = tk_mod.bin_data(np.asarray(X, np.float32), params["edges"])
+    np.testing.assert_array_equal(prob, tk_mod.predict_forest_np(
+        bins, params["heaps"], params["max_depth"]))
+    assert np.unique(port.predict_arrays_np(params, X)[2][:, 1]).size == 1

@@ -104,9 +104,11 @@ def test_one_hot_pair_tie_is_logged():
 
 
 def test_unported_routes_raise():
-    """The host C++ learner, the fused plan and the traceable scoring
-    mirror raise, naming their item; the forests' per-node subsets (item
-    6a) no longer do: a default forest fits, folds and predicts."""
+    """The host C++ learner and the fused plan raise, naming their item;
+    the forests' per-node subsets (item 6a) no longer do: a default forest
+    fits, folds and predicts.  The scoring mirror of the device-fused
+    program is ported (``predict_arrays_torch``, within an ULP of the
+    numpy route here)."""
     X, y = _data(True)
     trees = mod(PORT, "models.trees")
     rf = trees.OpRandomForestClassifier(device="cpu", num_trees=3)
@@ -124,8 +126,18 @@ def test_unported_routes_raise():
     gbt = trees.OpGBTClassifier(device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         gbt.fused_tree_plan(X, y, np.ones((3, N)), [{}])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        gbt.predict_arrays_xla({}, X)
+    assert not hasattr(gbt, "predict_arrays_xla")
+    # the forest's float32 mean: 1 float32 ULP (the C++ walk multiplies
+    # by 1/T, the mirror divides by T); the GBT's float64 head: 64 ULP
+    for est, p, rtol in ((rf, params, 2.0 ** -23),
+                         (gbt, gbt.fit_arrays(X, y), 64 * 2.0 ** -52)):
+        got = est.predict_arrays_torch(
+            est.torch_params(p, torch.device("cpu")),
+            torch.from_numpy(np.asarray(X, np.float32)))
+        want = est.predict_arrays_np(p, np.asarray(X, np.float32))
+        np.testing.assert_array_equal(got[0].numpy(), want[0])
+        np.testing.assert_allclose(got[2].numpy(), want[2], rtol=rtol,
+                                   atol=0)
     with pytest.raises(ValueError, match="binary"):
         gbt.fit_arrays(X, np.arange(N) % 3)
 

@@ -354,3 +354,100 @@ def tree_fits_agree(want, got, X, classification: bool, gbt: bool = False):
             stats(np.asarray(want["heaps"][3][t]))]
         tied |= compare_trees(g, w, bins, depth, **tol)[1]
     return tied
+
+
+# -- the fused-serving slice ------------------------------------------------
+#: per-family float tolerance of torch-fused against numpy-fused rows,
+#: (ulps, atol), copied from the JAX package's tests/test_fused_xla.py
+#: ULP_BUDGETS (its XLA backend against its numpy-fused one): gathers and
+#: elementwise heads are bit-exact to an ULP, matmul heads a few ULP
+ULP_BUDGETS = {
+    "rf": (1, 0.0), "rf_reg": (1, 0.0), "svc": (1, 0.0),
+    "linreg": (1, 0.0),
+    "lr": (4, 0.0), "nb": (4, 0.0),
+    "gbt": (64, 0.0), "gbt_reg": (64, 0.0),
+}
+
+#: the families of the JAX package's tests/test_fused_pipeline.py that the
+#: torch package has: name -> (estimator maker(pkg), classification)
+SERVE_FAMILIES = {
+    "lr": (lambda p: mod(p, "models.logistic_regression")
+           .OpLogisticRegression(reg_param=0.01), True),
+    "rf": (lambda p: mod(p, "models.trees")
+           .OpRandomForestClassifier(num_trees=8, max_depth=4), True),
+    "gbt": (lambda p: mod(p, "models.trees")
+            .OpGBTClassifier(num_trees=6, max_depth=3), True),
+    "nb": (lambda p: mod(p, "models.naive_bayes").OpNaiveBayes(), True),
+    "svc": (lambda p: mod(p, "models.linear_svc").OpLinearSVC(), True),
+    "linreg": (lambda p: mod(p, "models.linear_regression")
+               .OpLinearRegression(), False),
+    "rf_reg": (lambda p: mod(p, "models.trees")
+               .OpRandomForestRegressor(num_trees=8, max_depth=4), False),
+    "gbt_reg": (lambda p: mod(p, "models.trees")
+                .OpGBTRegressor(num_trees=6, max_depth=3), False),
+}
+
+
+def mixed_pipeline(pkg: str, family: str, n: int = 160, seed: int = 3):
+    """The JAX package's ``_mixed_pipeline`` (tests/test_fused_pipeline.py)
+    in ``pkg``: fill-mean -> z-normalize, real and integral vectorizers, a
+    one-hot picklist, the combiner, the SanityChecker and the ``family``
+    head.  Returns (workflow, records, prediction name); the torch
+    package's workflow runs on the CPU."""
+    mod(pkg, "dsl")
+    make, classification = SERVE_FAMILIES[family]
+    rng = np.random.RandomState(seed)
+    y = ((rng.rand(n) > 0.5).astype(float) if classification
+         else rng.randn(n) * 2.0)
+    data = {
+        "y": y.tolist(),
+        "a": [float(v) if rng.rand() > 0.2 else None
+              for v in rng.randn(n)],
+        "b": rng.uniform(0, 10, n).round(3).tolist(),
+        "k": rng.randint(0, 5, n).astype(float).tolist(),
+        "c": [("u", "v", "w", None)[rng.randint(4)] for _ in range(n)],
+    }
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    ft = mod(pkg, "types.feature_types")
+    yf = fb(ft.RealNN, "y").as_response()
+    a = fb(ft.Real, "a").as_predictor()
+    b = fb(ft.Real, "b").as_predictor()
+    k = fb(ft.Integral, "k").as_predictor()
+    c = fb(ft.PickList, "c").as_predictor()
+    vec = mod(pkg, "ops.transmogrifier").transmogrify(
+        [a.fill_missing_with_mean().z_normalize(), b, k, c])
+    checked = yf.sanity_check(vec, remove_bad_features=True)
+    pred = make(pkg).set_input(yf, checked).get_output()
+    records = [
+        {nm: data[nm][i] for nm in ("a", "b", "k", "c")} for i in range(n)
+    ]
+    return workflow(pkg, pred, data), records, pred.name
+
+
+def assert_rows_close(got_rows, want_rows, ulps: int, atol: float = 0.0,
+                      unit=np.float64):
+    """Result dicts equal key for key, floats within ``ulps`` of the
+    wanted value's spacing as a ``unit`` (or ``atol``), everything else
+    exactly."""
+    assert len(got_rows) == len(want_rows)
+    for rg, rw in zip(got_rows, want_rows):
+        assert rg.keys() == rw.keys()
+        for name in rg:
+            dg, dw = rg[name], rw[name]
+            if not isinstance(dg, dict):
+                assert dg == dw, name
+                continue
+            assert dg.keys() == dw.keys(), name
+            for kk, vg in dg.items():
+                vw = dw[kk]
+                if isinstance(vg, float) and isinstance(vw, float):
+                    if vg == vw:
+                        continue
+                    assert np.isfinite(vg) and np.isfinite(vw), (
+                        name, kk, vg, vw)
+                    tol = max(ulps * float(np.spacing(unit(abs(vw)))),
+                              atol)
+                    assert abs(vg - vw) <= tol, (name, kk, vg, vw)
+                else:
+                    assert vg == vw, (name, kk)
+

@@ -16,8 +16,10 @@ kernel ``bin_matrix``) -> ``OpWorkflow.train()`` /
 ``OpWorkflowModel.score()`` -> ``OpBinaryClassificationEvaluator``, and
 README.md's example: ``CSVReader`` (the C++ CSV scanner, built by
 ``utils/native.py`` into ``_build/``) -> the ``dsl`` feature math and
-scalers -> the model selectors -> ``summary_pretty()``.  ROADMAP.md lists
-what is still to come.
+scalers -> the model selectors -> ``summary_pretty()``; and serving:
+``model.save()``, ``OpWorkflowModel.load()`` and ``score_function()``, whose
+local scorer runs one torch program on the card per batch
+(``local/fused_torch.py``).  ROADMAP.md lists what is still to come.
 """
 from .features.feature import Feature
 from .features.feature_builder import FeatureBuilder, from_dataframe, from_schema

@@ -8,6 +8,8 @@ ported modules reach are:
 point                      effect at the call site
 ========================== ==================================================
 native.load                the native kernel library reports unavailable
+io.save_model.crash        hard process kill mid-artifact-write (tempdir)
+io.save_model.crash_window hard kill between the artifact swap renames
 reader.malformed_row       a reader row turns malformed/truncated mid-
                            ingest (quarantine/strict drill)
 reader.type_flip           a numeric reader cell turns to junk text

@@ -15,6 +15,13 @@ and also needs the selection summary (the fitted stage's
 ``metadata["model_selector_summary"]``, which names the winning family
 and its grid point) under the key ``"model_selector_summary"``; the
 winner is rebuilt from the selector's own candidates.
+
+``load_reference_artifact`` does the same from a model directory that the
+JAX package's ``save_model`` wrote: this package's ``model_io`` verifies
+the manifest and reads ``model.json`` and ``arrays.npz`` (json, hashlib
+and numpy only), and the saved schema contract comes along.  This
+package's own ``load_model`` cannot read such an artifact, because its
+class paths name the JAX package's modules.
 """
 from __future__ import annotations
 
@@ -30,8 +37,17 @@ from .ops.numeric import (
     RealNNVectorizer,
     RealVectorizer,
 )
+from .ops.scalers import (
+    FillMissingWithMean,
+    OpScalarStandardScaler,
+    PercentileCalibrator,
+    _FillMeanModel,
+    _PercentileModel,
+    _ScaleModel,
+)
 from .preparators.sanity_checker import SanityChecker, SanityCheckerModel
 from .selector.model_selector import ModelSelector, SelectedModel
+from .serialization import model_io
 from .stages.base import Estimator
 from .utils.device import resolve_device
 from .workflow.dag import compute_dag, flatten
@@ -50,6 +66,9 @@ _FITTED = {
     DecisionTreeNumericBucketizer: (
         NumericBucketizerModel, ("splits", "track_nulls"),
     ),
+    FillMissingWithMean: (_FillMeanModel, ("fill",)),
+    OpScalarStandardScaler: (_ScaleModel, ("mean", "std")),
+    PercentileCalibrator: (_PercentileModel, ("splits", "buckets")),
 }
 
 
@@ -144,4 +163,36 @@ def load_reference_state(
         raw_features=workflow.raw_features,
         stages=fitted,
         parameters=dict(workflow.parameters),
+        device=workflow.device,
     )
+
+
+def load_reference_artifact(path: str, workflow: OpWorkflow) -> OpWorkflowModel:
+    """Fitted model of ``workflow`` from the model directory ``path`` that
+    the JAX package's ``save_model`` wrote (``model.json``, ``arrays.npz``
+    and ``manifest.json``, checksum-verified; ``.last-good`` recovery as
+    in ``model_io.load_model``).  Each saved stage's class name and
+    decoded state pair with ``workflow``'s DAG as in
+    :func:`load_reference_state`; a selected model's summary comes from
+    its saved metadata.  The saved schema contract, when there is one,
+    becomes the model's.  Estimators score on ``workflow.device``."""
+    path, doc, arrays = model_io.read_artifact(path)
+    if doc.get("blacklisted_raw"):
+        raise NotImplementedError(
+            "the artifact blacklists raw features: the RawFeatureFilter "
+            "is not ported to the torch package yet (ROADMAP.md queue 1, "
+            "item 8)"
+        )
+    states = []
+    for saved in doc["stages"]:
+        state = dict(model_io._decode(saved["state"], arrays))
+        meta = model_io._decode(saved["metadata"], arrays)
+        if "model_selector_summary" in meta:
+            state.setdefault("model_selector_summary",
+                             meta["model_selector_summary"])
+        states.append((saved["class"].rpartition(".")[2], state))
+    model = load_reference_state(workflow, states)
+    model.parameters = dict(model_io._decode(doc["parameters"], arrays))
+    model.train_time_s = doc.get("train_time_s", 0.0)
+    model.schema_contract = model_io.read_schema_contract(path)
+    return model

@@ -16,8 +16,12 @@ fold membership are weight masks, not data copies.  ``with_params``,
 ``hyper_params`` and ``batched_needs_binary_y`` are what the model
 selector calls on every candidate.
 
-The JAX package's ``lower``/``lower_xla`` seams come with the fused-scoring
-slice (ROADMAP.md queue 1, item 7).
+Serving adds two scoring routes per family, both gated on the family's
+``lowerable`` opt-in: ``predict_arrays_np`` (pure numpy, the local
+scorer's interpreted and numpy-fused route) and ``predict_arrays_torch``
+(torch ops on the device program's tensors, the JAX package's
+``predict_arrays_xla``).  A family prepares its fitted params for the
+device once per device through ``torch_params``.
 """
 from __future__ import annotations
 
@@ -26,7 +30,14 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from ..stages.base import Estimator, Transformer
+from ..stages.base import (
+    PROB_SUFFIX,
+    RAW_SUFFIX,
+    Estimator,
+    Lowering,
+    TorchLowering,
+    Transformer,
+)
 from ..types.columns import Column, NumericColumn, PredictionColumn, VectorColumn
 from ..types.dataset import Dataset
 from ..types.feature_types import OPVector, Prediction, RealNN
@@ -56,11 +67,22 @@ class PredictorModel(Transformer):
         super().__init__(**kw)
         self.estimator_ref = estimator
         self.model_params = params
+        self.holdout_metrics: Optional[dict] = None
+
+    #: when True, scoring uses the estimator's pure-numpy predict path -
+    #: set by the local scorer (local/scorer.py) on its own copies of the
+    #: predictor stages, so an interpreted row never dispatches to a device
+    prefer_numpy = False
 
     def transform_columns(self, cols: Sequence[Column], ds: Dataset) -> Column:
         vec = cols[-1]
         assert isinstance(vec, VectorColumn)
-        pred, raw, prob = self.estimator_ref.predict_arrays(
+        predict = (
+            self.estimator_ref.predict_arrays_np
+            if self.prefer_numpy
+            else self.estimator_ref.predict_arrays
+        )
+        pred, raw, prob = predict(
             self.model_params, np.asarray(vec.values, dtype=np.float64)
         )
         return PredictionColumn(pred, raw, prob)
@@ -68,6 +90,97 @@ class PredictorModel(Transformer):
     # interpretability hooks (reference: ModelInsights contributions)
     def feature_contributions(self) -> Optional[np.ndarray]:
         return self.estimator_ref.contributions(self.model_params)
+
+    def lower(self) -> Optional[Lowering]:
+        """Compile the fitted head to one closed-over array call through
+        the estimator family's pure-numpy predict path.  Gated on the
+        family's ``lowerable`` opt-in."""
+        est = self.estimator_ref
+        if not getattr(est, "lowerable", False):
+            return None
+        vec_name = self.input_features[-1].name
+        out = self.output_name
+        params = self.model_params
+        # the interpreted path feeds predict float64; families whose
+        # kernel is float32-exact (trees: the first predict step is a
+        # float32 binning, and f32->f64->f32 is the identity) skip the
+        # float64 round trip without changing a single output bit
+        in_dtype = (
+            np.float32 if getattr(est, "predict_f32_exact", False)
+            else np.float64
+        )
+
+        def fn(env: dict) -> dict:
+            pred, raw, prob = est.predict_arrays_np(
+                params, np.asarray(env[vec_name], dtype=in_dtype)
+            )
+            # PredictionColumn's canonical shapes: pred flat float64,
+            # raw/prob [n, k] float64
+            res = {out: np.asarray(pred, dtype=np.float64).reshape(-1)}
+            if raw is not None:
+                raw = np.asarray(raw, dtype=np.float64)
+                res[out + RAW_SUFFIX] = (
+                    raw[:, None] if raw.ndim == 1 else raw
+                )
+            if prob is not None:
+                prob = np.asarray(prob, dtype=np.float64)
+                res[out + PROB_SUFFIX] = (
+                    prob[:, None] if prob.ndim == 1 else prob
+                )
+            return res
+
+        # raw/prob presence is fixed by the fitted family but not knowable
+        # here without running predict, so only the guaranteed key is
+        # declared; the result assembler reads the suffixed keys tolerantly
+        return Lowering(
+            fn=fn, inputs=(vec_name,),
+            outputs=(out,),
+            signature={out: "float64[n]"},
+        )
+
+    def lower_torch(self) -> Optional[TorchLowering]:
+        """Compile the fitted head to a torch call through the family's
+        ``predict_arrays_torch`` mirror of its numpy predict path, over
+        params the family prepares once per device (``torch_params``).
+        Gated on the ``lowerable`` opt-in and on the family providing the
+        mirror - a family without one keeps the whole pipeline on the
+        numpy-fused path."""
+        est = self.estimator_ref
+        predict_torch = getattr(est, "predict_arrays_torch", None)
+        if not getattr(est, "lowerable", False) or predict_torch is None:
+            return None
+        vec_name = self.input_features[-1].name
+        out = self.output_name
+        params = self.model_params
+        in_dtype = (
+            torch.float32 if getattr(est, "predict_f32_exact", False)
+            else torch.float64
+        )
+        on_device: dict = {}  # device -> the params prepared there
+
+        def fn(env: dict) -> dict:
+            X = env[vec_name]
+            tparams = on_device.get(X.device)
+            if tparams is None:
+                tparams = on_device[X.device] = est.torch_params(
+                    params, X.device)
+            pred, raw, prob = predict_torch(tparams, X.to(in_dtype))
+            res = {out: pred.to(torch.float64).reshape(-1)}
+            if raw is not None:
+                raw = raw.to(torch.float64)
+                res[out + RAW_SUFFIX] = raw[:, None] if raw.dim() == 1 else raw
+            if prob is not None:
+                prob = prob.to(torch.float64)
+                res[out + PROB_SUFFIX] = (
+                    prob[:, None] if prob.dim() == 1 else prob
+                )
+            return res
+
+        return TorchLowering(
+            fn=fn, inputs=(vec_name,),
+            outputs=(out,),
+            signature={out: "float64[n]"},
+        )
 
 
 class PredictorEstimator(Estimator):
@@ -77,6 +190,10 @@ class PredictorEstimator(Estimator):
     input_types = [RealNN, OPVector]
     output_type = Prediction
     model_type: str = "Predictor"
+    #: opt-in to whole-pipeline fused compilation (local/fused.py): True
+    #: promises ``predict_arrays_np`` is a pure host-side function of
+    #: (params, X) safe to close over in a per-shape-bucket program
+    lowerable: bool = False
     # Whether fit_arrays_batched's kernel assumes y in {0,1}: classifiers
     # keep the conservative True so multiclass labels take the validator's
     # per-candidate route; regressors override it to False.
@@ -116,8 +233,15 @@ class PredictorEstimator(Estimator):
 
     def predict_arrays_np(self, params: Any, X: np.ndarray):
         """Pure-numpy scoring; the default assumes ``predict_arrays`` is
-        already host-side."""
+        already host-side.  Every ``lowerable`` family overrides it with
+        the JAX package's numpy path."""
         return self.predict_arrays(params, X)
+
+    def torch_params(self, params: Any, device: torch.device) -> Any:
+        """The fitted ``params`` as ``predict_arrays_torch`` reads them on
+        ``device``: host arrays copied there once, when a device program
+        first scores on it."""
+        return params
 
     def contributions(self, params: Any) -> Optional[np.ndarray]:
         return None

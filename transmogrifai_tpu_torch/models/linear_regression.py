@@ -18,11 +18,12 @@ batched, and a NaN solve keeps that candidate's previous iterate alone.
 Squared loss takes any real label, so ``batched_needs_binary_y`` is
 False and the validator batches regression grids.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item: the streamed sufficient-statistics fit
-(``streaming_fit_stats``, ``fit_from_stats``; item 12), the fused training
-seam (``fused_train_core``; item 9) and the traceable scoring mirror
-(``predict_arrays_xla``; item 7).
+Scoring has the numpy route (``predict_arrays_np``) and its torch mirror
+for the device-fused program (``predict_arrays_torch``).  Not ported yet,
+each raising ``NotImplementedError`` with its ROADMAP.md queue 1 item: the
+streamed sufficient-statistics fit (``streaming_fit_stats``,
+``fit_from_stats``; item 12) and the fused training seam
+(``fused_train_core``; item 9).
 """
 from __future__ import annotations
 
@@ -140,6 +141,7 @@ class OpLinearRegression(PredictorEstimator):
     {0.001,0.01,0.1,0.2}, elasticNet {0.1,0.5})"""
 
     model_type = "OpLinearRegression"
+    lowerable = True
     batched_needs_binary_y = False  # squared loss: any real y batches
 
     def __init__(
@@ -196,8 +198,15 @@ class OpLinearRegression(PredictorEstimator):
         pred = (X @ params["beta"] + params["intercept"]).astype(np.float64)
         return pred, None, None
 
-    def predict_arrays_xla(self, params: Any, X):
-        raise _not_ported("the traceable scoring mirror", 7)
+    def torch_params(self, params: Any, device: torch.device) -> dict:
+        return {"beta": torch.tensor(np.asarray(params["beta"], np.float64),
+                                     device=device),
+                "intercept": float(params["intercept"])}
+
+    def predict_arrays_torch(self, params: dict, X: torch.Tensor):
+        """Torch mirror of ``predict_arrays_np`` over float64 ``X``."""
+        pred = X @ params["beta"] + params["intercept"]
+        return pred.to(torch.float64), None, None
 
     def contributions(self, params: Any) -> Optional[np.ndarray]:
         return np.abs(params["beta"])

@@ -30,7 +30,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .base import PredictorEstimator
-from .logistic_regression import _f32
+from .logistic_regression import _f32, _f64
 from .packed_newton import (
     _batched_diag,
     guarded_step,
@@ -180,6 +180,7 @@ class OpLinearSVC(PredictorEstimator):
     elasticNet values it also carries are ignored)"""
 
     model_type = "OpLinearSVC"
+    lowerable = True
 
     def __init__(self, reg_param: float = 0.0, max_iter: int = 20,
                  device: str = "cuda", **kw) -> None:
@@ -222,6 +223,17 @@ class OpLinearSVC(PredictorEstimator):
         z = X @ params["beta"] + params["intercept"]
         pred = (z > 0).astype(np.float64)
         raw = np.stack([-z, z], axis=1)
+        return pred, raw, None
+
+    def torch_params(self, params: Any, device: torch.device) -> dict:
+        return {"beta": _f64(params["beta"], device),
+                "intercept": float(params["intercept"])}
+
+    def predict_arrays_torch(self, params: dict, X: torch.Tensor):
+        """Torch mirror of the numpy margin head over float64 ``X``."""
+        z = X @ params["beta"] + params["intercept"]
+        pred = (z > 0).to(torch.float64)
+        raw = torch.stack([-z, z], dim=1)
         return pred, raw, None
 
     def contributions(self, params: Any) -> Optional[np.ndarray]:

@@ -395,6 +395,7 @@ class OpLogisticRegression(PredictorEstimator):
     elasticNet {0.1,0.5})"""
 
     model_type = "OpLogisticRegression"
+    lowerable = True
 
     def __init__(
         self,
@@ -556,6 +557,31 @@ class OpLogisticRegression(PredictorEstimator):
         prob = np.stack([1.0 - p1, p1], axis=1)
         raw = np.stack([-z, z], axis=1)
         pred = (p1 > 0.5).astype(np.float64)
+        return pred, raw, prob
+
+    def torch_params(self, params: Any, device: torch.device) -> dict:
+        if "betas" in params:
+            return {k: _f64(params[k], device)
+                    for k in ("betas", "intercepts", "classes")}
+        return {"beta": _f64(params["beta"], device),
+                "intercept": float(params["intercept"])}
+
+    def predict_arrays_torch(self, params: dict, X: torch.Tensor):
+        """Torch mirror of ``predict_arrays_np`` over float64 ``X`` and
+        ``torch_params``; the margin is a float64 matmul, whose reduction
+        order may differ from numpy's BLAS by a few ULP."""
+        if "betas" in params:
+            z = X @ params["betas"].T + params["intercepts"]
+            z = torch.clamp(z, -500, 500)
+            e = torch.exp(z - z.amax(dim=1, keepdim=True))
+            prob = e / e.sum(dim=1, keepdim=True)
+            pred = params["classes"][torch.argmax(prob, dim=1)]
+            return pred, z, prob
+        z = X @ params["beta"] + params["intercept"]
+        p1 = 1.0 / (1.0 + torch.exp(-torch.clamp(z, -500, 500)))
+        prob = torch.stack([1.0 - p1, p1], dim=1)
+        raw = torch.stack([-z, z], dim=1)
+        pred = (p1 > 0.5).to(torch.float64)
         return pred, raw, prob
 
     def contributions(self, params: Any) -> Optional[np.ndarray]:

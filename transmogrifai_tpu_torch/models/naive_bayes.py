@@ -18,7 +18,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .base import PredictorEstimator
-from .logistic_regression import _f32
+from .logistic_regression import _f32, _f64
 
 
 def _nb_fit(X: torch.Tensor, onehot: torch.Tensor, w: torch.Tensor,
@@ -42,6 +42,7 @@ def _nb_fit(X: torch.Tensor, onehot: torch.Tensor, w: torch.Tensor,
 
 class OpNaiveBayes(PredictorEstimator):
     model_type = "OpNaiveBayes"
+    lowerable = True
 
     def __init__(self, smoothing: float = 1.0, device: str = "cuda",
                  **kw) -> None:
@@ -91,4 +92,17 @@ class OpNaiveBayes(PredictorEstimator):
         ex = np.exp(raw - raw.max(axis=1, keepdims=True))
         prob = ex / ex.sum(axis=1, keepdims=True)
         pred = params["classes"][np.argmax(prob, axis=1)].astype(np.float64)
+        return pred, raw, prob
+
+    def torch_params(self, params: Any, device: torch.device) -> dict:
+        return {k: _f64(params[k], device)
+                for k in ("shift", "theta", "prior", "classes")}
+
+    def predict_arrays_torch(self, params: dict, X: torch.Tensor):
+        """Torch mirror of the numpy head over float64 ``X``."""
+        raw = ((X - params["shift"]) @ params["theta"].T
+               + params["prior"][None, :])
+        ex = torch.exp(raw - raw.amax(dim=1, keepdim=True))
+        prob = ex / ex.sum(dim=1, keepdim=True)
+        pred = params["classes"][torch.argmax(prob, dim=1)]
         return pred, raw, prob

@@ -84,9 +84,15 @@ def quantile_bin_edges(X: np.ndarray, max_bins: int) -> np.ndarray:
 
 def bin_data(X: np.ndarray, edges: np.ndarray) -> np.ndarray:
     """Assign bins [n, d] int32 on the host via per-feature searchsorted
-    (side='left').  The JAX package's C++ route comes with the native
-    bridge (ROADMAP.md queue 1, item 1)."""
+    (side='left'); the C++ routine of ``native/txtrees.cpp``
+    (``tx_bin_data``, the same lower bound, NaN after every non-NaN edge)
+    when the port's native library is built, as in the JAX package."""
     X = np.asarray(X, np.float32)
+    from . import native_trees
+
+    out = native_trees.bin_data(X, edges)
+    if out is not None:
+        return out
     n, d = X.shape
     out = np.empty((n, d), dtype=np.int32)
     for j in range(d):

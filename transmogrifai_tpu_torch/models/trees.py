@@ -24,10 +24,18 @@ random feature subsets come from the port's threefry generator
 (``utils/threefry.py``), bit for bit the JAX package's, so a forest grows
 the JAX package's trees.  The GBT and forest fold and grid fan-outs
 (``fit_arrays_folds``, ``fit_arrays_folds_grid``) serve the model
-selector's cross-validation.  Not ported yet, and raising
-``NotImplementedError`` with their ROADMAP.md queue 1 item: the host C++
-learner (``backend="native"``, item 1), the fused-training plan (item 9)
-and the traceable scoring mirror (item 7).
+selector's cross-validation.
+
+Serving has two routes.  ``predict_arrays_np`` is the JAX package's host
+route: the C++ flat-heap walk of ``native/txtrees.cpp`` through the port's
+own library build, else the vectorized all-trees numpy walk.
+``predict_arrays_torch`` is the device-fused program's: kernel K2 bins
+the float32 batch, then every tree walks at once as one [T, n] gather
+frontier over nodes packed into one int32 each (``_forest_stats_torch``),
+and the trees add in tree order (``seq_sum``) before the numpy route's
+head arithmetic.  Not ported yet, and raising ``NotImplementedError``
+with their ROADMAP.md queue 1 item: the host C++ learner
+(``backend="native"``, item 1) and the fused-training plan (item 9).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import torch
 
 from ..parallel.kernels import bin_matrix
 from ..utils.device import resolve_device
+from . import native_trees
 from .base import PredictorEstimator
 from .tree_kernel import (
     bin_data,
@@ -125,8 +134,94 @@ def _heaps_on(heaps, device: torch.device) -> tuple:
     return tuple(torch.tensor(np.asarray(h), device=device) for h in heaps)
 
 
+#: packed-node field widths (_forest_stats_torch): feature 20 bits,
+#: threshold bin 11 bits, leaf flag in the int32 sign bit
+_PACK_F_BITS = 20
+_PACK_T_BITS = 11
+
+
+def _walk_params(params: dict, device: torch.device) -> dict:
+    """The tree heaps of ``params`` as ``_forest_stats_torch`` walks them
+    on ``device``: each node's (feature, threshold bin, leaf) packed into
+    one int32 when the fields fit (packed in int64 on the host, then
+    viewed as int32, so the leaf flag lands in the sign bit), else the
+    three flat heaps; the leaf stats flat [T * M, C]; and the edges as
+    K2 takes them."""
+    hf, ht, hl, hv = (np.asarray(h) for h in params["heaps"])
+    if hf.ndim == 1:  # a single tree: add the tree axis
+        hf, ht, hl, hv = hf[None], ht[None], hl[None], hv[None]
+    T, M = hf.shape
+    edges = np.ascontiguousarray(params["edges"], np.float32)
+    out = {
+        "edges": torch.tensor(edges, device=device),
+        "bins_dtype": bins_device_dtype(edges.shape[1] + 1),
+        "max_depth": int(params["max_depth"]),
+        "T": T, "M": M,
+        "hv": torch.tensor(np.ascontiguousarray(hv.reshape(T * M, -1)),
+                           device=device),
+    }
+    if hf.max(initial=0) < (1 << _PACK_F_BITS) and \
+            ht.max(initial=0) < (1 << _PACK_T_BITS):
+        packed = (hf.astype(np.int64)
+                  | (ht.astype(np.int64) << _PACK_F_BITS)
+                  | (hl.astype(np.int64) << 31))
+        out["packed"] = torch.tensor(
+            packed.astype(np.uint32).view(np.int32).ravel(), device=device)
+    else:
+        out["heaps"] = tuple(
+            torch.tensor(np.ascontiguousarray(a).ravel(), device=device)
+            for a in (hf.astype(np.int64), ht.astype(np.int64), hl))
+    return out
+
+
+def _forest_stats_torch(bins: torch.Tensor, wp: dict) -> torch.Tensor:
+    """Torch mirror of ``tree_kernel.predict_forest_stats_np``: every
+    tree's flat heap walks as one [T, n] gather frontier -> raw leaf stats
+    [T, n, C], ``max_depth`` gather steps with the numpy walk's index
+    arithmetic, so the gathered stats are bit-equal to it.  With packed
+    nodes a level is one flat gather of the node word and one of the row's
+    bin; the sign bit marks a leaf."""
+    T, M = wp["T"], wp["M"]
+    n, d = bins.shape
+    dev = bins.device
+    idx = torch.zeros((T, n), dtype=torch.int64, device=dev)
+    base = (torch.arange(T, dtype=torch.int64, device=dev) * M)[:, None]
+    binsf = bins.reshape(-1)
+    rowoff = (torch.arange(n, dtype=torch.int64, device=dev) * d)[None, :]
+    packed = wp.get("packed")
+    if packed is not None:
+        f_mask = (1 << _PACK_F_BITS) - 1
+        for _ in range(wp["max_depth"]):
+            p = packed[base + idx]
+            f = (p & f_mask).to(torch.int64)
+            thr = (p & 0x7FFFFFFF) >> _PACK_F_BITS
+            row_bin = binsf[rowoff + f]
+            nxt = idx * 2 + 1 + (row_bin > thr).to(torch.int64)
+            idx = torch.where(p < 0, idx, nxt)  # sign bit = leaf
+    else:
+        hff, htf, hlf = wp["heaps"]
+        for _ in range(wp["max_depth"]):
+            g = base + idx
+            row_bin = binsf[rowoff + hff[g]]
+            nxt = idx * 2 + 1 + (row_bin > htf[g]).to(torch.int64)
+            idx = torch.where(hlf[g], idx, nxt)
+    return wp["hv"][base + idx]
+
+
+def _device_bins_for_walk(X: torch.Tensor, wp: dict) -> torch.Tensor:
+    """The served batch's bins: kernel K2 for a CUDA tensor, its plain
+    version for a CPU one (the wrapper's own rule; no fallback)."""
+    return bin_matrix(X.to(torch.float32).contiguous(), wp["edges"],
+                      wp["bins_dtype"])
+
+
 class _TreeEnsembleBase(PredictorEstimator):
     is_classification = True
+    # fused serving (local/): predict_arrays_np is one flat-heap native or
+    # numpy batch call over host params - pure and closable; the float32
+    # binning front end makes a float32 feed bit-identical
+    lowerable = True
+    predict_f32_exact = True
 
     def __init__(
         self,
@@ -181,8 +276,15 @@ class _TreeEnsembleBase(PredictorEstimator):
     def fused_tree_plan(self, X, y, W, grid):
         raise _not_ported("the fused tree-training plan", 9)
 
-    def predict_arrays_xla(self, params: Any, X):
-        raise _not_ported("the traceable tree scoring mirror", 7)
+    def torch_params(self, params: Any, device: torch.device) -> dict:
+        out = _walk_params(params, device)
+        if "classes" in params:
+            out["classes"] = torch.tensor(
+                np.asarray(params["classes"], np.float64), device=device)
+        for k in ("f0", "step_size"):
+            if k in params:
+                out[k] = float(params[k])
+        return out
 
 
 class _RandomForest(_TreeEnsembleBase):
@@ -300,15 +402,40 @@ class _RandomForest(_TreeEnsembleBase):
         return out[:, 0].astype(np.float64), None, None
 
     def predict_arrays_np(self, params: Any, X: np.ndarray):
-        # the host serving route: searchsorted binning and the vectorized
-        # all-trees numpy walk (the C++ walk comes with the native bridge)
+        # the host serving route: one flat-heap C++ call per batch when
+        # the native library is built, else the vectorized all-trees
+        # numpy walk; both are batch-first
         bins = bin_data(np.asarray(X, np.float32), params["edges"])
-        out = predict_forest_np(bins, params["heaps"], params["max_depth"])
+        out = native_trees.predict_forest(
+            bins, params["heaps"], params["max_depth"]
+        )
+        if out is None:
+            out = predict_forest_np(bins, params["heaps"],
+                                    params["max_depth"])
         if self.is_classification:
             classes = params["classes"]
             pred = classes[np.argmax(out, axis=1)]
             return pred.astype(np.float64), out, out
         return out[:, 0].astype(np.float64), None, None
+
+    def predict_arrays_torch(self, params: dict, X: torch.Tensor):
+        """Torch mirror of ``predict_arrays_np`` over float32 ``X`` and
+        ``torch_params``: K2 binning, the all-trees gather walk, then the
+        normalized leaf stats added in tree order and scaled by float32
+        1/T, as the C++ host walk does it, on every device and host: torch
+        divides by a scalar exactly on the CPU but multiplies by its
+        reciprocal on CUDA, so ``/ T`` would give other bits on the card.
+        numpy's ``mean`` (the host route without the C++ library) divides;
+        where T is not a power of two it may differ by a float32 ULP."""
+        stats = _forest_stats_torch(_device_bins_for_walk(X, params), params)
+        w = torch.clamp(stats[..., 0:1], min=1e-12)
+        normed = stats[..., 1:] / w
+        inv_t = float(np.float32(1.0) / np.float32(stats.shape[0]))
+        out = seq_sum(list(normed.unbind(0))) * inv_t
+        if self.is_classification:
+            pred = params["classes"][torch.argmax(out, dim=1)]
+            return pred, out, out
+        return out[:, 0].to(torch.float64), None, None
 
     def contributions(self, params: Any) -> Optional[np.ndarray]:
         """Impurity-decrease feature importances recovered from the stored
@@ -467,6 +594,22 @@ class _GBT(_TreeEnsembleBase):
         )
         F = params["f0"] + params["step_size"] * contrib.sum(axis=0)
         return self._head(F)
+
+    def predict_arrays_torch(self, params: dict, X: torch.Tensor):
+        """Torch mirror of ``predict_arrays_np``: K2 binning, the gather
+        walk, the float64 leaf contributions added in tree order, then
+        the logistic head (``exp`` may differ from numpy's by an ULP)."""
+        stats = _forest_stats_torch(_device_bins_for_walk(X, params), params)
+        contrib = (stats[..., 1].to(torch.float64)
+                   / torch.clamp(stats[..., 3], min=1e-12).to(torch.float64))
+        F = params["f0"] + params["step_size"] * seq_sum(
+            list(contrib.unbind(0)))
+        if self.is_classification:
+            p1 = 1.0 / (1.0 + torch.exp(-F))
+            prob = torch.stack([1.0 - p1, p1], dim=1)
+            raw = torch.stack([-F, F], dim=1)
+            return (p1 > 0.5).to(torch.float64), raw, prob
+        return F, None, None
 
     def contributions(self, params: Any) -> Optional[np.ndarray]:
         """Impurity-decrease importances on the gradient-variance channels

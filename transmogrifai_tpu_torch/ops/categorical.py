@@ -6,9 +6,10 @@ support into indicator columns plus OTHER and (optionally) null-indicator
 columns.  Label order is count descending then value ascending -
 deterministic, matching the reference's sorted pivots.
 
-The JAX package's StringIndexer / IndexToString come with the rest of the
-vectorizers (ROADMAP.md queue 1, item 2), and its ``lower_block`` seam with
-the fused-scoring slice (item 7).
+The pivot lowers to numpy only (``lower_block``): strings never enter the
+device program, so a fused torch pipeline runs it as a host pre-step.  The
+JAX package's StringIndexer / IndexToString come with the rest of the
+vectorizers (ROADMAP.md queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..stages.base import MASK_SUFFIX
 from ..types.columns import Column, ListColumn, NumericColumn, TextColumn
 from ..types.dataset import Dataset
 from ..types.vector_metadata import (
@@ -221,6 +223,52 @@ class OneHotModel(SequenceVectorizerModel):
         if self.track_nulls:
             arr[:, -1] = (~present).astype(np.float64)
         return arr, metas
+
+    def lower_block(self, i: int):
+        feat = self.input_features[i]
+        kind = feat.ftype.kind
+        if kind not in ("text", "textlist", "multipicklist", "numeric"):
+            return None
+        name = feat.name
+        labels = self.labels_per_feature[i]
+        track_nulls, clean = self.track_nulls, self.clean_text
+        width = len(labels) + 1 + (1 if track_nulls else 0)
+
+        def block(env: dict) -> np.ndarray:
+            values = env[name]
+            n = len(values)
+            arr = np.zeros((n, width), dtype=np.float64)
+            if kind == "text":
+                codes = self._text_codes(i, values)
+                present = codes >= 0
+                arr[np.nonzero(present)[0], codes[present]] = 1.0
+            else:
+                # the multi-value / numeric pivot branches of _values_of
+                # over the lowered env representation (tuples/frozensets
+                # for lists, values+mask arrays for numerics)
+                if kind == "numeric":
+                    mask = env[name + MASK_SUFFIX]
+                    vals = [
+                        (str(int(v)) if float(v).is_integer()
+                         else str(float(v)),) if m else None
+                        for v, m in zip(values, mask)
+                    ]
+                    present = np.asarray(mask, dtype=bool)
+                else:
+                    vals = [
+                        tuple(_clean_value(x, clean) for x in v) if v
+                        else None
+                        for v in values
+                    ]
+                    present = np.array(
+                        [v is not None for v in vals], dtype=bool
+                    )
+                self._scatter_sets(vals, arr, labels)
+            if track_nulls:
+                arr[:, -1] = (~present).astype(np.float64)
+            return arr
+
+        return block
 
 
 class OneHotVectorizer(SequenceVectorizer):

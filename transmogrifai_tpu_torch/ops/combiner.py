@@ -5,16 +5,17 @@ Counterparts of VectorsCombiner / DropIndicesByTransformer / AliasTransformer
 DropIndicesByTransformer.scala, AliasTransformer.scala): concatenate OPVector
 columns preserving per-dimension provenance metadata.
 
-The JAX package's ``lower``/``lower_xla`` seams come with the fused-scoring
-slice (ROADMAP.md queue 1, item 7).
+The combiner and the alias lower to numpy (``lower``) and to torch
+(``lower_torch``); a text alias stays on the host.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
-from ..stages.base import Transformer
+from ..stages.base import MASK_SUFFIX, Lowering, TorchLowering, Transformer
 from ..types.columns import Column, VectorColumn
 from ..types.dataset import Dataset
 from ..types.feature_types import OPVector
@@ -53,6 +54,34 @@ class VectorsCombiner(Transformer):
             meta = VectorMetadata.combine(self.output_name, metas)
             self._combine_cache = (key, meta, metas)
         return VectorColumn(values, meta)
+
+    def lower(self):
+        if not self.input_features:
+            return None
+        names = tuple(f.name for f in self.input_features)
+        out = self.output_name
+
+        def fn(env: dict) -> dict:
+            return {out: np.concatenate([env[k] for k in names], axis=1)}
+
+        return Lowering(
+            fn=fn, inputs=names, outputs=(out,),
+            signature={out: "float32[n,d]"},
+        )
+
+    def lower_torch(self):
+        if not self.input_features:
+            return None
+        names = tuple(f.name for f in self.input_features)
+        out = self.output_name
+
+        def fn(env: dict) -> dict:
+            return {out: torch.cat([env[k] for k in names], dim=1)}
+
+        return TorchLowering(
+            fn=fn, inputs=names, outputs=(out,),
+            signature={out: "float32[n,d]"},
+        )
 
 
 class DropIndicesByTransformer(Transformer):
@@ -95,3 +124,30 @@ class AliasTransformer(Transformer):
         super().set_input(*features)
         self.output_type = features[0].ftype
         return self
+
+    def _alias_lowering(self, kinds: tuple, cls):
+        (feat,) = self.input_features
+        kind = feat.ftype.kind
+        if kind not in kinds:
+            return None
+        name, out = feat.name, self.output_name
+        aux = (MASK_SUFFIX,) if kind == "numeric" else ()
+
+        def fn(env: dict) -> dict:
+            res = {out: env[name]}
+            res.update({out + s: env[name + s] for s in aux})
+            return res
+
+        return cls(
+            fn=fn, inputs=(name,) + tuple(name + s for s in aux),
+            outputs=(out,) + tuple(out + s for s in aux),
+            signature={out: "passthrough"},
+        )
+
+    def lower(self):
+        return self._alias_lowering(("numeric", "text", "vector"), Lowering)
+
+    def lower_torch(self):
+        # text aliases stay host-side (object arrays are no tensors); the
+        # host pre-step route covers them
+        return self._alias_lowering(("numeric", "vector"), TorchLowering)

@@ -11,7 +11,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from ..stages.base import MASK_SUFFIX
 from ..types.columns import Column, NumericColumn
 from ..types.dataset import Dataset
 from ..types.feature_types import Binary, Integral, Real, RealNN
@@ -57,6 +59,36 @@ class NumericVectorizerModel(SequenceVectorizerModel):
             i, (feat.name, feat.ftype.type_name(), self.track_nulls), build
         )
         return np.stack(blocks, axis=1), metas
+
+    def lower_block(self, i: int):
+        name = self.input_features[i].name
+        fill = self.fill_values[i]
+        track_nulls = self.track_nulls
+
+        def block(env: dict) -> np.ndarray:
+            vals, mask = env[name], env[name + MASK_SUFFIX]
+            filled = np.where(mask, vals, fill)
+            blocks = [filled]
+            if track_nulls:
+                blocks.append((~mask).astype(np.float64))
+            return np.stack(blocks, axis=1)
+
+        return block
+
+    def lower_block_torch(self, i: int):
+        name = self.input_features[i].name
+        fill = float(self.fill_values[i])
+        track_nulls = self.track_nulls
+
+        def block(env: dict) -> torch.Tensor:
+            vals, mask = env[name], env[name + MASK_SUFFIX]
+            filled = torch.where(mask, vals, fill)
+            blocks = [filled]
+            if track_nulls:
+                blocks.append((~mask).to(torch.float64))
+            return torch.stack(blocks, dim=1)
+
+        return block
 
 
 class RealVectorizer(SequenceVectorizer):

@@ -3,9 +3,9 @@
 Counterpart of ``transmogrifai_tpu/ops/scalers.py``: OpScalarStandardScaler,
 FillMissingWithMean and PercentileCalibrator (reference: core/.../impl/
 feature/OpScalarStandardScaler.scala, FillMissingWithMean.scala,
-PercentileCalibrator.scala), host numpy in both packages.  Their
-``lower``/``lower_xla`` compile seams come with local and fused scoring
-(ROADMAP.md queue 1, item 7).  ``partial_fit_chunk`` and
+PercentileCalibrator.scala), host numpy in both packages.  The fitted
+models lower to numpy (``lower``, the numpy-fused program) and to torch
+(``lower_torch``, the device program).  ``partial_fit_chunk`` and
 ``_merge_partial_fits`` give the mergeable per-chunk statistics; the
 estimator seam that fits a model from them comes with streaming ingest
 (item 12).
@@ -15,8 +15,15 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
-from ..stages.base import Estimator, Transformer
+from ..stages.base import (
+    MASK_SUFFIX,
+    Estimator,
+    Lowering,
+    TorchLowering,
+    Transformer,
+)
 from ..types.columns import Column, NumericColumn
 from ..types.dataset import Dataset
 from ..types.feature_types import Real, RealNN
@@ -37,6 +44,29 @@ class _ScaleModel(Transformer):
         assert isinstance(c, NumericColumn)
         vals = (c.values - self.mean) / (self.std if self.std > 0 else 1.0)
         return NumericColumn(np.where(c.mask, vals, 0.0), c.mask, RealNN)
+
+    def _lowering(self, where, cls):
+        (feat,) = self.input_features
+        name, out = feat.name, self.output_name
+        mean = self.mean
+        std = self.std if self.std > 0 else 1.0
+
+        def fn(env: dict) -> dict:
+            vals, mask = env[name], env[name + MASK_SUFFIX]
+            return {out: where(mask, (vals - mean) / std, 0.0),
+                    out + MASK_SUFFIX: mask}
+
+        return cls(
+            fn=fn, inputs=(name, name + MASK_SUFFIX),
+            outputs=(out, out + MASK_SUFFIX),
+            signature={out: "float64[n]", out + MASK_SUFFIX: "bool[n]"},
+        )
+
+    def lower(self):
+        return self._lowering(np.where, Lowering)
+
+    def lower_torch(self):
+        return self._lowering(torch.where, TorchLowering)
 
 
 class OpScalarStandardScaler(Estimator):
@@ -86,6 +116,38 @@ class _FillMeanModel(Transformer):
         vals = np.where(c.mask, c.values, self.fill)
         return NumericColumn(vals, np.ones(len(c), dtype=bool), RealNN)
 
+    def lower(self):
+        (feat,) = self.input_features
+        name, out = feat.name, self.output_name
+        fill = self.fill
+
+        def fn(env: dict) -> dict:
+            vals, mask = env[name], env[name + MASK_SUFFIX]
+            return {out: np.where(mask, vals, fill),
+                    out + MASK_SUFFIX: np.ones(len(vals), dtype=bool)}
+
+        return Lowering(
+            fn=fn, inputs=(name, name + MASK_SUFFIX),
+            outputs=(out, out + MASK_SUFFIX),
+            signature={out: "float64[n]", out + MASK_SUFFIX: "bool[n]"},
+        )
+
+    def lower_torch(self):
+        (feat,) = self.input_features
+        name, out = feat.name, self.output_name
+        fill = float(self.fill)
+
+        def fn(env: dict) -> dict:
+            vals, mask = env[name], env[name + MASK_SUFFIX]
+            return {out: torch.where(mask, vals, fill),
+                    out + MASK_SUFFIX: torch.ones_like(mask)}
+
+        return TorchLowering(
+            fn=fn, inputs=(name, name + MASK_SUFFIX),
+            outputs=(out, out + MASK_SUFFIX),
+            signature={out: "float64[n]", out + MASK_SUFFIX: "bool[n]"},
+        )
+
 
 class FillMissingWithMean(Estimator):
     """Real -> RealNN mean imputation (reference: FillMissingWithMean.scala)."""
@@ -128,6 +190,55 @@ class _PercentileModel(Transformer):
         scaled = ranks.astype(np.float64) * (99.0 / max(len(self.splits), 1))
         return NumericColumn(
             np.where(c.mask, np.clip(scaled, 0, 99), 0.0), c.mask, RealNN
+        )
+
+    def lower(self):
+        (feat,) = self.input_features
+        name, out = feat.name, self.output_name
+        splits = self.splits
+        scale = 99.0 / max(len(self.splits), 1)
+
+        def fn(env: dict) -> dict:
+            vals, mask = env[name], env[name + MASK_SUFFIX]
+            ranks = np.searchsorted(splits, vals, side="right")
+            scaled = ranks.astype(np.float64) * scale
+            return {out: np.where(mask, np.clip(scaled, 0, 99), 0.0),
+                    out + MASK_SUFFIX: mask}
+
+        return Lowering(
+            fn=fn, inputs=(name, name + MASK_SUFFIX),
+            outputs=(out, out + MASK_SUFFIX),
+            signature={out: "float64[n]", out + MASK_SUFFIX: "bool[n]"},
+        )
+
+    def lower_torch(self):
+        (feat,) = self.input_features
+        name, out = feat.name, self.output_name
+        splits = np.asarray(self.splits, dtype=np.float64)
+        scale = 99.0 / max(len(self.splits), 1)
+        on_device: dict = {}  # device -> the splits tensor there
+
+        def fn(env: dict) -> dict:
+            vals, mask = env[name], env[name + MASK_SUFFIX]
+            if len(splits):
+                edges = on_device.get(vals.device)
+                if edges is None:
+                    edges = on_device[vals.device] = torch.as_tensor(
+                        splits, device=vals.device)
+                # numpy's searchsorted ranks NaN after every finite edge;
+                # torch's binary search would not - map NaN to +inf
+                safe = torch.where(torch.isnan(vals), torch.inf, vals)
+                ranks = torch.searchsorted(edges, safe, right=True)
+            else:
+                ranks = torch.zeros_like(vals, dtype=torch.int64)
+            scaled = ranks.to(torch.float64) * scale
+            return {out: torch.where(mask, torch.clamp(scaled, 0, 99), 0.0),
+                    out + MASK_SUFFIX: mask}
+
+        return TorchLowering(
+            fn=fn, inputs=(name, name + MASK_SUFFIX),
+            outputs=(out, out + MASK_SUFFIX),
+            signature={out: "float64[n]", out + MASK_SUFFIX: "bool[n]"},
         )
 
 

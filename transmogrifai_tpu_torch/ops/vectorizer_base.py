@@ -6,16 +6,25 @@ the vectorizer pattern of core/.../impl/feature/*Vectorizer.scala): a
 vectorizer takes N same-type input features and emits ONE OPVector column
 whose per-dimension provenance is recorded in VectorMetadata.
 
-The JAX package's ``lower``/``lower_xla`` seams come with the fused-scoring
-slice (ROADMAP.md queue 1, item 7).
+A fitted vectorizer lowers block by block: ``lower_block(i)`` is the numpy
+closure for input ``i`` (the numpy-fused program) and ``lower_block_torch``
+its torch mirror (the device program); either being None keeps the whole
+stage off that program.
 """
 from __future__ import annotations
 
-from typing import Sequence, Type
+from typing import Callable, Optional, Sequence, Type
 
 import numpy as np
+import torch
 
-from ..stages.base import Estimator, Transformer
+from ..stages.base import (
+    MASK_SUFFIX,
+    Estimator,
+    Lowering,
+    TorchLowering,
+    Transformer,
+)
 from ..types.columns import Column, VectorColumn
 from ..types.dataset import Dataset
 from ..types.feature_types import FeatureType, OPVector
@@ -83,6 +92,77 @@ class SequenceVectorizerModel(Transformer):
             meta = VectorMetadata(self.output_name, metas_t).reindexed()
             self._meta_cache = (self.output_name, meta, metas_t)
         return VectorColumn(values, meta)
+
+    # -- compile-to-kernel seam (stages/base.Lowering) ----------------------
+    def lower_block(self, i: int) -> Optional[Callable[[dict], np.ndarray]]:
+        """Array-level analog of ``blocks_for`` for input ``i``: a pure
+        closure over the fitted state mapping the lowered env to the
+        [n, k] float block.  None (the default) marks the block - and
+        therefore the whole stage - as not lowerable."""
+        return None
+
+    def _block_inputs(self, block_of) -> Optional[tuple[list, list]]:
+        """(block closures, env keys read) over every input, or None when
+        any block does not lower."""
+        blocks = []
+        inputs: list[str] = []
+        for i, feat in enumerate(self.input_features):
+            fn_i = block_of(i)
+            if fn_i is None:
+                return None
+            blocks.append(fn_i)
+            inputs.append(feat.name)
+            if feat.ftype.kind == "numeric":
+                # numeric blocks read the @mask companion too; declared
+                # so the compiler can validate it is actually produced
+                inputs.append(feat.name + MASK_SUFFIX)
+        return (blocks, inputs) if blocks else None
+
+    def lower(self) -> Optional[Lowering]:
+        found = self._block_inputs(self.lower_block)
+        if found is None:
+            return None
+        blocks, inputs = found
+        out = self.output_name
+
+        def fn(env: dict) -> dict:
+            arrays = [
+                np.asarray(b(env), dtype=np.float32) for b in blocks
+            ]
+            return {out: np.concatenate(arrays, axis=1)}
+
+        return Lowering(
+            fn=fn,
+            inputs=tuple(inputs),
+            outputs=(out,),
+            signature={out: "float32[n,d]"},
+        )
+
+    # -- device seam (stages/base.TorchLowering) ----------------------------
+    def lower_block_torch(self, i: int) -> Optional[Callable[[dict], torch.Tensor]]:
+        """Torch analog of ``lower_block`` for input ``i``.  None (the
+        default) keeps the stage off the device program; a stage whose
+        numpy lowering consumes only host-available keys (one-hot text
+        pivots) then runs as a host pre-step instead."""
+        return None
+
+    def lower_torch(self) -> Optional[TorchLowering]:
+        found = self._block_inputs(self.lower_block_torch)
+        if found is None:
+            return None
+        blocks, inputs = found
+        out = self.output_name
+
+        def fn(env: dict) -> dict:
+            arrays = [b(env).to(torch.float32) for b in blocks]
+            return {out: torch.cat(arrays, dim=1)}
+
+        return TorchLowering(
+            fn=fn,
+            inputs=tuple(inputs),
+            outputs=(out,),
+            signature={out: "float32[n,d]"},
+        )
 
 
 class SequenceVectorizer(Estimator):

@@ -19,7 +19,18 @@ Kernels:
   one-sweep column moments; replaces ``pallas_kernels._moments_pallas``.
 * ``bin_matrix`` (``csrc/bin_matrix.cu``) - the tree learner's quantile
   binning of the design matrix, written in the learner's device dtype;
-  replaces ``pallas_kernels._bin_pallas``.
+  replaces ``pallas_kernels._bin_pallas``.  It is also the first step of
+  every tree head in the device-fused scoring program
+  (``models/trees.predict_arrays_torch``), once per scored batch.
+
+NaN in ``bin_matrix``: a NaN x takes the count of the column's non-NaN
+edges, as the host binning does (numpy's ``searchsorted`` and the C++
+``tx_bin_data`` both sort NaN last).  The JAX package's traceable mirror
+``trees._bin_xla`` maps NaN to +inf and then counts the edges below +inf;
+the two agree unless an edge is +inf itself.  The port never pads edge
+rows (they are the training column's quantiles), so an edge is +inf only
+where the training column held +inf; there the device program follows
+the host route, which is what its rows are held against.
 """
 from __future__ import annotations
 
@@ -147,10 +158,9 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 # fused moments
 # ---------------------------------------------------------------------------
-#: the plain version's chunk size: float32 accumulators are exact for
-#: counts and well-conditioned for sums only well below 2^24 rows, so it
-#: splits the sweep and combines partials in float64, as the JAX package
-#: does.  The kernel combines in float64 by design and needs no chunks.
+#: the plain version's chunk size: it widens one chunk at a time to
+#: float64 and combines the partials in float64, so the widened copy stays
+#: bounded.  The kernel combines in float64 by design and needs no chunks.
 _CHUNK_ROWS = 1 << 22
 #: the kernel's scratch: one [7, d] float64 partial for each block of its
 #: persistent grid, at most this many blocks an SM (the C entry plans the
@@ -194,21 +204,29 @@ def _combine_moments_f64(parts):
     return acc
 
 
+def _moments_chunk_f64(x: torch.Tensor, y: torch.Tensor):
+    """One chunk's five sums accumulated in float64 (each float32 value
+    widened exactly first), and its float32 min and max."""
+    xd, yd = x.to(torch.float64), y.to(torch.float64)
+    return (
+        xd.sum(dim=0), (xd * xd).sum(dim=0), (xd * yd[:, None]).sum(dim=0),
+        yd.sum(), (yd * yd).sum(), x.amin(dim=0), x.amax(dim=0),
+    )
+
+
 def fused_moments_plain(x: torch.Tensor, y: torch.Tensor):
     """The plain torch version of :func:`fused_moments`: the same seven
-    results from torch reductions, chunked above ``_CHUNK_ROWS`` rows with
-    a float64 combine (the JAX package's ``fused_moments`` contract)."""
+    results from torch reductions (the JAX package's ``fused_moments``
+    contract).  The sums, squared sums and cross sums accumulate in
+    float64, chunk by chunk above ``_CHUNK_ROWS`` rows, and come back as
+    float32: a float32 sum in torch's order moves an off-centre column's
+    Pearson correlation by 2.5e-5 relative at 2 000 rows."""
     n = x.shape[0]
-    if n > _CHUNK_ROWS:
-        acc = _combine_moments_f64(
-            fused_moments_plain(x[i: i + _CHUNK_ROWS], y[i: i + _CHUNK_ROWS])
-            for i in range(0, n, _CHUNK_ROWS)
-        )
-        return tuple(v.to(torch.float32) for v in acc)
-    return (
-        x.sum(dim=0), (x * x).sum(dim=0), (x * y[:, None]).sum(dim=0),
-        y.sum(), (y * y).sum(), x.amin(dim=0), x.amax(dim=0),
+    acc = _combine_moments_f64(
+        _moments_chunk_f64(x[i: i + _CHUNK_ROWS], y[i: i + _CHUNK_ROWS])
+        for i in range(0, n, _CHUNK_ROWS)
     )
+    return tuple(v.to(torch.float32) for v in acc)
 
 
 def _check_moments_args(x: torch.Tensor, y: torch.Tensor) -> None:

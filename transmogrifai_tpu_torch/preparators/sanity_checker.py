@@ -21,8 +21,8 @@ OpStatistics, utils/.../stats/OpStatistics.scala:384).  A binary estimator
 
 The path is single-device: the JAX package's sharded moment route
 (``fused_moments_sharded`` over a data mesh) comes with the multi-GPU slice
-(ROADMAP.md queue 1, item 10), and its ``lower``/``lower_xla`` seams with
-the fused-scoring slice (item 7).
+(ROADMAP.md queue 1, item 10).  The fitted model's column gather lowers
+to numpy (``lower``) and to torch (``lower_torch``).
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..parallel.kernels import fused_moments
-from ..stages.base import Estimator, Transformer
+from ..stages.base import Estimator, Lowering, TorchLowering, Transformer
 from ..types.columns import Column, NumericColumn, VectorColumn
 from ..types.dataset import Dataset
 from ..types.feature_types import OPVector, RealNN
@@ -72,6 +72,45 @@ class SanityCheckerModel(Transformer):
             meta = vec.metadata.select(self.indices_to_keep)
             self._select_cache = (id(vec.metadata), meta, vec.metadata)
         return VectorColumn(vec.values[:, self.indices_to_keep], meta)
+
+    def lower(self):
+        # input 0 is the label, consumed only at fit time: the lowered
+        # transform reads the feature vector alone, so a fused program
+        # never needs the label decoded at serve time
+        vec_name = self.input_features[1].name
+        out = self.output_name
+        keep = np.asarray(self.indices_to_keep, dtype=np.intp)
+
+        def fn(env: dict) -> dict:
+            return {out: env[vec_name][:, keep]}
+
+        return Lowering(
+            fn=fn, inputs=(vec_name,), outputs=(out,),
+            signature={out: f"float32[n,{len(keep)}]"},
+        )
+
+    def lower_torch(self):
+        vec_name = self.input_features[1].name
+        out = self.output_name
+        keep = np.asarray(self.indices_to_keep, dtype=np.int64)
+        on_device: dict = {}  # device -> the kept indices there
+
+        def fn(env: dict) -> dict:
+            vec = env[vec_name]
+            idx = on_device.get(vec.device)
+            if idx is None:
+                idx = on_device[vec.device] = torch.as_tensor(
+                    keep, device=vec.device)
+            # column-major, as numpy's ``[:, keep]`` lays its result out:
+            # a float64 head's matmul then takes the same BLAS route on
+            # the CPU as the numpy program's (a row-major X sums each row
+            # in another order, 16 ULP apart on a cancelling margin)
+            return {out: vec.t().index_select(0, idx).t()}
+
+        return TorchLowering(
+            fn=fn, inputs=(vec_name,), outputs=(out,),
+            signature={out: f"float32[n,{len(keep)}]"},
+        )
 
 
 class SanityChecker(Estimator):

@@ -13,20 +13,94 @@ features/.../stages/base/*):
   ``metadata`` dict - the summary-metadata channel consumed by
   ModelInsights (reference: SanityChecker.scala:677, ModelSelector.scala:189).
 
-The compile-to-kernel seams of the JAX package (``Lowering``,
-``XlaLowering``) and its streaming partial-fit hooks are not part of this
-package yet (ROADMAP queue 1, items 1 and 7).
+The compile-to-kernel seams: a fitted stage returns a numpy
+:class:`Lowering` from ``lower()`` (the numpy-fused scoring program,
+``local/fused.py``) and a :class:`TorchLowering` from ``lower_torch()``
+(the device program of ``local/fused_torch.py``; the JAX package's
+``XlaLowering``).  The JAX package's streaming partial-fit hooks come
+with ROADMAP.md queue 1, item 12.
 """
 from __future__ import annotations
 
 import copy as _copy
-from typing import Any, Optional, Sequence, Type
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional, Sequence, Type
 
 from ..features.feature import Feature
 from ..types.columns import Column
 from ..types.dataset import Dataset
 from ..types.feature_types import FeatureType
 from ..utils.uid import make_uid
+
+#: env-key suffix for a numeric feature's validity mask in the lowered
+#: (fused) array representation - see :class:`Lowering`
+MASK_SUFFIX = "@mask"
+#: env-key suffixes for a Prediction output's auxiliary arrays
+RAW_SUFFIX = "@raw"
+PROB_SUFFIX = "@prob"
+
+
+@dataclass(frozen=True)
+class Lowering:
+    """A fitted stage compiled down to a pure array function.
+
+    The compile-to-kernel seam: a fitted Transformer that can express its
+    transform as a closed-over function over named numpy arrays returns
+    one of these from :meth:`Transformer.lower`, and the PipelineCompiler
+    (local/fused.py) fuses every lowered stage of a fitted plan into ONE
+    program per shape bucket - no Column/Dataset boxing between stages.
+
+    The environment is a flat ``dict[str, np.ndarray]`` keyed by
+    feature name, with auxiliary arrays under suffixed keys:
+
+    * numeric feature ``f``  -> ``f``: float64 [n] (masked slots hold
+      0.0, matching NumericColumn's canonical form), ``f@mask``:
+      bool [n]
+    * text feature ``f``     -> ``f``: object [n] host list or array
+      (None = missing; consumers iterate element-wise either way)
+    * list-ish feature ``f`` -> ``f``: object [n] of tuples/frozensets
+    * vector feature ``f``   -> ``f``: float32 [n, d]
+    * prediction output ``f``-> ``f``: float64 [n], plus optional
+      ``f@raw`` / ``f@prob``: float64 [n, k]
+
+    ``fn`` receives the env and returns the new entries to merge into
+    it; it must be pure (no mutation of its inputs) so a fused program
+    can be replayed per shape bucket.  ``signature`` documents the
+    dtype/shape contract per produced key for telemetry and debugging.
+    """
+
+    fn: Callable[[dict], dict]
+    inputs: tuple  # env keys read
+    outputs: tuple  # env keys written
+    signature: dict = field(default_factory=dict)  # key -> "dtype[shape]"
+
+
+@dataclass(frozen=True)
+class TorchLowering:
+    """A fitted stage compiled to a torch array function on one device.
+
+    The device half of the compile-to-kernel seam (the JAX package's
+    ``XlaLowering``): where :class:`Lowering` closes over numpy, a
+    ``TorchLowering.fn`` runs pure torch ops over a flat dict of tensors
+    that all lie on one device, and the torch pipeline compiler
+    (local/fused_torch.py) chains every device-lowered stage into one
+    program on the scorer's device.
+
+    The env contract narrows to what a tensor can hold: float64 [n]
+    values + bool [n] ``@mask`` companions for numerics, float32 [n, d]
+    vectors, float64 [n(, k)] prediction arrays.  Text and list features
+    never enter the device program: stages consuming them (one-hot
+    pivots) keep their numpy :class:`Lowering` and run as HOST PRE-STEPS
+    whose numeric outputs are copied to the device as inputs.
+
+    ``fn`` must mirror the numpy lowering's arithmetic closely enough
+    that parity stays within the per-family ULP budgets the tests pin.
+    """
+
+    fn: Callable[[dict], dict]
+    inputs: tuple  # env keys read
+    outputs: tuple  # env keys written
+    signature: dict = field(default_factory=dict)  # key -> "dtype[shape]"
 
 
 class PipelineStage:
@@ -132,6 +206,22 @@ class Transformer(PipelineStage):
     def transform(self, ds: Dataset) -> Dataset:
         col = self.transform_columns(self.input_columns(ds), ds)
         return ds.with_column(self.output_name, col)
+
+    def lower(self) -> Optional[Lowering]:
+        """Compile this FITTED stage to a pure numpy array function, or
+        None when it cannot be lowered (the pipeline then serves through
+        the interpreted stage-by-stage path).  Implementations must
+        produce bit-identical arrays to ``transform_columns``."""
+        return None
+
+    def lower_torch(self) -> Optional[TorchLowering]:
+        """Compile this FITTED stage to a torch array function, or None
+        when it has no device lowering.  A None is NOT a pipeline-wide
+        failure: when the stage's numpy :meth:`lower` consumes only
+        host-available keys (raw decodes or other host outputs), the
+        torch compiler runs it as a host pre-step feeding the device
+        program - the route every text/one-hot stage takes."""
+        return None
 
 
 class Estimator(PipelineStage):

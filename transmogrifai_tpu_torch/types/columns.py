@@ -20,7 +20,7 @@ SequenceAggregators.scala:76).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Iterable, Optional, Sequence, Type
+from typing import Any, Iterable, Mapping, Optional, Sequence, Type
 
 import numpy as np
 
@@ -119,12 +119,78 @@ class TextColumn(Column):
         return TextColumn(np.array(vals, dtype=object), feature_type)
 
 
+# -- single-pass record decoding --------------------------------------------
+# Columnar decode of raw record dicts, sharing the from_list missing
+# semantics above.  Lives here (not in local/fused.py, its hot-path
+# consumer) so that schema/drift.py can import it without a schema ->
+# local layering inversion.
+
+_NAN = float("nan")
+
+
+def text_values(values: Sequence) -> list:
+    """Raw values -> host list of str-or-None (TextColumn.from_list
+    semantics; a plain list because downstream encodes iterate it
+    element-wise anyway).  Branch order puts the common case (a
+    non-empty str) on the two-check path."""
+    return [
+        (v or None) if type(v) is str
+        else (None if v is None or v == "" else str(v))
+        for v in values
+    ]
+
+
 def list_values(values: Sequence, as_set: bool) -> list:
     """Raw values -> tuples (order kept) or frozensets: the
     textlist/datelist/multipicklist conversion of column_from_list."""
     if as_set:
         return [frozenset(v) if v else frozenset() for v in values]
     return [tuple(v) if v else tuple() for v in values]
+
+
+def decode_text(records: Sequence[Mapping[str, Any]], name: str):
+    """Raw values -> object [n] of str-or-None (TextColumn.from_list
+    semantics, shared with the fused env decode via text_values so the
+    two can never diverge)."""
+    return np.array(
+        text_values([r.get(name) for r in records]), dtype=object
+    )
+
+
+def is_present_nan(v) -> bool:
+    """True when a NaN-converted input is one NumericColumn.from_list
+    treats as PRESENT: any non-None value that is not a python float
+    NaN (a str \"nan\", an np.float32 NaN).  Present-NaN rows must keep
+    NaN so the serving output guard refuses them - masking them would
+    silently mean-fill junk the interpreted path rejects."""
+    return v is not None and not isinstance(v, float)
+
+
+def present_nan_slots(flat_idx, values) -> list:
+    """Indices (of ``flat_idx``) whose ``values`` entry is a
+    present-NaN input per :func:`is_present_nan`."""
+    return [i for i in flat_idx if is_present_nan(values[i])]
+
+
+def decode_numeric(records: Sequence[Mapping[str, Any]], name: str):
+    """Raw values -> (values float64 [n], mask bool [n]) with the exact
+    missing semantics of NumericColumn.from_list: None or a python
+    float NaN is missing (missing slots hold 0.0, the canonical masked
+    form); NaN-valued inputs of any other type stay present as NaN."""
+    vals = np.array(
+        [_NAN if (v := r.get(name)) is None else v for r in records],
+        dtype=np.float64,
+    )
+    if vals.ndim != 1:  # a batch of equal-length lists would build 2D
+        raise TypeError(f"feature {name!r} values are not scalars")
+    mask = ~np.isnan(vals)
+    if not mask.all():  # junk-NaN recovery only when NaNs exist at all
+        present = [
+            i for i in np.flatnonzero(~mask).tolist()
+            if is_present_nan(records[i].get(name))
+        ]
+        mask[present] = True
+    return np.where(mask, vals, 0.0), mask
 
 
 @dataclass

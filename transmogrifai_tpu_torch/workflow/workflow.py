@@ -15,6 +15,7 @@ defaults to ``"cuda"`` and is handed to every estimator the workflow fits.
 from __future__ import annotations
 
 import json
+import logging
 import time
 from typing import Any, Mapping, Optional, Sequence
 
@@ -27,6 +28,8 @@ from ..types.columns import Column, column_from_list
 from ..types.dataset import Dataset
 from ..utils.device import resolve_device
 from .dag import Layer, compute_dag, cut_dag_during, flatten, validate_dag
+
+log = logging.getLogger("transmogrifai_tpu_torch.workflow")
 
 
 def _as_dataset(data: Any, raw_features: Sequence[Feature]) -> Dataset:
@@ -170,8 +173,8 @@ class OpWorkflow:
         return self
 
     def set_parameters(self, **params: Any) -> "OpWorkflow":
-        if params.get("schema_contract"):
-            raise _not_ported("schema-contract capture", 1)
+        """Workflow parameters; ``schema_contract=False`` opts out of the
+        schema-contract capture at ``train()``."""
         if params.get("streaming_ingest"):
             raise _not_ported("streaming ingest", 12)
         self.parameters.update(params)
@@ -306,12 +309,28 @@ class OpWorkflow:
         fitted, train_out, holdout_out = fit_and_transform_dag(
             dag, train_data, holdout, device=self.device, cv_during=cv_during,
         )
+        # capture the schema contract from the raw data: the serve tier
+        # enforces this exact shape (names, dtypes, nullability,
+        # per-feature distributions) against every batch.  Opt out with
+        # set_parameters(schema_contract=False); a capture failure never
+        # fails a completed train.
+        contract = None
+        if self.parameters.get("schema_contract", True):
+            try:
+                from ..schema.contract import SchemaContract
+
+                contract = SchemaContract.capture(self.raw_features, raw)
+            except Exception as e:  # noqa: BLE001 - capture is best-effort
+                log.warning("schema contract capture failed (model will "
+                            "serve uncontracted): %s", e)
         model = OpWorkflowModel(
             result_features=self.result_features,
             raw_features=self.raw_features,
             stages=fitted,
             parameters=dict(self.parameters),
             train_time_s=time.perf_counter() - t0,
+            schema_contract=contract,
+            device=self.device,
         )
         model._train_data_cache = train_out
         model._holdout_data_cache = holdout_out
@@ -319,7 +338,8 @@ class OpWorkflow:
 
 
 class OpWorkflowModel:
-    """Fitted workflow (reference: OpWorkflowModel.scala)."""
+    """Fitted workflow (reference: OpWorkflowModel.scala).  ``device`` is
+    where it scores: its workflow's device, ``"cuda"`` by default."""
 
     def __init__(
         self,
@@ -328,12 +348,21 @@ class OpWorkflowModel:
         stages: Sequence[PipelineStage],
         parameters: Optional[dict] = None,
         train_time_s: float = 0.0,
+        schema_contract=None,
+        device: str = "cuda",
     ) -> None:
         self.result_features = tuple(result_features)
         self.raw_features = tuple(raw_features)
         self.stages = list(stages)
         self.parameters = dict(parameters or {})
         self.train_time_s = train_time_s
+        # the RawFeatureFilter's blacklist (ROADMAP.md queue 1, item 8):
+        # empty until that filter is ported
+        self.blacklisted_features: list[Feature] = []
+        # fit-time data shape (schema/contract.py), persisted in the
+        # artifact as schema.json and enforced by the local scorer
+        self.schema_contract = schema_contract
+        self.device = str(device)
         self._train_data_cache: Optional[Dataset] = None
         self._holdout_data_cache: Optional[Dataset] = None
         self._scoring_dag: Optional[list[Layer]] = None
@@ -465,8 +494,16 @@ class OpWorkflowModel:
 
         return ModelInsights.from_model(self).pretty()
 
-    def score_function(self):
-        raise _not_ported("local (engine-free) scoring", 7)
+    def score_function(self, **kw):
+        """Engine-free row scorer (reference: local/.../
+        OpWorkflowModelLocal.scala:67): the compiled LocalScorer - callable
+        dict -> dict, plus ``score_batch`` / ``score_stream`` for
+        micro-batching.  On a CUDA model it scores through one torch
+        program on the card; on a CPU model through the numpy-fused
+        program.  ``kw`` goes to :class:`~..local.scorer.LocalScorer`."""
+        from ..local.scorer import LocalScorer
+
+        return LocalScorer(self, **kw)
 
     def model_insights(self, feature: Optional[Feature] = None):
         from ..insights.model_insights import ModelInsights
@@ -474,8 +511,17 @@ class OpWorkflowModel:
         return ModelInsights.from_model(self, feature)
 
     def save(self, path: str) -> None:
-        raise _not_ported("model save", 1)
+        """Crash-consistent save (serialization/model_io.py)."""
+        from ..serialization.model_io import save_model
+
+        with _obs_trace.span("model.save", path=path):
+            save_model(self, path)
 
     @staticmethod
     def load(path: str, workflow: "OpWorkflow") -> "OpWorkflowModel":
-        raise _not_ported("model load", 1)
+        """Restore a saved model into the same code-defined ``workflow``,
+        scoring on ``workflow.device``."""
+        from ..serialization.model_io import load_model
+
+        with _obs_trace.span("model.load", path=path):
+            return load_model(path, workflow)
