@@ -31,7 +31,8 @@ two agree:
   its four default families (logistic regression and the linear SVM at 8
   grid points, the random forest with per-node feature subsets at 18, the
   GBT at 9) -> train(), score(), ``summary_pretty()``, counted, every
-  kernel call held against its plain version, and profiled;
+  kernel call held against its plain version, one forest depth group
+  profiled;
 * the serving path (``[serve]``): the README model, and a 50-tree
   depth-12 forest and a 20-tree depth-12 GBT fitted on the README front at
   200k rows, each saved, loaded into its rebuilt workflow with
@@ -59,7 +60,21 @@ two agree:
   planted ceiling; and at 20k rows with cut tree grids twice on the card
   (the grid heaps bit-identical) against a CPU child each
   (``--multiclass-selector-cpu N``, ``--regression-selector-cpu N``); and
-  one one-vs-rest LR fit on the card against the CPU.
+  one one-vs-rest LR fit on the card against the CPU;
+* every vectorizer group (``[full_schema]``, ``[type_lattice]``): the
+  passenger data with its free-text description and boarding date
+  (transmogrify(label=...) with the reference date pinned: 512 hash
+  columns, circular dates and days since, K2 in the label-aware
+  bucketizers) -> SanityChecker (K1 at the design matrix's full width,
+  over 256 columns) -> OpLogisticRegression -> AuROC on 1M rows on the
+  card, counted, every kernel call held against its plain version, and
+  ``score_function()`` over 300 of its records (interpreted: the text and
+  date models have no lowering); one feature of each of 24 types from the
+  testkit on 10k rows (a label planted here, the numeric maps bucketized
+  key by key on K2, about 4 200 columns into K1); both held against a CPU
+  child (``--schema-cpu``: 100k full-schema rows and the same 10k lattice
+  rows) - the design matrices bit-equal, the same kept columns and map
+  splits, coefficients rtol 1e-4, probabilities 1e-4.
 
 Every phase asserts; any failure exits non-zero.
 
@@ -776,6 +791,9 @@ def selector_walls(sync: bool, keep_grid: bool = False, extra=()):
     active: list = []
 
     def shim(fn, phase):
+        if isinstance(fn, classmethod):
+            return classmethod(shim(fn.__func__, phase))
+
         def timed_call(*args, **kw):
             name = phase
             if phase == "rf_grid" and getattr(args[0], "single_tree", False):
@@ -1162,14 +1180,57 @@ def readme_example(path: str):
     return wf, reader, prediction
 
 
+#: the [readme] train is profiled over one window: the forest grid's fit
+#: of this depth group (its 6 grid points x 3 folds in one level loop)
+README_PROFILE_DEPTH = 6
+
+
+@contextlib.contextmanager
+def profile_window(depth: int):
+    """Within the block, profile (``profile``) the first forest grid fit of
+    the ``depth`` group alone, the card synchronised at both ends of it.
+    Yields {"by_name", "wall_s", "stop_read_s"}, filled once that fit has
+    run: its device time by op name, its wall and what the profiler's
+    stop and read took after it."""
+    from transmogrifai_tpu_torch.models import trees
+
+    fit = trees.fit_forest_folds_grid
+    out: dict = {}
+
+    def shim(*args, **kw):
+        if out or kw.get("max_depth") != depth:
+            return fit(*args, **kw)
+
+        def window():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            heaps = fit(*args, **kw)
+            torch.cuda.synchronize()
+            return heaps, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        (heaps, wall_s), by_name = profile(window)
+        out.update(by_name=by_name, wall_s=wall_s,
+                   stop_read_s=time.perf_counter() - t0 - wall_s)
+        return heaps
+
+    trees.fit_forest_folds_grid = shim
+    try:
+        yield out
+    finally:
+        trees.fit_forest_folds_grid = fit
+
+
 def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
     """``[readme]``: README.md's example on the card over a README_ROWS-row
     CSV: train() counted (K1 once, K2 for the GBT and forest depth groups
     and the 81 tree validation predictions), every kernel call held against
     its plain version and timed per shape unless ``timings`` hold the
-    shape, and profiled; the reader's native route, the holdout AuROC and
-    ``summary_pretty()`` checked; score() of the CSV's rows.  Returns the
-    run and its kernel shapes."""
+    shape, and one forest depth group profiled (``profile_window``: the
+    profiler's stop and read of the whole train took longer than the
+    train's own device time); the reader's native route, the holdout
+    AuROC and ``summary_pretty()`` checked; score() of the CSV's rows.
+    Returns the run and its kernel shapes."""
     import tempfile
 
     from transmogrifai_tpu_torch.evaluators.binary import (
@@ -1190,12 +1251,11 @@ def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
         kernels.reset_launches()
         stage_targets = readme_stage_targets()
         with kernel_inputs(kernels) as kept, \
-                selector_walls(True, extra=stage_targets) as rec:
-            def train():
-                t0 = time.perf_counter()
-                model = wf.train()
-                return model, time.perf_counter() - t0
-            (model, train_s), by_name = profile(train)
+                selector_walls(True, extra=stage_targets) as rec, \
+                profile_window(README_PROFILE_DEPTH) as window:
+            t0 = time.perf_counter()
+            model = wf.train()
+            train_s = time.perf_counter() - t0
         train_launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
         spans = tracer.spans()
         data = reader.generate_dataset(wf.raw_features)
@@ -1233,10 +1293,13 @@ def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
     log_selector(tag, run)
     for label in sorted({label for _, _, label in stage_targets}):
         log(f"[{tag}] cuda stage {label}: {1e3 * walls.get(label, 0.0):.1f} ms")
+    assert window, "the profiled forest depth group did not run"
     log(f"[{tag}] cuda: train {train_s:.3f} s ({README_ROWS / train_s:.0f} "
-        f"rows/s, profiled), score {score_s:.3f} s "
-        f"({README_ROWS / score_s:.0f} rows/s)")
-    log_profile(tag, 1e3 * train_s, by_name, 14, what="train")
+        f"rows/s; its forest depth-{README_PROFILE_DEPTH} group profiled, "
+        f"the profiler's stop and read {window['stop_read_s']:.1f} s of it), "
+        f"score {score_s:.3f} s ({README_ROWS / score_s:.0f} rows/s)")
+    log_profile(tag, 1e3 * window["wall_s"], window["by_name"], 14,
+                what=f"the forest grid's depth-{README_PROFILE_DEPTH} group")
 
     assert len(run["results"]) == DEFAULT_CANDIDATES, len(run["results"])
     assert train_launches["fused_moments"] == 1, train_launches
@@ -1978,6 +2041,407 @@ def ovr_card_vs_cpu(x: np.ndarray, y: np.ndarray) -> dict:
     return {"beta_diff": bdiff, "prob_diff": pdiff}
 
 
+# -- the vectorizer slice: every transmogrify group ------------------------------
+
+#: [full_schema]: the passenger data with its free text and date on the
+#: card, and card against a CPU child at SCHEMA_CMP_ROWS; SCHEMA_RECORDS
+#: of its rows through score_function()
+SCHEMA_ROWS = 1_000_000
+SCHEMA_CMP_ROWS = 100_000
+SCHEMA_RECORDS = 300
+#: [type_lattice]: one feature of each type, card against the CPU child
+LATTICE_ROWS = 10_000
+#: the date vectorizers' "now", pinned on both sides of every comparison
+#: (left at None it is the time of each fit)
+REFERENCE_DATE_MS = 1_500_000_000_000.0
+LATTICE_TYPES = (
+    "Real", "Integral", "Binary", "PickList", "MultiPickList", "Text",
+    "TextArea", "Email", "URL", "Phone", "ID", "Date", "DateTime", "DateList",
+    "TextList", "Geolocation", "RealMap", "IntegralMap", "BinaryMap",
+    "TextMap", "PickListMap", "DateMap", "GeolocationMap", "MultiPickListMap",
+)
+LATTICE_MAP_BUCKETIZED = ("RealMap", "IntegralMap")
+LATTICE_REG_PARAM = 0.1
+
+
+def full_schema_features():
+    """(label, predictors) of the passenger workflow at its full schema:
+    the slices' four and boarded (Date) and description (Text)."""
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+
+    survived, preds = passenger_features()
+    preds += [FeatureBuilder.Date("boarded").as_predictor(),
+              FeatureBuilder.Text("description").as_predictor()]
+    return survived, preds
+
+
+def lattice_features():
+    """(label, one predictor ``f_<type>`` per LATTICE_TYPES type)."""
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+
+    label = FeatureBuilder.RealNN("label").as_response()
+    return label, [getattr(FeatureBuilder, t)(f"f_{t.lower()}").as_predictor()
+                   for t in LATTICE_TYPES]
+
+
+def lattice_dataset(n: int, seed: int = 100):
+    """The testkit's ``random_dataset`` over one column of each
+    LATTICE_TYPES type (``default_generator``, type i from seed
+    ``seed + i``, a tenth of the values empty), and a 0/1 ``label``
+    planted by this script on the real, integral and pick-list columns
+    (a logistic draw; a null counts as the mean)."""
+    from transmogrifai_tpu_torch.testkit.random_data import (
+        default_generator,
+        random_dataset,
+    )
+    from transmogrifai_tpu_torch.types import feature_types as ftm
+    from transmogrifai_tpu_torch.types.columns import NumericColumn
+    from transmogrifai_tpu_torch.types.dataset import Dataset
+
+    gens = {f"f_{t.lower()}": (default_generator(
+        getattr(ftm, t), seed=seed + i, probability_of_empty=0.1),
+        getattr(ftm, t)) for i, t in enumerate(LATTICE_TYPES)}
+    ds = random_dataset(gens, n)
+    cols = {c: ds[c] for c in ds.column_names()}
+    real, integral = cols["f_real"], cols["f_integral"]
+    r = np.where(real.mask, real.values, 0.0)
+    i = np.where(integral.mask, integral.values, 50.0)
+    red = np.array([v == "red" for v in cols["f_picklist"].values], float)
+    noise = np.random.RandomState(7).logistic(size=n)
+    y = (1.0 * r + 0.03 * (i - 50.0) + 1.5 * red - 0.5 + noise > 0)
+    cols["label"] = NumericColumn(y.astype(np.float64), np.ones(n, bool),
+                                  ftm.RealNN)
+    return Dataset(cols)
+
+
+def build_vector_slice(device: str, case: str):
+    """transmogrify(label=...) with the pinned reference date ->
+    SanityChecker -> OpLogisticRegression over the full schema or the
+    type lattice; the lattice also bucketizes its numeric maps against the
+    label.  Returns (workflow, label, [vector, checked, prediction,
+    *map bucketizers])."""
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.ops.bucketizers import (
+        DecisionTreeNumericMapBucketizer,
+    )
+    from transmogrifai_tpu_torch.ops.transmogrifier import (
+        TransmogrifierDefaults,
+        transmogrify,
+    )
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+
+    label, preds = (full_schema_features() if case == "full_schema"
+                    else lattice_features())
+    vec = transmogrify(preds, label=label, defaults=TransmogrifierDefaults(
+        reference_date_ms=REFERENCE_DATE_MS))
+    checked = SanityChecker().set_input(label, vec).get_output()
+    # the lattice's ~4 200 columns (five 512-wide hash spaces of random
+    # words) separate its 10k rows: a ridge keeps the Newton fit identified
+    lr_kw = {"reg_param": LATTICE_REG_PARAM} if case == "type_lattice" else {}
+    pred = OpLogisticRegression(**lr_kw).set_input(label, checked).get_output()
+    out = [vec, checked, pred]
+    if case == "type_lattice":
+        out += [DecisionTreeNumericMapBucketizer().set_input(label, f)
+                .get_output() for f in preds
+                if f.ftype.__name__ in LATTICE_MAP_BUCKETIZED]
+    wf = OpWorkflow(device=device).set_result_features(*out)
+    return wf, label, out
+
+
+def matrix_digest(col) -> str:
+    """SHA-256 of a vector column's float32 values and of every field of
+    its metadata: two design matrices with one digest are bit-equal."""
+    import dataclasses
+    import hashlib
+
+    h = hashlib.sha256(np.ascontiguousarray(col.values, np.float32).tobytes())
+    h.update(repr([dataclasses.astuple(m)
+                   for m in col.metadata.columns]).encode())
+    return h.hexdigest()
+
+
+def vector_stage_targets() -> list:
+    """The slice's host stages and the SanityChecker: each fit and each
+    transform."""
+    from transmogrifai_tpu_torch.ops import bucketizers, dates, maps, text
+    from transmogrifai_tpu_torch.ops.vectorizer_base import (
+        SequenceVectorizerModel,
+    )
+    from transmogrifai_tpu_torch.preparators import sanity_checker
+    from transmogrifai_tpu_torch.schema import contract
+
+    return [(text.SmartTextVectorizer, "fit_model", "smart text fit"),
+            (dates.DateVectorizer, "fit_model", "date fit"),
+            (maps.MapVectorizer, "fit_model", "map fit"),
+            (bucketizers.DecisionTreeNumericBucketizer, "fit_model",
+             "bucketizers fit"),
+            (bucketizers.DecisionTreeNumericMapBucketizer, "fit_model",
+             "map bucketizers fit"),
+            (SequenceVectorizerModel, "transform_columns",
+             "vectorizers transform"),
+            (sanity_checker.SanityChecker, "fit_model", "SanityChecker fit"),
+            (sanity_checker.SanityCheckerModel, "transform_columns",
+             "SanityChecker transform"),
+            (contract.SchemaContract, "capture", "schema contract capture")]
+
+
+def run_vector_slice(device: str, case: str, data, kernels=None) -> dict:
+    """Train and score the full-schema or lattice workflow on ``device``
+    (each kernel's launches counted in train() and in score() with
+    ``kernels``); returns its walls, the design matrix's width and digest,
+    the kept columns, the SanityChecker's summary, the map bucketizers'
+    splits, the identified LR coefficients, the probabilities and AuROC,
+    and the model."""
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+
+    wf, label, (vec, checked, pred, *bucketized) = build_vector_slice(
+        device, case)
+    wf.set_input_dataset(data)
+    launches = {}
+    if kernels is not None:
+        kernels.reset_launches()
+    with selector_walls(device == "cuda",
+                        extra=vector_stage_targets()) as rec:
+        t0 = time.perf_counter()
+        model = wf.train()
+        t1 = time.perf_counter()
+    if kernels is not None:
+        launches["train"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        kernels.reset_launches()
+    scored = model.score(data)
+    t2 = time.perf_counter()
+    if kernels is not None:
+        launches["score"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    auroc = float(OpBinaryClassificationEvaluator().evaluate(
+        scored, label_col=label.name, pred_col=pred.name).AuROC)
+    (checker,) = [s for s in model.stages
+                  if type(s).__name__ == "SanityCheckerModel"]
+    (lr,) = [s for s in model.stages if s.output_name == pred.name]
+    x_kept = scored[checked.name]
+    beta, b0 = identified(np.asarray(lr.model_params["beta"], np.float64),
+                          float(lr.model_params["intercept"]),
+                          np.asarray(x_kept.values), x_kept.metadata)
+    out = {
+        "train_s": t1 - t0, "score_s": t2 - t1, "walls": rec["walls"],
+        "launches": launches, "width": int(scored[vec.name].values.shape[1]),
+        "digest": matrix_digest(scored[vec.name]),
+        "keep": list(checker.indices_to_keep),
+        "summary": checker.metadata["sanity_checker_summary"],
+        "splits": [s.metadata["splits_by_key"] for s in model.stages
+                   if type(s).__name__ ==
+                   "DecisionTreeNumericMapBucketizerModel"],
+        "beta": beta, "intercept": b0,
+        "prob": np.asarray(scored[pred.name].probability, np.float64),
+        "auroc": auroc, "model": model, "vec": vec.name, "pred": pred.name,
+    }
+    return out
+
+
+def schema_cpu_main() -> int:
+    """``--schema-cpu``: the full-schema workflow at SCHEMA_CMP_ROWS and
+    the type lattice at LATTICE_ROWS on the CPU; writes what the card's
+    runs are held against to stdout as a pickle."""
+    import pickle
+
+    torch.set_num_threads(2)  # the card's phases run beside this process
+    torch.set_float32_matmul_precision("highest")
+    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
+
+    out = {}
+    for case, data in (
+            ("full_schema", synthetic_passengers(SCHEMA_CMP_ROWS, seed=42)),
+            ("type_lattice", lattice_dataset(LATTICE_ROWS))):
+        r = run_vector_slice("cpu", case, data)
+        out[case] = {k: v for k, v in r.items() if k != "model"}
+    sys.stdout.buffer.write(pickle.dumps(out))
+    return 0
+
+
+def start_schema_cpu() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, __file__, "--schema-cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def log_vector_slice(tag: str, r: dict, rows: int) -> None:
+    s = r["summary"]
+    log(f"[{tag}] {'cuda' if r['launches'] else 'cpu'}: train "
+        f"{r['train_s']:.3f} s ({rows / r['train_s']:.0f} rows/s), score "
+        f"{r['score_s']:.3f} s ({rows / r['score_s']:.0f} rows/s), AuROC "
+        f"{r['auroc']:.6f}; design matrix {rows} x {r['width']}, "
+        f"SanityChecker kept {s['n_kept']} of {s['n_features']} columns "
+        f"on {s['n_rows']} rows; launches {r['launches']}")
+    for label, wall in sorted(r["walls"].items()):
+        log(f"[{tag}]   stage {label}: {1e3 * wall:.1f} ms")
+
+
+def compare_vector_slice(tag: str, card: dict, cpu: dict) -> None:
+    """Card against CPU on the same rows: the design matrix bit-equal, the
+    same kept columns and map splits, the LR's identified coefficients
+    within rtol 1e-4, the probabilities within 1e-4, the SanityChecker's
+    contingency statistics within 1e-6."""
+    assert card["digest"] == cpu["digest"], "the design matrices differ"
+    assert card["keep"] == cpu["keep"], (card["keep"], cpu["keep"])
+    assert card["splits"] == cpu["splits"], (card["splits"], cpu["splits"])
+    np.testing.assert_allclose(card["beta"], cpu["beta"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card["intercept"], cpu["intercept"],
+                               rtol=1e-4, atol=1e-5)
+    pdiff = float(np.abs(card["prob"] - cpu["prob"]).max())
+    assert pdiff <= 1e-4, pdiff
+    cv_card = card["summary"]["cramers_v_by_group"]
+    cv_cpu = cpu["summary"]["cramers_v_by_group"]
+    assert set(cv_card) == set(cv_cpu)
+    cv_diff = max([abs(cv_card[g] - cv_cpu[g]) for g in cv_card] or [0.0])
+    conf_diff = 0.0
+    for a, b in zip(card["summary"]["column_stats"],
+                    cpu["summary"]["column_stats"]):
+        for k in ("max_rule_confidence", "support"):
+            assert (a[k] is None) == (b[k] is None), (a["name"], k)
+            if a[k] is not None:
+                conf_diff = max(conf_diff, abs(a[k] - b[k]))
+    assert cv_diff <= 1e-6 and conf_diff <= 1e-6, (cv_diff, conf_diff)
+    log(f"[{tag}] cuda vs cpu: design matrix bit-equal ({card['width']} "
+        f"columns, SHA-256 {card['digest'][:16]}), same kept columns "
+        f"({len(card['keep'])}) and map splits, max |beta diff| "
+        f"{float(np.abs(card['beta'] - cpu['beta']).max()):.3g}, max |prob "
+        f"diff| {pdiff:.3g}, AuROC diff {abs(card['auroc'] - cpu['auroc']):.3g}"
+        f", max |Cramer's V diff| {cv_diff:.3g}, max |rule confidence or "
+        f"support diff| {conf_diff:.3g}")
+
+
+def serve_full_schema(model, data, vec: str, pred: str) -> dict:
+    """score_function() of the full-schema model over its first
+    SCHEMA_RECORDS rows: the text and date models have no lowering, so
+    the scorer serves interpreted, as the JAX package's does ("pipeline not
+    fusable"); its rows equal score() of the same rows (the design matrix
+    to the bit, the head's margins within float32 rounding and its
+    probabilities within SERVE_SCORE_ATOL: the scorer predicts on numpy in
+    float64)."""
+    names = [f.name for f in model.raw_features]
+    cols = {n: data[n].to_list()[:SCHEMA_RECORDS] for n in names}
+    records = [{n: cols[n][r] for n in names} for r in range(SCHEMA_RECORDS)]
+    t0 = time.perf_counter()
+    scorer = model.score_function()
+    t1 = time.perf_counter()
+    rows = scorer.score_batch(records)
+    t2 = time.perf_counter()
+    assert scorer.fused is None and scorer.fused_backend is None, \
+        scorer.fused_backend
+    reason = scorer.fused_reason or ""
+    assert reason.startswith("torch backend unavailable: ") and \
+        "does not lower" in reason, reason
+    scored = model.score(data.take(np.arange(SCHEMA_RECORDS)))
+    want_vec = np.asarray(scored[vec].values)
+    got_vec = np.array([r[vec] for r in rows], np.float32)
+    assert np.array_equal(got_vec, want_vec), "served design matrix differs"
+    want = scored[pred].to_list()
+    assert [r[pred]["prediction"] for r in rows] == \
+        [w["prediction"] for w in want]
+    raw = max(abs(r[pred][k] - w[k]) / max(1.0, abs(w[k]))
+              for r, w in zip(rows, want)
+              for k in ("rawPrediction_0", "rawPrediction_1"))
+    prob = max(abs(r[pred][k] - w[k]) for r, w in zip(rows, want)
+               for k in ("probability_0", "probability_1"))
+    assert raw <= 1e-6 and prob <= SERVE_SCORE_ATOL, (raw, prob)
+    return {"compile_s": t1 - t0, "score_s": t2 - t1, "reason": reason,
+            "raw_diff": raw, "prob_diff": prob}
+
+
+def vector_phases(kernels, errs: list, bin_errs: list,
+                  cpu_child: subprocess.Popen, timings: dict) -> dict:
+    """``[full_schema]`` and ``[type_lattice]``: the passenger workflow at
+    its full schema on SCHEMA_ROWS rows, and one feature of each
+    LATTICE_TYPES type on LATTICE_ROWS, each trained and scored on the
+    card, counted (K1 in the SanityChecker at the design matrix's full
+    width, its d > 256 route; K2 in the label-aware bucketizers and in
+    each numeric map key's tree), every kernel call held against its plain
+    version and timed at the new shapes, and held against the CPU child;
+    the full-schema model served through score_function().  Returns the
+    runs and their kernel shapes."""
+    import pickle
+
+    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
+
+    # kernel_inputs shims the modules loaded when it starts: load every
+    # module of the slice's path first
+    build_vector_slice("cuda", "type_lattice")
+    out = {}
+    # -- [full_schema] ------------------------------------------------------
+    tag = "full_schema"
+    t0 = time.perf_counter()
+    data = synthetic_passengers(SCHEMA_ROWS, seed=42)
+    log(f"[{tag}] made {SCHEMA_ROWS} passenger rows with their description "
+        f"and boarding date in {time.perf_counter() - t0:.3f} s")
+    with kernel_inputs(kernels) as kept:
+        run = run_vector_slice("cuda", tag, data, kernels)
+    log_vector_slice(tag, run, SCHEMA_ROWS)
+    tl, sl = run["launches"]["train"], run["launches"]["score"]
+    assert tl["fused_moments"] == 1, tl
+    # age, height and weight: one label-aware bucketizer each
+    assert tl["bin_matrix"] == 3, tl
+    assert AUROC_RANGE[0] <= run["auroc"] <= AUROC_RANGE[1], run["auroc"]
+    assert run["width"] > 512, run["width"]
+    assert_counted(run, kept)
+    shapes: dict = {}
+    hold_path_inputs(kernels, kept, shapes, errs, bin_errs, timings=timings)
+    del kept
+    log_path_shapes(f"the {tag} path's", shapes)
+    served = serve_full_schema(run["model"], data, run["vec"], run["pred"])
+    log(f"[{tag}] score_function() over {SCHEMA_RECORDS} records: "
+        f"interpreted (fused_backend None: {served['reason'][:160]}), "
+        f"compiled in {served['compile_s']:.3f} s, scored in "
+        f"{served['score_s']:.3f} s; design matrix equal to score()'s, "
+        f"margins within {served['raw_diff']:.3g} relative, probabilities "
+        f"within {served['prob_diff']:.3g}")
+    del data, run["model"]
+    out[tag] = {"run": run, "shapes": shapes, "served": served}
+
+    cmp_card = run_vector_slice(
+        "cuda", tag, synthetic_passengers(SCHEMA_CMP_ROWS, seed=42), kernels)
+    log_vector_slice(f"{tag} {SCHEMA_CMP_ROWS} rows", cmp_card, SCHEMA_CMP_ROWS)
+    t0 = time.perf_counter()
+    cout, cerr = cpu_child.communicate(timeout=900)
+    assert cpu_child.returncode == 0, (
+        f"the CPU vector-slice run failed ({cpu_child.returncode}): "
+        f"{cerr.decode()[-3000:]}")
+    cpu = pickle.loads(cout)
+    log(f"[{tag}] waited {time.perf_counter() - t0:.1f} s for the CPU child")
+    log_vector_slice(f"{tag} {SCHEMA_CMP_ROWS} rows", cpu[tag], SCHEMA_CMP_ROWS)
+    compare_vector_slice(f"{tag} {SCHEMA_CMP_ROWS} rows", cmp_card, cpu[tag])
+
+    # -- [type_lattice] -----------------------------------------------------
+    tag = "type_lattice"
+    t0 = time.perf_counter()
+    ldata = lattice_dataset(LATTICE_ROWS)
+    log(f"[{tag}] the testkit drew {LATTICE_ROWS} rows of "
+        f"{len(LATTICE_TYPES)} types in {time.perf_counter() - t0:.3f} s")
+    with kernel_inputs(kernels) as kept:
+        lat = run_vector_slice("cuda", tag, ldata, kernels)
+    log_vector_slice(tag, lat, LATTICE_ROWS)
+    tl = lat["launches"]["train"]
+    n_keys = sum(len(s) for s in lat["splits"])
+    assert tl["fused_moments"] == 1, tl
+    # the real and integral bucketizers, and one tree per numeric map key
+    assert n_keys == 2 * 3 and tl["bin_matrix"] == 2 + n_keys, (tl, n_keys)
+    assert lat["width"] > 4000, lat["width"]
+    assert_counted(lat, kept)
+    lshapes: dict = {}
+    hold_path_inputs(kernels, kept, lshapes, errs, bin_errs, timings=timings)
+    del kept
+    log_path_shapes(f"the {tag} path's", lshapes)
+    log(f"[{tag}] map bucketizer splits by key: {lat['splits']}")
+    del lat["model"]
+    compare_vector_slice(tag, lat, cpu[tag])
+    out[tag] = {"run": lat, "shapes": lshapes}
+    return out
+
+
 def serve_by_path(serve: dict, k: str) -> dict:
     """A kernel's launches on the [serve] phase's paths: each served
     model's scoring, and the forest's and GBT's fits."""
@@ -2017,13 +2481,43 @@ def serve_only_main() -> int:
     return 0
 
 
+def vectors_only_main() -> int:
+    """``--vectors-only``: the kernels' build and the [full_schema] and
+    [type_lattice] phases alone (with their CPU child): a quick check of
+    the vectorizer slice while it changes."""
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    child = start_schema_cpu()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        kernels.build()
+        errs, bin_errs = [], []
+        vectors = vector_phases(kernels, errs, bin_errs, child, {})
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.communicate()
+    print(json.dumps({p: {"launches": v["run"]["launches"],
+                          "shapes": [[k, list(shape), t["ms"], t["bound_ms"]]
+                                     for (k, shape), t in v["shapes"].items()]}
+                      for p, v in vectors.items()}))
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--serve-only":
         return serve_only_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--vectors-only":
+        return vectors_only_main()
     if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
         return selector_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--default-selector-cpu":
         return selector_cpu_main(int(sys.argv[2]), None)
+    if len(sys.argv) == 2 and sys.argv[1] == "--schema-cpu":
+        return schema_cpu_main()
     for problem in PROBLEM_LABEL:
         if len(sys.argv) == 3 and sys.argv[1] == f"--{problem}-selector-cpu":
             return problem_cpu_main(problem, int(sys.argv[2]))
@@ -2037,7 +2531,8 @@ def main() -> int:
     children = [start_selector_cpu(SELECTOR_CMP_ROWS),
                 start_selector_cpu(DEFAULT_CMP_ROWS, "--default-selector-cpu"),
                 start_problem_cpu("multiclass"),
-                start_problem_cpu("regression")]
+                start_problem_cpu("regression"),
+                start_schema_cpu()]
     try:
         return card_main(*children)
     finally:
@@ -2050,7 +2545,8 @@ def main() -> int:
 def card_main(cpu_child: subprocess.Popen,
               default_cpu_child: subprocess.Popen,
               multiclass_cpu_child: subprocess.Popen,
-              regression_cpu_child: subprocess.Popen) -> int:
+              regression_cpu_child: subprocess.Popen,
+              schema_cpu_child: subprocess.Popen) -> int:
     from transmogrifai_tpu_torch.examples.synthetic import (
         BAYES_AUROC_OBSERVED,
         synthetic_design_matrix,
@@ -2461,6 +2957,9 @@ def card_main(cpu_child: subprocess.Popen,
         timings.update(problems[problem]["shapes"])
     del ldata
 
+    # -- 10b. every vectorizer group: the full schema and the type lattice ----
+    vectors = vector_phases(kernels, errs, bin_errs, schema_cpu_child, timings)
+
     # -- 11. result lines ---------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
@@ -2475,6 +2974,8 @@ def card_main(cpu_child: subprocess.Popen,
                 "default_selector_workflow_cv_score": dwl["score"][k],
                 **{f"{p}_selector_{phase}": v["run"]["launches"][phase][k]
                    for p, v in problems.items() for phase in ("train", "score")},
+                **{f"{p}_{phase}": v["run"]["launches"][phase][k]
+                   for p, v in vectors.items() for phase in ("train", "score")},
                 **serve_by_path(serve, k)}
 
     def sel_launches(k):
@@ -2521,6 +3022,8 @@ def card_main(cpu_child: subprocess.Popen,
             "fused_moments", dsel["wcv_shapes"]),
         **{f"{p}_selector_path_shapes": sel_shape_rows(
             "fused_moments", v["shapes"]) for p, v in problems.items()},
+        **{f"{p}_path_shapes": sel_shape_rows("fused_moments", v["shapes"])
+           for p, v in vectors.items()},
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -2555,6 +3058,8 @@ def card_main(cpu_child: subprocess.Popen,
             "bin_matrix", dsel["wcv_shapes"]),
         **{f"{p}_selector_path_shapes": sel_shape_rows(
             "bin_matrix", v["shapes"]) for p, v in problems.items()},
+        **{f"{p}_path_shapes": sel_shape_rows("bin_matrix", v["shapes"])
+           for p, v in vectors.items()},
         "serve_path_shapes": serve["k2_shapes"],
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,

@@ -2,13 +2,17 @@
 every ported operator gives the reference's column (arithmetic with x/0
 and missing values giving nulls, scalar and reversed forms, the scalers,
 pivots, vectorizers, bucketizers, percentiles, the row functions over
-``map_values``, the sanity check, combine and alias), and every method
-whose stage is not ported raises ``NotImplementedError`` naming its
-ROADMAP item."""
+``map_values``, the sanity check, combine and alias, and the text, date,
+geolocation, map and collection methods on the type lattice), and the
+methods whose stages are not ported (LDA, word2vec) raise
+``NotImplementedError`` naming their ROADMAP item."""
 import numpy as np
 import pytest
 
-from torch_parity import PORT, REF, mod, passengers, reset_uids, workflow
+from torch_parity import (
+    PORT, REF, REFERENCE_DATE_MS, assert_features_match, mod, passengers,
+    reset_uids, workflow,
+)
 
 N = 1500
 
@@ -98,24 +102,100 @@ def test_arithmetic_gives_nulls_for_non_finite_and_missing():
     assert np.isfinite(np.asarray(ratio.values)).all()
 
 
-def test_unported_methods_raise_with_their_item():
+def _lattice_feature(pkg: str, type_name: str):
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    return getattr(fb, type_name)(f"f_{type_name.lower()}").as_predictor()
+
+
+def _b64(v):
+    import base64
+
+    return None if v is None else base64.b64encode(v.encode()).decode()
+
+
+#: one call of each method that came with the vectorizer slice (ROADMAP.md
+#: queue 1, item 2), on the type lattice's features
+ITEM_2_CALLS = {
+    "tokenize": lambda f, ft: f("Text").tokenize(),
+    "smart_vectorize": lambda f, ft: f("Text").smart_vectorize(),
+    "scale": lambda f, ft: f("Real").scale(slope=2.0, intercept=1.0),
+    "descale": lambda f, ft: (lambda s: s.descale(s))(f("Real").scale(
+        scaling_type="log")),
+    "to_isotonic_calibrated": lambda f, ft: f("Real").to_isotonic_calibrated(
+        f("label")),
+    "indexed": lambda f, ft: f("PickList").indexed(),
+    "deindexed": lambda f, ft: f("PickList").indexed().deindexed(
+        ["red", "green"]),
+    "to_ngram_similarity": lambda f, ft: f("Text").to_ngram_similarity(
+        f("TextArea")),
+    "detect_languages": lambda f, ft: f("TextArea").detect_languages(),
+    "recognize_entities": lambda f, ft: f("Text").recognize_entities(),
+    "text_len": lambda f, ft: f("TextArea").text_len(),
+    "to_email_domain": lambda f, ft: f("Email").to_email_domain(),
+    "to_domain": lambda f, ft: f("URL").to_domain(),
+    "is_valid_phone": lambda f, ft: f("Phone").is_valid_phone(),
+    "detect_mime_types": lambda f, ft: f("Text").map_values(
+        _b64, ft.Base64).detect_mime_types(),
+    "jaccard_similarity": lambda f, ft: f("MultiPickList").jaccard_similarity(
+        f("PickList").to_multi_pick_list()),
+    "filter_map": lambda f, ft: f("TextMap").filter_map(
+        allow_keys=["k1", "k3"]),
+    "to_occur": lambda f, ft: f("Integral").to_occur(),
+    "tf": lambda f, ft: f("TextList").tf(num_features=64),
+    "idf": lambda f, ft: f("TextList").tf(num_features=64).idf(),
+    "tfidf": lambda f, ft: f("TextList").tfidf(num_features=32,
+                                               min_doc_freq=2),
+    "count_vec": lambda f, ft: f("TextList").count_vec(vocab_size=50),
+    "remove_stop_words": lambda f, ft: f("Text").tokenize().remove_stop_words(),
+    "parse_phone": lambda f, ft: f("Phone").parse_phone(),
+    "to_unit_circle": lambda f, ft: f("DateTime").to_unit_circle("DayOfWeek"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ITEM_2_CALLS) + ["lda", "word2vec"])
+def test_unported_methods_raise_with_their_item(name):
+    """Only item 8's methods (LDA, word2vec) are left unported and raise
+    naming their item; every method of item 2 gives the JAX package's
+    column on the type lattice."""
     dsl = mod(PORT, "dsl")
-    fb = mod(PORT, "features.feature_builder").FeatureBuilder
-    text = fb.Text("note").as_predictor()
-    assert set(dsl.UNPORTED.values()) == {2, 8}
-    assert dsl.UNPORTED["lda"] == dsl.UNPORTED["word2vec"] == 8
-    ref_feature = mod(REF, "features.feature").Feature
-    mod(REF, "dsl")
-    for name, item in dsl.UNPORTED.items():
-        assert hasattr(ref_feature, name), name
+    assert dsl.UNPORTED == {"lda": 8, "word2vec": 8}
+    if name in dsl.UNPORTED:
+        mod(REF, "dsl")
+        assert hasattr(mod(REF, "features.feature").Feature, name)
+        text = _lattice_feature(PORT, "Text")
         with pytest.raises(NotImplementedError,
-                           match=rf"Feature\.{name} .*queue 1, item {item}\)"):
+                           match=rf"Feature\.{name} .*queue 1, item 8\)"):
             getattr(text, name)()
-    for ftype in ("Text", "TextList", "Date", "DateList", "Geolocation",
-                  "TextMap"):
-        feat = getattr(fb, ftype)("x").as_predictor()
-        with pytest.raises(NotImplementedError, match=r"item 2\)"):
-            feat.vectorize()
+        return
+
+    def build(pkg):
+        mod(pkg, "dsl")
+        ft = mod(pkg, "types.feature_types")
+
+        def feature(t):
+            if t == "label":
+                return mod(pkg, "features.feature_builder").FeatureBuilder \
+                    .RealNN("label").as_response()
+            return _lattice_feature(pkg, t)
+
+        return [ITEM_2_CALLS[name](feature, ft)]
+
+    assert_features_match(build, n=300)
+
+
+@pytest.mark.parametrize("ftype", ["Text", "TextList", "Date", "DateList",
+                                   "Geolocation", "TextMap", "RealMap",
+                                   "MultiPickListMap"])
+def test_vectorize_of_every_vectorizer_group(ftype):
+    """``vectorize()`` of the groups that came with item 2, as the JAX
+    package's (the reference date pinned)."""
+    def build(pkg):
+        mod(pkg, "dsl")
+        kw = ({"reference_date_ms": REFERENCE_DATE_MS}
+              if ftype in ("Date", "DateList") else {})
+        return [_lattice_feature(pkg, ftype).vectorize(**kw)]
+
+    assert_features_match(build, n=300)
 
 
 def test_every_reference_method_is_on_the_port():

@@ -92,6 +92,32 @@ def test_fused_moments_kernel_is_deterministic(cuda, n):
         assert all(_nan_equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("n,d", [(200_000, 539), (10_000, 4244)])
+def test_fused_moments_kernel_at_wide_main_path_shapes(cuda, n, d):
+    """The d > 256 route at the widths of the full-schema passenger design
+    (a few numeric columns beside a 512-wide hashed text block) and of the
+    type lattice: hash columns are small counts, most of them constant
+    zero, and their sums, min, max and variance must come out exact."""
+    rng = np.random.RandomState(d)
+    x = np.zeros((n, d), np.float32)
+    x[:, :20] = (rng.randn(n, 20) * 15.0 + 70.0).astype(np.float32)
+    x[:, 20:26] = rng.randint(0, 2, (n, 6))
+    words = 26 + rng.choice(d - 27, 20, replace=False)
+    for _ in range(4):  # four words a row from a 20-word vocabulary
+        x[np.arange(n), words[rng.randint(0, 20, n)]] += 1.0
+    x[:, -1] = rng.rand(n) < 0.1
+    xt = torch.from_numpy(x).to(cuda)
+    yt = torch.from_numpy((rng.rand(n) < 0.4).astype(np.float32)).to(cuda)
+    got = tk.fused_moments(xt, yt)
+    _assert_moments_match(got, tk.fused_moments_plain(xt, yt))
+    zero = np.setdiff1d(np.arange(26, d - 1), words)
+    x_sum, x_sq, xy, _, _, x_min, x_max = (t.cpu().numpy() for t in got)
+    for m in (x_sum, x_sq, xy, x_min, x_max):
+        assert not m[zero].any()
+    np.testing.assert_array_equal(x_sum[words], x[:, words].sum(0))
+    np.testing.assert_array_equal(x_sq[words], (x[:, words] ** 2).sum(0))
+
+
 def test_fused_moments_kernel_blocks_without_a_tile(cuda):
     """A matrix of fewer tiles than the persistent grid has blocks: the
     blocks left without a tile still count in, their identity partials

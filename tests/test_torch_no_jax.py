@@ -36,6 +36,15 @@ data = synthetic_passengers(300, with_text=False)
 model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
     .set_input_dataset(data).train()
 assert len(model.score(data)[pred.name].prediction) == 300
+full = synthetic_passengers(300)
+vec = transmogrify([FeatureBuilder.Text("description").as_predictor(),
+                    FeatureBuilder.Date("boarded").as_predictor(),
+                    FeatureBuilder.Real("age").as_predictor()], label=y)
+checked = SanityChecker().set_input(y, vec).get_output()
+pred = OpLogisticRegression(max_iter=3).set_input(y, checked).get_output()
+model = tt.OpWorkflow(device="cpu").set_result_features(pred) \
+    .set_input_dataset(full).train()
+assert model.score(full)[vec.name].values.shape[1] > 512
 from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
 vec = transmogrify([FeatureBuilder.Real("height").as_predictor()], label=y)
 pred = OpGBTClassifier(num_trees=2).set_input(y, vec).get_output()
@@ -145,7 +154,8 @@ def test_tree_stages_default_to_cuda():
     for cls in (trees.OpGBTClassifier, trees.OpGBTRegressor,
                 trees.OpXGBoostClassifier, trees.OpDecisionTreeClassifier,
                 trees.OpRandomForestRegressor,
-                mod(PORT, "ops.bucketizers").DecisionTreeNumericBucketizer):
+                mod(PORT, "ops.bucketizers").DecisionTreeNumericBucketizer,
+                mod(PORT, "ops.bucketizers").DecisionTreeNumericMapBucketizer):
         assert cls().device == "cuda"
     if not torch.cuda.is_available():
         import numpy as np

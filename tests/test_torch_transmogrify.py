@@ -6,7 +6,10 @@ must be bit-equal and the VectorMetadata column names equal.
 import numpy as np
 import pytest
 
-from torch_parity import PORT, REF, mod, passenger_features, passengers, reset_uids, workflow
+from torch_parity import (
+    PORT, REF, REFERENCE_DATE_MS, assert_features_match, mod,
+    passenger_features, passengers, reset_uids, workflow,
+)
 
 
 def _mixed_data(n: int, seed: int) -> dict:
@@ -65,18 +68,29 @@ def test_design_matrix_bit_equal(case):
 
 @pytest.mark.parametrize("type_name", ["Text", "Date", "TextMap", "Geolocation", "TextList"])
 def test_unported_vectorizer_group_raises(type_name):
-    fb = mod(PORT, "features.feature_builder").FeatureBuilder
-    feats = [fb.Real("r").as_predictor(),
-             getattr(fb, type_name)("f").as_predictor()]
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        mod(PORT, "ops.transmogrifier").transmogrify(feats)
+    """The groups that raised until the vectorizer slice (ROADMAP.md queue
+    1, item 2) came: transmogrify of a Real and one feature of each gives
+    the JAX package's design matrix and metadata, bit for bit (the
+    reference date pinned)."""
+    def build(pkg):
+        fb = mod(pkg, "features.feature_builder").FeatureBuilder
+        tm = mod(pkg, "ops.transmogrifier")
+        feats = [fb.Real("f_real").as_predictor(),
+                 getattr(fb, type_name)(f"f_{type_name.lower()}")
+                 .as_predictor()]
+        return [tm.transmogrify(feats, defaults=tm.TransmogrifierDefaults(
+            reference_date_ms=REFERENCE_DATE_MS))]
+
+    got = assert_features_match(build, n=500)
+    assert got[0][2].shape[1] > 2
+    assert "PORTED_GROUPS" not in vars(mod(PORT, "ops.transmogrifier"))
 
 
 def test_label_aware_bucketizing_raises():
     """With a label, Real and Integral features get one decision-tree
     bucketizer each (tests/test_torch_bucketizers.py holds them against
-    the JAX package); a label raises with the groups that are not ported,
-    as it did before."""
+    the JAX package); beside a map group, the design matrix is the JAX
+    package's, bit for bit."""
     fb = mod(PORT, "features.feature_builder").FeatureBuilder
     label = fb.RealNN("y").as_response()
     transmogrify = mod(PORT, "ops.transmogrifier").transmogrify
@@ -86,6 +100,14 @@ def test_label_aware_bucketizing_raises():
     parts = [type(f.origin_stage).__name__
              for f in vec.origin_stage.input_features]
     assert parts.count("DecisionTreeNumericBucketizer") == 2
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        transmogrify([fb.Real("r").as_predictor(),
-                      fb.TextMap("m").as_predictor()], label=label)
+
+    def build(pkg):
+        fb = mod(pkg, "features.feature_builder").FeatureBuilder
+        label = fb.RealNN("label").as_response()
+        return [mod(pkg, "ops.transmogrifier").transmogrify(
+            [fb.Real("f_real").as_predictor(),
+             fb.TextMap("f_textmap").as_predictor()], label=label)]
+
+    got = assert_features_match(build, n=500)
+    parents = {m[0] for m in got[0][4]}
+    assert parents == {"f_real", "f_textmap"}

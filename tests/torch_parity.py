@@ -451,3 +451,157 @@ def assert_rows_close(got_rows, want_rows, ulps: int, atol: float = 0.0,
                 else:
                     assert vg == vw, (name, kk)
 
+
+
+# -- the vectorizer slice: every transmogrify group ----------------------------
+
+#: a pinned "now" for the date vectorizers (``reference_date_ms=None``
+#: captures the time of the fit, which two runs never share)
+REFERENCE_DATE_MS = 1_500_000_000_000.0
+
+#: one feature of each of these types makes the type lattice: every
+#: transmogrify group, every map value route
+LATTICE_TYPES = (
+    "Real", "Integral", "Binary", "PickList", "MultiPickList", "Text",
+    "TextArea", "Email", "URL", "Phone", "ID", "Date", "DateTime", "DateList",
+    "TextList", "Geolocation", "RealMap", "IntegralMap", "BinaryMap",
+    "TextMap", "PickListMap", "DateMap", "GeolocationMap", "MultiPickListMap",
+)
+
+
+def assert_same(got, want, where: str = "") -> None:
+    """``got`` equals ``want`` exactly, through tuples, lists and dicts;
+    arrays by value and dtype, NaN equal to NaN."""
+    if isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.dtype == want.dtype, (where, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=where)
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and list(got) == list(want), (
+            where, list(got)[:8], list(want)[:8])
+        for k in want:
+            assert_same(got[k], want[k], f"{where}[{k!r}]")
+    elif isinstance(want, (tuple, list)) and not isinstance(want, str):
+        assert isinstance(got, (tuple, list)) and len(got) == len(want), (
+            where, got, want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{where}[{i}]")
+    elif isinstance(want, float) and want != want:
+        assert isinstance(got, float) and got != got, (where, got)
+    else:
+        assert type(got).__name__ == type(want).__name__ and got == want, (
+            where, got, want)
+
+
+def column_state(col) -> tuple:
+    """A column in a form both packages share: its class and type names,
+    its values (and mask), and for a vector every field of every column's
+    metadata."""
+    import dataclasses
+
+    kind = (type(col).__name__, col.feature_type.__name__
+            if getattr(col, "feature_type", None) is not None else None)
+    meta = getattr(col, "metadata", None)
+    if meta is not None and hasattr(meta, "columns"):
+        return kind + (np.asarray(col.values), meta.name,
+                       tuple(dataclasses.astuple(m) for m in meta.columns))
+    if hasattr(col, "mask"):
+        return kind + (np.asarray(col.values), np.asarray(col.mask))
+    return kind + (col.to_list(),)
+
+
+def run_features(pkg: str, build, n: int, seed: int = 7, data=None) -> list:
+    """Train and score, on ``pkg``'s workflow, the features that
+    ``build(pkg)`` returns over ``data(pkg)`` (by default
+    ``lattice_dataset(pkg, n, seed)``); returns the ``column_state`` of
+    each."""
+    reset_uids(pkg)
+    data = data(pkg) if data is not None else lattice_dataset(pkg, n, seed)
+    feats = build(pkg)
+    scored = workflow(pkg, feats[0], data).set_result_features(
+        *feats).train().score()
+    return [column_state(scored[f.name]) for f in feats]
+
+
+def assert_features_match(build, n: int = 300, seed: int = 7,
+                          data=None) -> list:
+    """``run_features`` in both packages gives the same columns; returns
+    the port's."""
+    want = run_features(REF, build, n, seed, data)
+    got = run_features(PORT, build, n, seed, data)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_same(g, w, f"feature {i}")
+    return got
+
+
+def lattice_dataset(pkg: str, n: int, seed: int = 100,
+                    probability_of_empty: float = 0.1):
+    """``pkg``'s testkit ``random_dataset`` over one column ``f_<type>`` of
+    each LATTICE_TYPES type, drawn by ``default_generator`` (type i from
+    seed ``seed + i``), and a binary ``label`` (RealNN) planted on the
+    real, integral and pick-list columns."""
+    ftm = mod(pkg, "types.feature_types")
+    rd = mod(pkg, "testkit.random_data")
+    gens = {f"f_{t.lower()}": (rd.default_generator(
+        getattr(ftm, t), seed=seed + i,
+        probability_of_empty=probability_of_empty), getattr(ftm, t))
+        for i, t in enumerate(LATTICE_TYPES)}
+    ds = rd.random_dataset(gens, n)
+    cols = {c: ds[c] for c in ds.column_names()}
+    cols["label"] = mod(pkg, "types.columns").NumericColumn(
+        lattice_label(cols), np.ones(n, bool), ftm.RealNN)
+    return mod(pkg, "types.dataset").Dataset(cols)
+
+
+def lattice_label(cols: dict) -> np.ndarray:
+    """0/1 label of a lattice dataset: a logistic draw on its real value,
+    its integral value and whether its pick list says ``red`` (a null
+    counts as the mean)."""
+    real, integral = cols["f_real"], cols["f_integral"]
+    r = np.where(real.mask, real.values, 0.0)
+    i = np.where(integral.mask, integral.values, 50.0)
+    red = np.array([v == "red" for v in cols["f_picklist"].values], float)
+    noise = np.random.RandomState(7).logistic(size=len(r))
+    return (1.0 * r + 0.03 * (i - 50.0) + 1.5 * red - 0.5 + noise
+            > 0).astype(np.float64)
+
+
+def lattice_features(pkg: str) -> tuple:
+    """(label, one predictor per LATTICE_TYPES type) of a lattice dataset."""
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    label = fb.RealNN("label").as_response()
+    return label, [getattr(fb, t)(f"f_{t.lower()}").as_predictor()
+                   for t in LATTICE_TYPES]
+
+
+def full_schema_features(pkg: str) -> tuple:
+    """(label, predictors) of the passenger workflow at its full schema:
+    age, height, weight (Real), gender (PickList), boarded (Date) and
+    description (Text) against survived (RealNN)."""
+    survived, preds = passenger_features(pkg)
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    preds += [fb.Date("boarded").as_predictor(),
+              fb.Text("description").as_predictor()]
+    return survived, preds
+
+
+#: the lattice's LR ridge: its ~4 200 columns (five 512-wide hash spaces
+#: of random words) separate the rows, and a ridge keeps the Newton fit
+#: identified
+LATTICE_REG_PARAM = 0.1
+
+
+def vector_slice(pkg: str, label, preds, **lr_kw):
+    """transmogrify(label=...) with the pinned reference date ->
+    SanityChecker -> OpLogisticRegression(**lr_kw) of ``pkg``; returns
+    (vector, checked vector, prediction) features."""
+    tm = mod(pkg, "ops.transmogrifier")
+    vec = tm.transmogrify(preds, label=label, defaults=tm.TransmogrifierDefaults(
+        reference_date_ms=REFERENCE_DATE_MS))
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    checked = mod(pkg, "preparators.sanity_checker").SanityChecker(
+        **kw).set_input(label, vec).get_output()
+    pred = mod(pkg, "models.logistic_regression").OpLogisticRegression(
+        **lr_kw, **kw).set_input(label, checked).get_output()
+    return vec, checked, pred

@@ -121,6 +121,20 @@ def _hash_bucket(v: str) -> int:
     return murmur3_32(v.encode("utf-8")) % TEXT_BUCKETS
 
 
+def _hash_buckets(values: list) -> np.ndarray:
+    """Each value's bucket: one batch of the host library's murmur3 when
+    it is built (a free-text column has about as many distinct values as
+    rows, which the memo of ``_hash_bucket`` cannot hold), else the
+    memoized python murmur3; both give the same buckets."""
+    from ..utils.native import murmur3_batch
+
+    hashed = murmur3_batch(values) if values else None
+    if hashed is None:
+        return np.fromiter((_hash_bucket(v) for v in values), np.int64,
+                           len(values))
+    return (hashed % TEXT_BUCKETS).astype(np.int64)
+
+
 def compute_distribution(
     name: str,
     col: Column,
@@ -152,14 +166,10 @@ def compute_distribution(
             value_range=(lo, hi),
         )
     if isinstance(col, TextColumn):
-        hist = np.zeros(TEXT_BUCKETS)
-        nulls = 0
-        for v in col.values:
-            if v is None:
-                nulls += 1
-            else:
-                hist[_hash_bucket(v)] += 1
-        return FeatureDistribution(name, key, n, nulls, hist)
+        present = [v for v in col.values if v is not None]
+        hist = np.bincount(_hash_buckets(present), minlength=TEXT_BUCKETS)
+        return FeatureDistribution(name, key, n, n - len(present),
+                                   hist.astype(np.float64))
     if isinstance(col, (ListColumn,)):
         hist = np.zeros(TEXT_BUCKETS)
         nulls = 0

@@ -8,10 +8,8 @@ on the stage's ``device`` and keeps the split points only when total info
 gain >= min_info_gain - reusing the histogram tree learner (one [n, 1]
 fit).  The column is binned by kernel K2 (``parallel/kernels.bin_matrix``)
 on the device; the JAX package bins it on the host, which gives the same
-bins.
-
-The numeric-map bucketizer comes with the map vectorizers (ROADMAP.md
-queue 1, item 2); asking for it raises ``NotImplementedError``.
+bins.  ``DecisionTreeNumericMapBucketizer`` fits one such tree per key of
+a numeric map, each key's column binned by K2 alike.
 """
 from __future__ import annotations
 
@@ -202,14 +200,150 @@ def _tree_splits(
     return sorted(set(splits))
 
 
-class DecisionTreeNumericMapBucketizer(Estimator):
-    """Supervised bucketizing of every key of a numeric map (reference:
-    DecisionTreeNumericMapBucketizer.scala:56).  It comes with the map
-    vectorizers; constructing it raises."""
+class DecisionTreeNumericMapBucketizerModel(Transformer):
+    """Fitted per-key supervised bucketizer for numeric maps: keys that
+    found informative splits emit bucket one-hots; all fitted keys emit a
+    null indicator when track_nulls (reference:
+    DecisionTreeNumericMapBucketizer.scala:131 model transformFn)."""
 
-    def __init__(self, *args, **kw) -> None:
-        raise NotImplementedError(
-            "DecisionTreeNumericMapBucketizer comes with the map vectorizers, "
-            "which are not ported to the torch package yet (ROADMAP.md "
-            "queue 1, item 2)"
+    output_type = OPVector
+
+    def __init__(self, splits_by_key: dict, should_split_by_key: dict,
+                 track_nulls: bool = True, clean_keys: bool = True,
+                 **kw) -> None:
+        super().__init__(**kw)
+        self.splits_by_key = dict(splits_by_key)
+        self.should_split_by_key = dict(should_split_by_key)
+        self.track_nulls = track_nulls
+        self.clean_keys = clean_keys
+
+    def transform_columns(self, cols: Sequence[Column], ds: Dataset) -> Column:
+        from ..types.columns import MapColumn
+
+        col = cols[-1]
+        assert isinstance(col, MapColumn)
+        feat = self.input_features[-1]
+        n = len(col)
+        keys = sorted(self.splits_by_key)
+        # one cleaning pass per row (not per row per key)
+        cleaned_rows = [
+            {
+                (kk.strip() if self.clean_keys else kk): vv
+                for kk, vv in m.items()
+            }
+            for m in col.values
+        ]
+        arrays: list[np.ndarray] = []
+        metas: list[VectorColumnMeta] = []
+        for k in keys:
+            vals = np.zeros(n, dtype=np.float64)
+            mask = np.zeros(n, dtype=bool)
+            for r, cleaned in enumerate(cleaned_rows):
+                v = cleaned.get(k)
+                if v is not None:
+                    vals[r] = float(v)
+                    mask[r] = True
+            if self.should_split_by_key.get(k):
+                block = _bucket_vector(
+                    vals, mask, self.splits_by_key[k], self.track_nulls,
+                    feat.name, feat.ftype.type_name(), self.output_name,
+                )
+                arr, ms = block.values, list(block.metadata.columns)
+                # per-key grouping: _bucket_vector stamps the parent name
+                ms = [
+                    VectorColumnMeta(
+                        parent_feature_name=feat.name,
+                        parent_feature_type=feat.ftype.type_name(),
+                        grouping=k,
+                        indicator_value=m.indicator_value,
+                    )
+                    for m in ms
+                ]
+            elif self.track_nulls:
+                arr = (~mask).astype(np.float32)[:, None]
+                ms = [
+                    VectorColumnMeta(
+                        parent_feature_name=feat.name,
+                        parent_feature_type=feat.ftype.type_name(),
+                        grouping=k,
+                        indicator_value=NULL_STRING,
+                    )
+                ]
+            else:
+                continue
+            arrays.append(np.asarray(arr, np.float32))
+            metas.extend(ms)
+        values = (
+            np.concatenate(arrays, axis=1)
+            if arrays
+            else np.zeros((n, 0), dtype=np.float32)
         )
+        meta = VectorMetadata(self.output_name, tuple(metas)).reindexed()
+        return VectorColumn(values, meta)
+
+
+class DecisionTreeNumericMapBucketizer(Estimator):
+    """Supervised bucketizing of every key of a numeric map against the
+    label, one single-feature tree per key (reference:
+    DecisionTreeNumericMapBucketizer.scala:56), each grown on ``device``
+    (``"cuda"`` by default; ``OpWorkflow`` sets it to its own)."""
+
+    input_types = None  # (RealNN label, numeric OPMap)
+    output_type = OPVector
+
+    def __init__(
+        self,
+        max_depth: int = 4,
+        max_bins: int = 32,
+        min_info_gain: float = 0.01,
+        min_instances_per_node: int = 1,
+        track_nulls: bool = True,
+        clean_keys: bool = True,
+        device: str = "cuda",
+        **kw,
+    ) -> None:
+        super().__init__(**kw)
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        self.min_info_gain = min_info_gain
+        self.min_instances_per_node = min_instances_per_node
+        self.track_nulls = track_nulls
+        self.clean_keys = clean_keys
+        self.device = str(device)
+
+    def fit_model(self, cols: Sequence[Column], ds: Dataset):
+        from ..types.columns import MapColumn
+
+        label, col = cols
+        assert isinstance(label, NumericColumn) and isinstance(col, MapColumn)
+        y = np.asarray(label.values, dtype=np.float64)
+        keyed: dict[str, tuple[list[float], list[float]]] = {}
+        for r, m in enumerate(col.values):
+            for kk, vv in m.items():
+                if vv is None:
+                    continue
+                k = kk.strip() if self.clean_keys else kk
+                xs, ys = keyed.setdefault(k, ([], []))
+                xs.append(float(vv))
+                ys.append(y[r])
+        device = resolve_device(self.device)
+        splits_by_key: dict[str, list[float]] = {}
+        should_split: dict[str, bool] = {}
+        for k in sorted(keyed):
+            xs, ys = keyed[k]
+            splits = _tree_splits(
+                np.asarray(ys), np.asarray(xs),
+                self.max_depth, self.max_bins,
+                self.min_info_gain, self.min_instances_per_node, device,
+            )
+            splits_by_key[k] = splits
+            should_split[k] = bool(splits)
+        model = DecisionTreeNumericMapBucketizerModel(
+            splits_by_key, should_split, self.track_nulls, self.clean_keys
+        )
+        model.metadata = {
+            "splits_by_key": splits_by_key,
+            "should_split_by_key": should_split,
+        }
+        self.metadata = model.metadata
+        return model

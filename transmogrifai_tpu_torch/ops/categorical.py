@@ -1,15 +1,16 @@
-"""Categorical pivot (one-hot) vectorizer.
+"""Categorical pivot (one-hot) vectorizers and string indexing.
 
-Counterpart of OpOneHotVectorizer / OpTextPivotVectorizer (reference:
-core/.../impl/feature/OpOneHotVectorizer.scala): pivot top-K values by
-support into indicator columns plus OTHER and (optionally) null-indicator
-columns.  Label order is count descending then value ascending -
-deterministic, matching the reference's sorted pivots.
+Counterparts of OpOneHotVectorizer / OpTextPivotVectorizer / OpStringIndexer
+/ OpIndexToString (reference: core/.../impl/feature/OpOneHotVectorizer.scala,
+OpStringIndexer.scala): pivot top-K values by support into indicator columns
+plus OTHER and (optionally) null-indicator columns.  Label order is count
+descending then value ascending - deterministic, matching the reference's
+sorted pivots.
 
-The pivot lowers to numpy only (``lower_block``): strings never enter the
-device program, so a fused torch pipeline runs it as a host pre-step.  The
-JAX package's StringIndexer / IndexToString come with the rest of the
-vectorizers (ROADMAP.md queue 1, item 2).
+The pivot and the string indexer lower to numpy only (``lower_block``,
+``lower``): strings never enter the device program, so a fused torch
+pipeline runs them as host pre-steps.  The indexer's streamed fit from
+per-chunk counts comes with streaming ingest (ROADMAP.md queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -20,9 +21,10 @@ from typing import Sequence
 
 import numpy as np
 
-from ..stages.base import MASK_SUFFIX
+from ..stages.base import MASK_SUFFIX, Estimator, Lowering, Transformer
 from ..types.columns import Column, ListColumn, NumericColumn, TextColumn
 from ..types.dataset import Dataset
+from ..types.feature_types import Real, RealNN, Text
 from ..types.vector_metadata import (
     NULL_STRING,
     OTHER_STRING,
@@ -304,3 +306,93 @@ class OneHotVectorizer(SequenceVectorizer):
             labels_per.append(top_k_labels(counts, self.top_k, self.min_support))
         model.labels_per_feature = labels_per
         return model
+
+
+class StringIndexerModel(Transformer):
+    """value -> index; unseen values map to n_labels (NoFilter semantics,
+    reference: OpStringIndexerNoFilter).  Output is RealNN like the
+    reference's OpStringIndexer: every row gets an index (unseen/null ->
+    the reserved tail slot), so the indexed label feeds selectors whose
+    label input is RealNN directly."""
+
+    output_type = RealNN
+
+    def __init__(self, labels: list[str], **kw) -> None:
+        super().__init__(**kw)
+        self.labels = list(labels)
+
+    def _encode(self, values) -> tuple:
+        """str-or-None values -> (vals float64 [n], mask bool [n]): the
+        ONE implementation of the NoFilter index semantics, shared by
+        the interpreted and lowered paths so they can never diverge.
+        UNSEEN strings get the reserved tail index; a MISSING value
+        stays missing (masked, canonical 0.0) - it must not silently
+        become a phantom class when the indexed feature is a training
+        label (the predictor fit gate rejects masked labels)."""
+        idx = getattr(self, "_idx_memo", None)
+        if idx is None:
+            idx = self._idx_memo = {
+                v: float(j) for j, v in enumerate(self.labels)
+            }
+        unseen = float(len(self.labels))
+        vals = np.array(
+            [0.0 if v is None else idx.get(v, unseen) for v in values]
+        )
+        mask = np.array([v is not None for v in values], dtype=bool)
+        return vals, mask
+
+    def transform_columns(self, cols: Sequence[Column], ds: Dataset) -> Column:
+        (col,) = cols
+        assert isinstance(col, TextColumn)
+        vals, mask = self._encode(col.values)
+        return NumericColumn(vals, mask, RealNN)
+
+    def lower(self):
+        (feat,) = self.input_features
+        if feat.ftype.kind != "text":
+            return None
+        name, out = feat.name, self.output_name
+        encode = self._encode
+
+        def fn(env: dict) -> dict:
+            vals, mask = encode(env[name])
+            return {out: vals, out + MASK_SUFFIX: mask}
+
+        return Lowering(
+            fn=fn, inputs=(name,), outputs=(out, out + MASK_SUFFIX),
+            signature={out: "float64[n]", out + MASK_SUFFIX: "bool[n]"},
+        )
+
+
+class StringIndexer(Estimator):
+    """Index labels by frequency desc then value asc (reference:
+    OpStringIndexer.scala wrapping Spark StringIndexer semantics)."""
+
+    input_types = [Text]
+    output_type = RealNN
+
+    def fit_model(self, cols: Sequence[Column], ds: Dataset):
+        (col,) = cols
+        counts = Counter(v for v in col.values if v is not None)
+        labels = [v for v, _ in sorted(counts.items(), key=lambda vc: (-vc[1], vc[0]))]
+        return StringIndexerModel(labels)
+
+
+class IndexToString(Transformer):
+    """Inverse of StringIndexer (reference: OpIndexToString.scala)."""
+
+    input_types = [Real]
+    output_type = Text
+
+    def __init__(self, labels: list[str], **kw) -> None:
+        super().__init__(**kw)
+        self.labels = list(labels)
+
+    def transform_columns(self, cols: Sequence[Column], ds: Dataset) -> Column:
+        (col,) = cols
+        assert isinstance(col, NumericColumn)
+        out = [
+            self.labels[int(v)] if m and 0 <= int(v) < len(self.labels) else None
+            for v, m in zip(col.values, col.mask)
+        ]
+        return TextColumn(np.array(out, dtype=object), Text)

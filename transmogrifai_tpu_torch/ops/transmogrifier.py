@@ -9,12 +9,10 @@ combine all resulting vectors into a single OPVector feature.
 Defaults mirror TransmogrifierDefaults: topK=20, minSupport=10, 512 hash
 dims, maxCategoricalCardinality=30, trackNulls=true, circular date reps.
 
-This package vectorizes the groups in ``PORTED_GROUPS``.  The date, text,
-list, geolocation and map vectorizers come with the rest of the vectorizer
-slice (ROADMAP.md queue 1, item 2); asking for them raises
-``NotImplementedError``.  With ``label``, the real and integral groups
-also auto-bucketize against it, one single-feature tree per column
-(``ops/bucketizers.py``), as the JAX package does.
+Every group is host numpy; with ``label``, the real and integral groups
+also auto-bucketize against it, one single-feature tree per column grown
+on the workflow's device and binned there by kernel K2
+(``ops/bucketizers.py``).
 """
 from __future__ import annotations
 
@@ -26,12 +24,16 @@ from ..types import feature_types as ft
 from .bucketizers import DecisionTreeNumericBucketizer
 from .categorical import OneHotVectorizer
 from .combiner import VectorsCombiner
+from .dates import DateListVectorizer, DateVectorizer
+from .geo import GeolocationVectorizer
+from .maps import transmogrify_map_group
 from .numeric import (
     BinaryVectorizer,
     IntegralVectorizer,
     RealNNVectorizer,
     RealVectorizer,
 )
+from .text import SmartTextVectorizer, TextListHashingVectorizer
 
 
 @dataclass
@@ -53,9 +55,6 @@ class TransmogrifierDefaults:
 
 
 DEFAULTS = TransmogrifierDefaults()
-
-#: groups whose vectorizers this package has
-PORTED_GROUPS = ("real", "realnn", "integral", "binary", "pivot", "vector")
 
 # most-specific-first dispatch table: feature type -> group key
 _PIVOT_TYPES = (ft.PickList, ft.MultiPickList)
@@ -108,14 +107,7 @@ def transmogrify(
         raise ValueError("transmogrify needs at least one feature")
     groups: dict[str, list[Feature]] = {}
     for f in features:
-        key = _group_key(f.ftype)
-        if key not in PORTED_GROUPS:
-            raise NotImplementedError(
-                f"the {key!r} vectorizer group (feature {f.name!r} of type "
-                f"{f.ftype.__name__}) is not ported to the torch package yet "
-                "(ROADMAP.md queue 1, item 2)"
-            )
-        groups.setdefault(key, []).append(f)
+        groups.setdefault(_group_key(f.ftype), []).append(f)
     # deterministic group order (reference sorts type-groups,
     # Transmogrifier.scala:113)
     vector_features: list[Feature] = []
@@ -123,6 +115,9 @@ def transmogrify(
         feats = sorted(groups[key], key=lambda f: f.name)
         if key == "vector":
             vector_features.extend(feats)
+            continue
+        if key.startswith("map:"):
+            vector_features.append(transmogrify_map_group(feats, defaults))
             continue
         stage = _stage_for(key, defaults)
         vector_features.append(stage.set_input(*feats).get_output())
@@ -149,6 +144,13 @@ def _stage_for(key: str, d: TransmogrifierDefaults):
             top_k=d.top_k, min_support=d.min_support,
             track_nulls=d.track_nulls, clean_text=d.clean_text,
         )
+    if key == "date":
+        # reference parity: circular reps + days-since-SinceLast
+        # (Transmogrifier.scala:159 via RichDateFeature.vectorize)
+        return DateVectorizer(
+            periods=d.date_periods, track_nulls=d.track_nulls,
+            with_time_since=True, reference_date_ms=d.reference_date_ms,
+        )
     if key == "realnn":
         return RealNNVectorizer()
     if key == "binary":
@@ -157,4 +159,20 @@ def _stage_for(key: str, d: TransmogrifierDefaults):
         return IntegralVectorizer(track_nulls=d.track_nulls)
     if key == "real":
         return RealVectorizer(track_nulls=d.track_nulls)
+    if key == "smarttext":
+        return SmartTextVectorizer(
+            max_cardinality=d.max_categorical_cardinality,
+            top_k=d.top_k, min_support=d.min_support,
+            hash_dims=d.hash_dims, track_nulls=d.track_nulls,
+            clean_text=d.clean_text,
+        )
+    if key == "datelist":
+        return DateListVectorizer(
+            pivot=d.date_list_pivot, track_nulls=d.track_nulls,
+            reference_date_ms=d.reference_date_ms,
+        )
+    if key == "textlist":
+        return TextListHashingVectorizer(hash_dims=d.hash_dims)
+    if key == "geo":
+        return GeolocationVectorizer(track_nulls=d.track_nulls)
     raise KeyError(key)

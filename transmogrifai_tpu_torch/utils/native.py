@@ -204,27 +204,47 @@ def tokenize_hash_tf(
 ) -> Optional[np.ndarray]:
     """Fused tokenize+hash TF; None if the native lib is unavailable.
 
-    The C++ kernel is byte-oriented: it lowercases ASCII only and hashes
-    tokens from a 4096-byte buffer.  The JAX package recomputes rows where
-    that could diverge from its python tokenizer (any non-ASCII
-    character, or a row past the buffer) on the exact python path; that
-    tokenizer comes with the text vectorizers, so such rows raise here.
+    The C++ kernel is byte-oriented: it lowercases ASCII only, treats
+    every >=0x80 byte as a word char (so emoji survive where python's
+    unicode \\w drops them), and hashes tokens from a 4096-byte buffer.
+    Rows where those shortcuts could diverge from the python tokenizer -
+    any non-ASCII character, or length past the token buffer - are
+    recomputed on the exact python path, so the SAME text hashes to the
+    SAME slots with or without the native lib (cross-backend model
+    portability).  Pure-ASCII rows (the hot path) stay native.
     """
     lib = get_lib()
     if lib is None:
         return None
-    if any(v is not None and (len(v) > 4096 or not v.isascii())
-           for v in values):
-        raise NotImplementedError(
-            "the exact python tokenizer for non-ASCII or long rows is not "
-            "ported to the torch package yet (ROADMAP.md queue 1, item 2)")
-    data, offsets = pack_strings(values)
+    needs_py = [
+        i for i, v in enumerate(values)
+        if v is not None and (len(v) > 4096 or not v.isascii())
+    ]
+    if needs_py:
+        # blank the python-bound rows BEFORE the native call so the
+        # kernel does no work whose output gets overwritten
+        py_set = set(needs_py)
+        native_vals: Sequence[Optional[str]] = [
+            None if i in py_set else v for i, v in enumerate(values)
+        ]
+    else:
+        native_vals = values
+    data, offsets = pack_strings(native_vals)
     out = np.zeros((len(values), dims), dtype=np.float32)
     lib.tx_tokenize_hash_tf(
         data.ctypes.data, offsets.ctypes.data, len(values),
         np.int32(dims), np.uint32(seed), np.int32(min_token_length),
         np.int32(1 if binary else 0), out.ctypes.data,
     )
+    if needs_py:
+        from ..ops.text import tokenize
+        from .hashing import hashing_tf
+
+        exact = hashing_tf(
+            [tokenize(values[i], True, min_token_length) for i in needs_py],
+            dims, seed=seed, binary=binary,
+        )
+        out[needs_py] = exact
     return out
 
 
