@@ -46,9 +46,8 @@ two agree:
   (transmogrify(label=...) -> SanityChecker), their forest and GBT grids
   cut to depths 3 and 6, at 200k rows on the card, counted; under
   workflow CV on 100k rows (its in-fold kernel shapes timed); and, at
-  their full grids (the depth-12 forest and GBT too), at 20k rows twice
-  on the card (the forest and GBT grid heaps bit-identical) against a CPU
-  child (``--default-selector-cpu N``);
+  their full grids (the depth-12 forest and GBT too), at 20k rows on the
+  card against a CPU child (``--default-selector-cpu N``);
 * the multiclass and regression selectors on the planted labels of
   ``synthetic_passengers_labelled``: transmogrify(label=...) ->
   SanityChecker -> the parameterless MultiClassificationModelSelector
@@ -74,7 +73,24 @@ two agree:
   key by key on K2, about 4 200 columns into K1); both held against a CPU
   child (``--schema-cpu``: 100k full-schema rows and the same 10k lattice
   rows) - the design matrices bit-equal, the same kept columns and map
-  splits, coefficients rtol 1e-4, probabilities 1e-4.
+  splits, coefficients rtol 1e-4, probabilities 1e-4;
+* the remaining model families and training services (``[families]``):
+  1M rows of ``synthetic_passengers_labelled`` with a drill feature
+  filled under the minimum fill rate, behind
+  ``with_raw_feature_filter(RawFeatureFilter(scoring_data=...))`` over a
+  100k-row scoring set whose ``weight`` moved past the JS-divergence
+  limit (both blacklisted, the DAG cut) -> transmogrify ->
+  SanityChecker -> a binary selector over the logistic regression and
+  the MLP (the holdout AuROC gated, ``OpBinScoreEvaluator``,
+  ``stageMetrics``); a regression selector over the gaussian GLM (the
+  RMSE gated) and the poisson, gamma and tweedie (log and power link)
+  GLMs; the CV checkpoint written and restored; RecordInsightsLOCO over
+  10k rows of a 50-tree depth-12 forest (``backend="native"``: the host
+  C++ learner; every zero-out pass binned by ``bin_matrix``) and of an
+  MLP; ``score_function()`` of the MLP and GLM heads, torch-fused
+  against numpy-fused within the JAX package's ULP budgets; LDA and
+  word2vec over 20k descriptions; and at 100k rows against a CPU child
+  (``--families-cpu N``; ``--families-only`` runs the phase alone).
 
 Every phase asserts; any failure exits non-zero.
 
@@ -1009,9 +1025,8 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
     card on ``data`` (counted, every kernel call
     held against its plain version and timed per shape unless ``timings``,
     the earlier paths', hold the shape) and under workflow CV on
-    ``wdata``; at their full grids, at DEFAULT_CMP_ROWS twice on the card
-    (the forest and GBT grid heaps bit-identical) against the CPU child's
-    training.  Returns what
+    ``wdata``; at their full grids, at DEFAULT_CMP_ROWS on the card
+    against the CPU child's training.  Returns what
     the result lines need."""
     from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
 
@@ -1057,25 +1072,16 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
 
     # card against CPU at DEFAULT_CMP_ROWS, the rank-metric mode pinned
     cdata = synthetic_passengers(DEFAULT_CMP_ROWS, seed=42, with_text=False)
+    # (one card run: the grid heaps' run-to-run identity is held by the
+    # multiclass and regression phases' two 20k card runs)
     os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
     try:
         d1 = run_selector("cuda", cdata, keep_grid=True, model_types=None)
-        d2 = run_selector("cuda", cdata, keep_grid=True, model_types=None)
     finally:
         del os.environ["TX_CV_RANK_METRICS"]
     ctag = f"{tag} {DEFAULT_CMP_ROWS} rows"
     log_selector(ctag, d1)
-    assert len(d1["rf_grid"]) == len(d2["rf_grid"]) == 1
-    assert len(d1["grid"]) == len(d2["grid"]) == 1
-    n_heaps = 0
-    for grid in ("rf_grid", "grid"):
-        for by_grid1, by_grid2 in zip(d1[grid], d2[grid]):
-            for folds1, folds2 in zip(by_grid1, by_grid2):
-                for p1, p2 in zip(folds1, folds2):
-                    assert all(np.array_equal(a, b)
-                               for a, b in zip(p1["heaps"], p2["heaps"])), \
-                        f"the card's {grid} heaps differ between two trainings"
-                    n_heaps += int(p1["heaps"][0].shape[0])
+    assert len(d1["rf_grid"]) == 1 and len(d1["grid"]) == 1
     sc = finish_selector_cpu(cpu_child)
     log(f"[{ctag}] cpu: train {sc['train_s']:.3f} s (forest grid fit "
         f"{sc['walls'].get('rf_grid', 0.0):.3f} s, GBT grid fit "
@@ -1099,9 +1105,7 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
     pdiff = float(np.abs(d1["prob"] - sc["prob"]).max())
     assert pdiff <= CMP_PROB_ATOL[win_gpu[0]], pdiff
     log(f"[{ctag}] cuda vs cpu: the same winner {win_gpu}, max |mean metric "
-        f"diff| {metric_diff:.3g}, max |winner score diff| {pdiff:.3g}; the "
-        f"card's forest and GBT grid heaps ({n_heaps} trees) bit-identical "
-        "across two trainings")
+        f"diff| {metric_diff:.3g}, max |winner score diff| {pdiff:.3g}")
     return {"plain": dp, "workflow_cv": dw, "shapes": shapes,
             "wcv_shapes": wshapes}
 
@@ -2442,6 +2446,698 @@ def vector_phases(kernels, errs: list, bin_errs: list,
     return out
 
 
+# -- the remaining model families and training services ------------------------
+# ``[families]``: the RawFeatureFilter and its blacklist surgery, a
+# binary selector over the logistic regression and the MLP, a regression
+# selector over the GLM, the other GLM families, LOCO record insights, LDA
+# and word2vec, the CV checkpoint and score_function() of the MLP and GLM
+# heads, on the card, and against a CPU child (``--families-cpu N``).
+
+FAMILIES_ROWS = 1_000_000
+FAMILIES_SCORE_ROWS = 100_000      # the RawFeatureFilter's scoring set
+FAMILIES_CMP_ROWS = 100_000        # card against the CPU child
+FAMILIES_SPARSE_ROWS = 0.0001      # the drill feature's fill rate (< 0.001)
+FAMILIES_MLP_GRID = [{"hidden_layers": (10, 10)}, {"hidden_layers": (20,)}]
+FAMILIES_MLP_ITER = 200
+FAMILIES_GLM_REGS = (0.0, 0.01, 0.1)
+FAMILIES_CMP_MODE = "exact"        # TX_CV_RANK_METRICS on both sides
+LOCO_FIT_ROWS = 100_000
+LOCO_ROWS = 10_000
+LOCO_FOREST = dict(num_trees=50, max_depth=12, min_info_gain=0.001,
+                   backend="native")
+LDA_DOCS = 20_000
+LDA_K = 10
+FAMILIES_RECORDS = 1_000
+#: (ULP, absolute floor) of torch-fused against numpy-fused rows, copied
+#: from the JAX package's tests/test_fused_xla.py:56-61
+FAMILIES_ULP_BUDGETS = {"glm": (1, 0.0), "mlp": (64, 1e-9)}
+CMP_GLM_RTOL = 1e-5                # GLM CV means, card against CPU
+CMP_MLP_ATOL = 1e-3                # MLP CV means, the winner's probabilities
+#: an MLP's own probabilities, card against CPU: full-batch Adam turns the
+#: float32 sums' other order into sign-like steps where a gradient is near
+#: zero, and after 100 steps the weights of two devices part as far as
+#: those of one device's row-chunked and unchunked fits (2e-3 to 8e-3 at
+#: 20k rows on an H100); measured and logged, held at this bound
+CMP_MLP_PROB_ATOL = 5e-2
+CMP_LDA_RTOL = 1e-4                # LDA topics
+CMP_W2V_ATOL = 1e-3                # word2vec vectors (measured, recorded)
+
+
+def families_data(n: int, n_score: int, seed: int = 42):
+    """(train, scoring) for the families phase: ``synthetic_passengers_
+    labelled`` with ``sparse`` (a Real filled on FAMILIES_SPARSE_ROWS of
+    the rows, under the RawFeatureFilter's minimum fill rate); the scoring
+    set from another seed with every ``weight`` at the training maximum
+    (its distribution moved past the JS-divergence limit; weight is no
+    part of the planted latent)."""
+    from transmogrifai_tpu_torch.examples.synthetic import (
+        synthetic_passengers_labelled,
+    )
+    from transmogrifai_tpu_torch.types.columns import NumericColumn
+    from transmogrifai_tpu_torch.types.feature_types import Real
+
+    out = []
+    w_max = None
+    for rows, s in ((n, seed), (n_score, seed + 1000)):
+        ds = synthetic_passengers_labelled(rows, seed=s, with_text=False)
+        if w_max is None:
+            w_max = float(np.max(ds["weight"].values))
+        else:
+            ds = ds.with_column("weight", NumericColumn(
+                np.full(rows, w_max), np.ones(rows, bool), Real))
+        mask = np.random.RandomState(s + 7).rand(rows) < FAMILIES_SPARSE_ROWS
+        ds = ds.with_column("sparse", NumericColumn(
+            np.where(mask, 1.5, 0.0), mask, Real))
+        out.append(ds)
+    return tuple(out)
+
+
+def families_predictors():
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+
+    _, preds = passenger_features()
+    return preds + [FeatureBuilder.Real("sparse").as_predictor()]
+
+
+def run_families_binary(device: str, train, score, kernels=None) -> dict:
+    """transmogrify -> SanityChecker -> BinaryClassificationModelSelector
+    over the LR grid and the MLP's, behind with_raw_feature_filter(
+    RawFeatureFilter(scoring_data=score)); train(), the holdout AuROC and
+    bin scores, the stage metrics; with ``kernels``, each kernel's
+    launches in train() and score()."""
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator, OpBinScoreEvaluator,
+    )
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.filters.raw_feature_filter import (
+        RawFeatureFilter,
+    )
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.models.mlp import (
+        OpMultilayerPerceptronClassifier,
+    )
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.selector import factories
+
+    survived = FeatureBuilder.RealNN("survived").as_response()
+    vec = transmogrify(families_predictors())
+    checked = SanityChecker().set_input(survived, vec).get_output()
+    sel = factories.BinaryClassificationModelSelector.with_cross_validation(
+        models_and_parameters=[
+            (OpLogisticRegression(), factories.lr_grid()),
+            (OpMultilayerPerceptronClassifier(max_iter=FAMILIES_MLP_ITER),
+             FAMILIES_MLP_GRID)])
+    pred = sel.set_input(survived, checked).get_output()
+    wf = (OpWorkflow(device=device).set_result_features(pred, checked)
+          .set_input_dataset(train)
+          .with_raw_feature_filter(RawFeatureFilter(scoring_data=score)))
+    counts = {}
+    if kernels is not None:
+        kernels.reset_launches()
+    mlp_cls = OpMultilayerPerceptronClassifier
+    with selector_walls(device == "cuda", extra=(
+            (mlp_cls, "fit_arrays_folds", "mlp_folds"),
+            (mlp_cls, "predict_arrays", "mlp_predict"))) as rec:
+        t0 = time.perf_counter()
+        model = wf.train()
+        t1 = time.perf_counter()
+    if kernels is not None:
+        counts["train"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        kernels.reset_launches()
+    t2 = time.perf_counter()
+    scored = model.score(train)
+    t3 = time.perf_counter()
+    if kernels is not None:
+        counts["score"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    (chosen,) = [s for s in model.stages if type(s).__name__ == "SelectedModel"]
+    (checker,) = [s for s in model.stages
+                  if type(s).__name__ == "SanityCheckerModel"]
+    summary = chosen.metadata["model_selector_summary"]
+    bins = model.evaluate_holdout(OpBinScoreEvaluator())
+    holdout = model.evaluate_holdout(OpBinaryClassificationEvaluator())
+    col = scored[pred.name]
+    return {
+        "model": model, "train_s": t1 - t0, "score_s": t3 - t2,
+        "walls": rec["walls"], "launches": counts, "summary": summary,
+        "results": summary["validation_results"],
+        "winner": [summary["best_model_type"], summary["best_params"]],
+        "keep": checker.indices_to_keep,
+        "blacklist": sorted(f.name for f in model.blacklisted_features
+                            if f.is_raw()),
+        "map_keys": wf.blacklisted_map_keys,
+        "dropped": wf.rff_results["dropped"],
+        "holdout_auroc": holdout.AuROC,
+        "brier": bins.brier_score, "bin_counts": bins.n_per_bin,
+        "stage_metrics": model.summary_json()["stageMetrics"],
+        "prob": np.asarray(col.probability[:, 1], np.float64),
+        "design": (np.asarray(scored[checked.name].values),
+                   np.asarray(train["survived"].values)),
+        "width": int(np.asarray(scored[vec.name].values).shape[1]),
+        "pred": pred.name,
+    }
+
+
+def run_families_regression(device: str, data, kernels=None) -> dict:
+    """transmogrify -> SanityChecker -> RegressionModelSelector over the
+    gaussian GLM at FAMILIES_GLM_REGS, on ``response``."""
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.models.glm import OpGeneralizedLinearRegression
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.selector import factories
+
+    label = FeatureBuilder.RealNN("response").as_response()
+    _, preds = passenger_features()
+    vec = transmogrify(preds)
+    checked = SanityChecker().set_input(label, vec).get_output()
+    sel = factories.RegressionModelSelector.with_cross_validation(
+        models_and_parameters=[(OpGeneralizedLinearRegression(),
+                                [{"reg_param": r} for r in FAMILIES_GLM_REGS])])
+    pred = sel.set_input(label, checked).get_output()
+    wf = OpWorkflow(device=device).set_result_features(pred, checked) \
+        .set_input_dataset(data)
+    counts = {}
+    if kernels is not None:
+        kernels.reset_launches()
+    t0 = time.perf_counter()
+    model = wf.train()
+    t1 = time.perf_counter()
+    if kernels is not None:
+        counts["train"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        kernels.reset_launches()
+    scored = model.score(data)
+    if kernels is not None:
+        counts["score"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    (chosen,) = [s for s in model.stages if type(s).__name__ == "SelectedModel"]
+    summary = chosen.metadata["model_selector_summary"]
+    return {
+        "model": model, "train_s": t1 - t0, "launches": counts,
+        "summary": summary, "results": summary["validation_results"],
+        "winner": [summary["best_model_type"], summary["best_params"]],
+        "holdout": summary["holdout_metrics"]["OpRegressionEvaluator"],
+        "design": (np.asarray(scored[checked.name].values),
+                   np.asarray(data["response"].values)),
+        "pred": pred.name,
+    }
+
+
+def run_unsupervised(device: str, n_docs: int) -> dict:
+    """OpLDA (k LDA_K) over the count vectors of the full-schema
+    ``description`` tokens of ``n_docs`` passengers, and OpWord2Vec at its
+    defaults over the same tokens."""
+    import transmogrifai_tpu_torch.dsl  # noqa: F401 - the Feature methods
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+
+    data = synthetic_passengers(n_docs, seed=42)
+    toks = FeatureBuilder.Text("description").as_predictor().tokenize()
+    counts = toks.count_vec(vocab_size=1000)
+    topics = counts.lda(k=LDA_K)
+    emb = toks.word2vec()
+    wf = OpWorkflow(device=device).set_result_features(topics, emb) \
+        .set_input_dataset(data)
+    t0 = time.perf_counter()
+    model = wf.train()
+    t1 = time.perf_counter()
+    lda = [s for s in model.stages if type(s).__name__ == "OpLDAModel"][0]
+    w2v = [s for s in model.stages if type(s).__name__ == "OpWord2VecModel"][0]
+    scored = model.score()
+    return {"train_s": t1 - t0, "topics": np.asarray(lda.topics),
+            "theta": np.asarray(scored[topics.name].values),
+            "vocab": dict(w2v.vocab), "vectors": np.asarray(w2v.vectors),
+            "v": int(np.asarray(scored[counts.name].values).shape[1]),
+            "similar": w2v.similar_words(sorted(w2v.vocab)[0], 3)}
+
+
+def run_families_mlp(device: str, data) -> dict:
+    """transmogrify -> SanityChecker -> the MLP (FAMILIES_MLP_GRID[0],
+    FAMILIES_MLP_ITER Adam steps) trained on ``data``; its probabilities
+    of the first LOCO_ROWS rows."""
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.models.mlp import (
+        OpMultilayerPerceptronClassifier,
+    )
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+
+    survived = FeatureBuilder.RealNN("survived").as_response()
+    _, preds = passenger_features()
+    checked = SanityChecker().set_input(
+        survived, transmogrify(preds)).get_output()
+    mlp = OpMultilayerPerceptronClassifier(
+        max_iter=FAMILIES_MLP_ITER, **FAMILIES_MLP_GRID[0]).set_input(
+        survived, checked).get_output()
+    t0 = time.perf_counter()
+    model = OpWorkflow(device=device).set_result_features(mlp, checked) \
+        .set_input_dataset(data).train()
+    t1 = time.perf_counter()
+    col = model.score()[mlp.name]
+    return {"model": model, "pred": mlp.name, "vec": checked.name,
+            "train_s": t1 - t0,
+            "prob": np.asarray(col.probability[:LOCO_ROWS, 1], np.float64)}
+
+
+def families_cmp_view(b: dict, r: dict, u: dict, m: dict) -> dict:
+    """What the card's 100k runs are held against, as the CPU child
+    pickles it."""
+    return {
+        "mlp": {k: m[k] for k in ("train_s", "prob")},
+        "binary": {k: b[k] for k in ("train_s", "results", "winner", "keep",
+                                     "blacklist", "map_keys", "dropped",
+                                     "prob", "holdout_auroc")},
+        "regression": {k: r[k] for k in ("train_s", "results", "winner",
+                                         "holdout")},
+        "unsupervised": {k: u[k] for k in ("train_s", "topics", "theta",
+                                           "vocab", "vectors")},
+    }
+
+
+def families_cpu_main(rows: int) -> int:
+    """``--families-cpu N``: the families selectors (N training rows, N / 10
+    scoring rows) and LDA and word2vec (LDA_DOCS documents) on the CPU;
+    writes what the card's runs are held against to stdout as a pickle."""
+    import pickle
+
+    os.environ["TX_CV_RANK_METRICS"] = FAMILIES_CMP_MODE
+    torch.set_num_threads(2)  # the card's phases run beside this process
+    torch.set_float32_matmul_precision("highest")
+    train, score = families_data(rows, rows // 10)
+    b = run_families_binary("cpu", train, score)
+    r = run_families_regression("cpu", train)
+    u = run_unsupervised("cpu", LDA_DOCS)
+    m = run_families_mlp("cpu", train)
+    sys.stdout.buffer.write(pickle.dumps(families_cmp_view(b, r, u, m)))
+    return 0
+
+
+def start_families_cpu() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, __file__, "--families-cpu", str(FAMILIES_CMP_ROWS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def serve_family(model, data, pred: str, tag: str) -> dict:
+    """score_function() of ``model`` over FAMILIES_RECORDS records of
+    ``data``: torch-fused on the card against numpy-fused on the host, a
+    classifier's predictions equal and every float of the result
+    ``pred`` within the family's ULP budget (or its absolute floor)."""
+    names = [f.name for f in model.raw_features if not f.is_response]
+    cols = {n: data[n].to_list()[:FAMILIES_RECORDS] for n in names}
+    records = [{n: cols[n][i] for n in names} for i in range(FAMILIES_RECORDS)]
+    scorer = model.score_function()
+    numpy_scorer = model.score_function(fused_backend="numpy")
+    assert scorer.fused_backend == "torch", scorer.fused_reason
+    assert scorer.fused.device.type == "cuda", scorer.fused.device
+    def rows_of(rows):
+        return np.array([list(r[pred].values()) for r in rows], np.float64)
+
+    t0 = time.perf_counter()
+    got = rows_of(scorer.score_batch(records))
+    t1 = time.perf_counter()
+    want = rows_of(numpy_scorer.score_batch(records))
+    t2 = time.perf_counter()
+    if got.shape[1] > 1:  # a classifier: the same class, then the floats
+        assert np.array_equal(got[:, 0], want[:, 0]), \
+            f"[{tag}] predictions differ"
+        got, want = got[:, 1:], want[:, 1:]
+    ulps = max_ulps(got, want)
+    absd = float(np.abs(got - want).max())
+    budget, floor = FAMILIES_ULP_BUDGETS[tag]
+    assert ulps <= budget or absd <= floor, (tag, ulps, absd)
+    return {"ulps": ulps, "abs": absd, "budget": budget, "floor": floor,
+            "torch_s": t1 - t0, "numpy_s": t2 - t1}
+
+
+def loco_run(kernels, model, data, vec: str, rows: int) -> dict:
+    """RecordInsightsLOCO (top 20) over the first ``rows`` rows of
+    ``data``'s vector column ``vec`` under ``model``'s fitted head;
+    counted."""
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.insights.loco import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.types.dataset import Dataset
+
+    (head,) = [s for s in model.stages if hasattr(s, "estimator_ref")
+               and type(s).__name__ in ("PredictorModel", "SelectedModel")]
+    col = data[vec].take(np.arange(rows))
+    stage = RecordInsightsLOCO(head, top_k=20)
+    feat = stage.set_input(FeatureBuilder.OPVector(vec).as_predictor()) \
+        .get_output()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = stage.transform(Dataset({vec: col}))[feat.name].values
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    return {"wall_s": wall, "launches": launches, "width": col.values.shape[1],
+            "first": out[0], "rows": len(out)}
+
+
+def families_phase(kernels, errs: list, bin_errs: list,
+                   cpu_child: subprocess.Popen, timings: dict) -> dict:
+    """``[families]``: the remaining model families and training services on
+    the card (see the block comment above), counted, every kernel call held
+    against its plain version, then against the CPU child."""
+    import pickle
+
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.examples import synthetic
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.models.glm import OpGeneralizedLinearRegression
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.models.mlp import (
+        OpMultilayerPerceptronClassifier,
+    )
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.selector import factories
+    from transmogrifai_tpu_torch.selector.validator import OpCrossValidation
+
+    tag = "families"
+    out: dict = {"shapes": {}, "launches": {}}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    train, score = families_data(FAMILIES_ROWS, FAMILIES_SCORE_ROWS)
+    log(f"[{tag}] made {FAMILIES_ROWS} training and {FAMILIES_SCORE_ROWS} "
+        f"scoring rows in {time.perf_counter() - t0:.3f} s")
+
+    # -- the binary selector behind the RawFeatureFilter --------------------
+    # kernel_inputs shims the modules loaded when it starts
+    build_problem_selector("cuda", "regression")
+    with kernel_inputs(kernels) as kept:
+        b = run_families_binary("cuda", train, score, kernels)
+    assert_counted(b, kept)
+    out["launches"]["binary"] = b["launches"]
+    assert b["launches"]["train"]["fused_moments"] == 1, b["launches"]
+    assert {"weight", "sparse"} <= set(b["blacklist"]), b["blacklist"]
+    assert TREE_AUROC_RANGE[0] <= b["holdout_auroc"] <= TREE_AUROC_RANGE[1], \
+        b["holdout_auroc"]
+    w = b["walls"]
+    log(f"[{tag}] binary selector (LR {len(factories.lr_grid())}, MLP "
+        f"{len(FAMILIES_MLP_GRID)}) behind the RawFeatureFilter: train "
+        f"{b['train_s']:.3f} s (validate {w.get('validate', 0.0):.3f} s: "
+        f"lr_batch {w.get('lr_batch', 0.0):.3f} s, mlp_folds "
+        f"{w.get('mlp_folds', 0.0):.3f} s, mlp_predict "
+        f"{w.get('mlp_predict', 0.0):.3f} s; refit {w.get('refit', 0.0):.3f} "
+        f"s), score {b['score_s']:.3f} s; blacklist {b['blacklist']}, map keys {b['map_keys']}, dropped "
+        f"{json.dumps(b['dropped'])[:300]}; width {b['width']}, kept "
+        f"{len(b['keep'])}; winner {b['winner']}; holdout AuROC "
+        f"{b['holdout_auroc']:.6f} (gate {TREE_AUROC_RANGE}); launches "
+        f"{b['launches']}")
+    for c in b["results"]:
+        log(f"[{tag}]   {c['model_type']} {json.dumps(c['params'], sort_keys=True)}: "
+            f"mean AuROC {c['metric']:.6f} ({c['rank_metric_mode']})")
+    log(f"[{tag}] OpBinScoreEvaluator on the holdout: Brier "
+        f"{b['brier']:.6f}, rows per bin (100 bins) "
+        f"{[c for c in b['bin_counts'] if c][:12]}...")
+    sm = b["stage_metrics"]
+    log(f"[{tag}] stageMetrics: {len(sm['stages'])} records, total "
+        f"{sm['total_wall_s']:.3f} s, by operation "
+        f"{json.dumps({k: round(v, 4) for k, v in sm['by_operation'].items()})}")
+    hold_path_inputs(kernels, kept, out["shapes"], errs, bin_errs,
+                     timings=timings)
+    del kept
+
+    # -- the regression selector over the GLM -------------------------------
+    with kernel_inputs(kernels) as kept:
+        r = run_families_regression("cuda", train, kernels)
+    assert_counted(r, kept)
+    out["launches"]["regression"] = r["launches"]
+    ceiling = synthetic.BEST_RMSE_OBSERVED
+    rmse = r["holdout"]["RootMeanSquaredError"]
+    lo, hi = RMSE_GATE[0] * ceiling, RMSE_GATE[1] * ceiling
+    assert lo <= rmse <= hi, (rmse, lo, hi)
+    assert r["winner"][0] == "OpGeneralizedLinearRegression", r["winner"]
+    log(f"[{tag}] regression selector (GLM gaussian at regs "
+        f"{FAMILIES_GLM_REGS}): train {r['train_s']:.3f} s, winner "
+        f"{r['winner']}, holdout RMSE {rmse:.6f} in [{lo:.6f}, {hi:.6f}] "
+        f"(planted ceiling {ceiling}); launches {r['launches']}")
+    hold_path_inputs(kernels, kept, out["shapes"], errs, bin_errs,
+                     timings=timings)
+    del kept
+
+    # -- the other GLM families on a count or positive target ---------------
+    X, resp = r["design"]
+    rng = np.random.RandomState(11)
+    mu = np.exp(0.4 * resp)
+    n_ev = rng.poisson(0.8 * mu)
+    targets = {"poisson": rng.poisson(mu).astype(np.float64),
+               "gamma": rng.gamma(2.0, mu / 2.0),
+               "tweedie": np.where(n_ev > 0, rng.gamma(
+                   np.maximum(2.0 * n_ev, 1e-9), 0.6), 0.0)}
+    for fam, kw in (("poisson", {}), ("gamma", {}),
+                    ("tweedie", {"link_power": 0.0}),
+                    ("tweedie", {"link_power": -0.5})):
+        y = targets[fam]
+        est = OpGeneralizedLinearRegression(family=fam, reg_param=0.01, **kw)
+        t0 = time.perf_counter()
+        p = est.fit_arrays(X, y)
+        fit_s = time.perf_counter() - t0
+        pred = est.predict_arrays(p, X)[0]
+        rel = abs(pred.mean() - y.mean()) / y.mean()
+        assert np.isfinite(p["beta"]).all() and rel < 0.1, (fam, kw, rel)
+        log(f"[{tag}] GLM {fam} {kw or ''}: fit {fit_s:.3f} s at "
+            f"{X.shape}, mean prediction {pred.mean():.5f} against the "
+            f"target's {y.mean():.5f} ({rel:.2e} apart)")
+
+    # -- the CV checkpoint ----------------------------------------------------
+    import tempfile
+
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+
+    Xb, yb = b["design"]
+    Xb, yb = Xb[:FAMILIES_CMP_ROWS], yb[:FAMILIES_CMP_ROWS]
+    models = [(OpLogisticRegression(), factories.lr_grid()),
+              (OpMultilayerPerceptronClassifier(max_iter=FAMILIES_MLP_ITER),
+               FAMILIES_MLP_GRID)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "cv.json")
+        cv = OpCrossValidation(evaluator=OpBinaryClassificationEvaluator(),
+                               checkpoint_path=ckpt)
+        t0 = time.perf_counter()
+        first = cv.validate(models, Xb, yb)
+        t1 = time.perf_counter()
+        saved = json.load(open(ckpt))
+        fits = []
+
+        def no_fit(*args, **kw):
+            fits.append(1)
+            raise AssertionError("a restored candidate was refitted")
+
+        patched = []
+        for est, _ in models:
+            for name in ("fit_arrays_batched", "fit_arrays_folds",
+                         "fit_arrays"):
+                if hasattr(type(est), name):
+                    patched.append((type(est), name, getattr(type(est), name)))
+                    setattr(type(est), name, no_fit)
+        try:
+            t2 = time.perf_counter()
+            again = OpCrossValidation(
+                evaluator=OpBinaryClassificationEvaluator(),
+                checkpoint_path=ckpt).validate(models, Xb, yb)
+            t3 = time.perf_counter()
+        finally:
+            for cls, name, fn in patched:
+                setattr(cls, name, fn)
+        assert not fits
+        same = (again.best_params == first.best_params
+                and again.best_metric == first.best_metric
+                and [r_["fold_metrics"] for r_ in again.all_results]
+                == [r_["fold_metrics"] for r_ in first.all_results])
+        assert same, "the restored ValidationResult differs"
+        assert os.path.exists(ckpt + ".heartbeat")
+    log(f"[{tag}] CV checkpoint at {Xb.shape}: validate {t1 - t0:.3f} s "
+        f"wrote {len(saved)} rows ({sorted(saved)[0][:60]}...); the second "
+        f"validate restored every row in {t3 - t2:.3f} s, fitted nothing "
+        "and gave the same ValidationResult")
+
+    # -- LOCO over a forest (K2 each pass) and the MLP; serving ------------
+    _, preds = passenger_features()
+    survived = FeatureBuilder.RealNN("survived").as_response()
+    lvec = transmogrify(preds, label=survived)
+    forest = OpRandomForestClassifier(**LOCO_FOREST).set_input(
+        survived, lvec).get_output()
+    fdata = train.take(np.arange(LOCO_FIT_ROWS))
+    with kernel_inputs(kernels) as kept:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fmodel = OpWorkflow().set_result_features(forest, lvec) \
+            .set_input_dataset(fdata).train()
+        fit_s = time.perf_counter() - t0
+        fit_launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        fscored = fmodel.score()
+        loco_f = loco_run(kernels, fmodel, fscored, lvec.name, LOCO_ROWS)
+    assert loco_f["launches"]["bin_matrix"] == loco_f["width"] + 1, loco_f
+    assert loco_f["launches"]["fused_moments"] == 0, loco_f
+    assert len(kept["bin_matrix"]) == (fit_launches["bin_matrix"]
+                                       + loco_f["launches"]["bin_matrix"])
+    out["launches"]["loco_forest_fit"] = fit_launches
+    out["launches"]["loco_forest"] = loco_f["launches"]
+    log(f"[{tag}] a {LOCO_FOREST['num_trees']}-tree depth-"
+        f"{LOCO_FOREST['max_depth']} forest on the host C++ learner "
+        f"(backend='native') at {LOCO_FIT_ROWS} rows, width "
+        f"{loco_f['width']}: train {fit_s:.3f} s, launches {fit_launches}; "
+        f"LOCO over {LOCO_ROWS} rows in {loco_f['wall_s']:.3f} s, "
+        f"{loco_f['launches']['bin_matrix']} K2 launches (one a zero-out "
+        f"pass and the base pass); row 0's top keys "
+        f"{list(loco_f['first'])[:4]}")
+    hold_path_inputs(kernels, kept, out["shapes"], errs, bin_errs,
+                     timings=timings)
+    del kept
+
+    # the MLP: trained on the card-against-CPU rows, so its probabilities
+    # are held against the CPU child's below
+    ctrain, cscore = families_data(FAMILIES_CMP_ROWS, FAMILIES_CMP_ROWS // 10)
+    m = run_families_mlp("cuda", ctrain)
+    mmodel = m["model"]
+    loco_m = loco_run(kernels, mmodel, mmodel.score(), m["vec"], LOCO_ROWS)
+    log(f"[{tag}] the MLP {FAMILIES_MLP_GRID[0]} at {FAMILIES_CMP_ROWS} "
+        f"rows: train {m['train_s']:.3f} s; LOCO over {LOCO_ROWS} rows in "
+        f"{loco_m['wall_s']:.3f} s (width {loco_m['width']}), row 0's top "
+        f"keys {list(loco_m['first'])[:4]}")
+    out["launches"]["loco_mlp"] = loco_m["launches"]
+    served = {"mlp": serve_family(mmodel, ctrain, m["pred"], "mlp"),
+              "glm": serve_family(r["model"], train, r["pred"], "glm")}
+    for fam, s in served.items():
+        log(f"[{tag}] score_function() of the {fam} head over "
+            f"{FAMILIES_RECORDS} records: torch-fused on the card "
+            f"{s['torch_s']:.3f} s, numpy-fused {s['numpy_s']:.3f} s; "
+            f"predictions equal, {s['ulps']:g} ULP apart at most (budget "
+            f"{s['budget']}, floor {s['floor']:g}; max |diff| {s['abs']:.3g})")
+    out["served"] = served
+
+    # -- LDA and word2vec -----------------------------------------------------
+    u = run_unsupervised("cuda", LDA_DOCS)
+    log(f"[{tag}] LDA (k {LDA_K}) over {LDA_DOCS} documents x {u['v']} terms "
+        f"and word2vec (vocabulary {len(u['vocab'])}, {u['vectors'].shape[1]}"
+        f" dimensions): train {u['train_s']:.3f} s; similar to "
+        f"{sorted(u['vocab'])[0]!r}: {u['similar']}")
+
+    # -- card against the CPU child -----------------------------------------
+    os.environ["TX_CV_RANK_METRICS"] = FAMILIES_CMP_MODE
+    try:
+        cb = run_families_binary("cuda", ctrain, cscore)
+        cr = run_families_regression("cuda", ctrain)
+    finally:
+        del os.environ["TX_CV_RANK_METRICS"]
+    card = families_cmp_view(cb, cr, u, m)
+    t0 = time.perf_counter()
+    cout, cerr = cpu_child.communicate(timeout=900)
+    assert cpu_child.returncode == 0, (
+        f"the CPU families run failed ({cpu_child.returncode}): "
+        f"{cerr.decode()[-3000:]}")
+    cpu = pickle.loads(cout)
+    log(f"[{tag}] waited {time.perf_counter() - t0:.1f} s for the CPU child "
+        f"(binary train {cpu['binary']['train_s']:.3f} s, regression "
+        f"{cpu['regression']['train_s']:.3f} s, unsupervised "
+        f"{cpu['unsupervised']['train_s']:.3f} s)")
+    cbin, pbin = card["binary"], cpu["binary"]
+    for k in ("blacklist", "map_keys", "keep"):
+        assert cbin[k] == pbin[k], (k, cbin[k], pbin[k])
+    assert json.dumps(cbin["dropped"], sort_keys=True) == \
+        json.dumps(pbin["dropped"], sort_keys=True)
+    diffs = {"LR": 0.0, "MLP": 0.0, "GLM": 0.0}
+    for c_gpu, c_cpu in zip(cbin["results"], pbin["results"]):
+        assert (c_gpu["model_type"], c_gpu["params"]) == \
+            (c_cpu["model_type"], c_cpu["params"])
+        d = abs(c_gpu["metric"] - c_cpu["metric"])
+        is_mlp = c_gpu["model_type"].startswith("OpMultilayer")
+        assert d <= (CMP_MLP_ATOL if is_mlp else CMP_METRIC_ATOL["exact"]), \
+            (c_gpu, c_cpu)
+        key = "MLP" if is_mlp else "LR"
+        diffs[key] = max(diffs[key], d)
+    assert cbin["winner"] == pbin["winner"], (cbin["winner"], pbin["winner"])
+    pdiff = float(np.abs(cbin["prob"] - pbin["prob"]).max())
+    assert pdiff <= CMP_MLP_ATOL, pdiff
+    mlp_d = float(np.abs(card["mlp"]["prob"] - cpu["mlp"]["prob"]).max())
+    assert mlp_d <= CMP_MLP_PROB_ATOL, mlp_d
+    creg, preg = card["regression"], cpu["regression"]
+    assert creg["winner"] == preg["winner"]
+    for c_gpu, c_cpu in zip(creg["results"], preg["results"]):
+        d = abs(c_gpu["metric"] - c_cpu["metric"]) / abs(c_cpu["metric"])
+        assert d <= CMP_GLM_RTOL, (c_gpu, c_cpu)
+        diffs["GLM"] = max(diffs["GLM"], d)
+    cu, pu = card["unsupervised"], cpu["unsupervised"]
+    lda_d = float(np.max(np.abs(cu["topics"] - pu["topics"])
+                         / np.abs(pu["topics"])))
+    assert lda_d <= CMP_LDA_RTOL, lda_d
+    theta_d = float(np.max(np.abs(cu["theta"] - pu["theta"])))
+    assert cu["vocab"] == pu["vocab"]
+    w2v_d = float(np.abs(cu["vectors"] - pu["vectors"]).max())
+    assert w2v_d <= CMP_W2V_ATOL, w2v_d
+    log(f"[{tag}] cuda vs cpu at {FAMILIES_CMP_ROWS} rows: the same "
+        f"blacklist {cbin['blacklist']}, map keys, dropped reasons and kept "
+        f"columns; the same winners {cbin['winner']} and {creg['winner']}; "
+        f"max |mean AuROC diff| LR {diffs['LR']:.3g} (tolerance "
+        f"{CMP_METRIC_ATOL['exact']:g}), MLP {diffs['MLP']:.3g} (tolerance "
+        f"{CMP_MLP_ATOL:g}); winner probabilities {pdiff:.3g}; the MLP's "
+        f"probabilities {mlp_d:.3g} (tolerance {CMP_MLP_PROB_ATOL:g}); GLM mean RMSE "
+        f"relative {diffs['GLM']:.3g} (tolerance {CMP_GLM_RTOL:g}); LDA topics "
+        f"relative {lda_d:.3g} (tolerance {CMP_LDA_RTOL:g}), mixtures "
+        f"{theta_d:.3g}; word2vec vectors {w2v_d:.3g} (tolerance "
+        f"{CMP_W2V_ATOL:g})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["cmp"] = {"lr": diffs["LR"], "mlp": diffs["MLP"], "glm": diffs["GLM"],
+                  "prob": pdiff, "mlp_prob": mlp_d, "lda": lda_d, "theta": theta_d, "w2v": w2v_d}
+    log(f"[{tag}] phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def families_by_path(fam: dict, k: str) -> dict:
+    """A kernel's launches on the [families] phase's paths."""
+    ln = fam["launches"]
+    return {"families_binary_train": ln["binary"]["train"][k],
+            "families_binary_score": ln["binary"]["score"][k],
+            "families_regression_train": ln["regression"]["train"][k],
+            "families_regression_score": ln["regression"]["score"][k],
+            "families_loco_forest_fit": ln["loco_forest_fit"][k],
+            "families_loco_forest": ln["loco_forest"][k],
+            "families_loco_mlp": ln["loco_mlp"][k]}
+
+
+def families_only_main() -> int:
+    """``--families-only``: the kernels' build and the [families] phase
+    alone, with its CPU child: a quick check of the phase while it
+    changes."""
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    child = start_families_cpu()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        log("[header] card: " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", "0"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.strip())
+        kernels.build()
+        errs, bin_errs = [], []
+        fam = families_phase(kernels, errs, bin_errs, child, {})
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.communicate()
+    print(json.dumps({k: families_by_path(fam, k)
+                      for k in ("fused_moments", "bin_matrix")}))
+    print(json.dumps({"shapes": [[k, list(shape), t["ms"], t["bound_ms"],
+                                  t["path_calls"]]
+                                 for (k, shape), t in fam["shapes"].items()],
+                      "cmp": fam["cmp"], "wall_s": fam["wall_s"]}))
+    return 0
+
+
 def serve_by_path(serve: dict, k: str) -> dict:
     """A kernel's launches on the [serve] phase's paths: each served
     model's scoring, and the forest's and GBT's fits."""
@@ -2512,6 +3208,10 @@ def main() -> int:
         return serve_only_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--vectors-only":
         return vectors_only_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--families-only":
+        return families_only_main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--families-cpu":
+        return families_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
         return selector_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--default-selector-cpu":
@@ -2532,7 +3232,8 @@ def main() -> int:
                 start_selector_cpu(DEFAULT_CMP_ROWS, "--default-selector-cpu"),
                 start_problem_cpu("multiclass"),
                 start_problem_cpu("regression"),
-                start_schema_cpu()]
+                start_schema_cpu(),
+                start_families_cpu()]
     try:
         return card_main(*children)
     finally:
@@ -2546,7 +3247,8 @@ def card_main(cpu_child: subprocess.Popen,
               default_cpu_child: subprocess.Popen,
               multiclass_cpu_child: subprocess.Popen,
               regression_cpu_child: subprocess.Popen,
-              schema_cpu_child: subprocess.Popen) -> int:
+              schema_cpu_child: subprocess.Popen,
+              families_cpu_child: subprocess.Popen) -> int:
     from transmogrifai_tpu_torch.examples.synthetic import (
         BAYES_AUROC_OBSERVED,
         synthetic_design_matrix,
@@ -2959,6 +3661,11 @@ def card_main(cpu_child: subprocess.Popen,
 
     # -- 10b. every vectorizer group: the full schema and the type lattice ----
     vectors = vector_phases(kernels, errs, bin_errs, schema_cpu_child, timings)
+    for v in vectors.values():
+        timings.update(v["shapes"])
+
+    families = families_phase(kernels, errs, bin_errs, families_cpu_child,
+                              timings)
 
     # -- 11. result lines ---------------------------------------------------
     def sel_by_path(k):
@@ -2976,6 +3683,7 @@ def card_main(cpu_child: subprocess.Popen,
                    for p, v in problems.items() for phase in ("train", "score")},
                 **{f"{p}_{phase}": v["run"]["launches"][phase][k]
                    for p, v in vectors.items() for phase in ("train", "score")},
+                **families_by_path(families, k),
                 **serve_by_path(serve, k)}
 
     def sel_launches(k):
@@ -3024,6 +3732,8 @@ def card_main(cpu_child: subprocess.Popen,
             "fused_moments", v["shapes"]) for p, v in problems.items()},
         **{f"{p}_path_shapes": sel_shape_rows("fused_moments", v["shapes"])
            for p, v in vectors.items()},
+        "families_path_shapes": sel_shape_rows("fused_moments",
+                                               families["shapes"]),
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -3060,6 +3770,8 @@ def card_main(cpu_child: subprocess.Popen,
             "bin_matrix", v["shapes"]) for p, v in problems.items()},
         **{f"{p}_path_shapes": sel_shape_rows("bin_matrix", v["shapes"])
            for p, v in vectors.items()},
+        "families_path_shapes": sel_shape_rows("bin_matrix",
+                                               families["shapes"]),
         "serve_path_shapes": serve["k2_shapes"],
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,

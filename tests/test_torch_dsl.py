@@ -3,15 +3,14 @@ every ported operator gives the reference's column (arithmetic with x/0
 and missing values giving nulls, scalar and reversed forms, the scalers,
 pivots, vectorizers, bucketizers, percentiles, the row functions over
 ``map_values``, the sanity check, combine and alias, and the text, date,
-geolocation, map and collection methods on the type lattice), and the
-methods whose stages are not ported (LDA, word2vec) raise
-``NotImplementedError`` naming their ROADMAP item."""
+geolocation, map and collection methods on the type lattice), LDA and
+word2vec (their values within rtol 1e-4, their metadata equal)."""
 import numpy as np
 import pytest
 
 from torch_parity import (
     PORT, REF, REFERENCE_DATE_MS, assert_features_match, mod, passengers,
-    reset_uids, workflow,
+    reset_uids, run_features, workflow,
 )
 
 N = 1500
@@ -154,18 +153,27 @@ ITEM_2_CALLS = {
 
 @pytest.mark.parametrize("name", sorted(ITEM_2_CALLS) + ["lda", "word2vec"])
 def test_unported_methods_raise_with_their_item(name):
-    """Only item 8's methods (LDA, word2vec) are left unported and raise
-    naming their item; every method of item 2 gives the JAX package's
-    column on the type lattice."""
+    """No method is left unported (``UNPORTED`` is empty): every method of
+    item 2 gives the JAX package's column on the type lattice, and LDA and
+    word2vec (item 8) give it within rtol 1e-4, atol 1e-5, their metadata
+    equal."""
     dsl = mod(PORT, "dsl")
-    assert dsl.UNPORTED == {"lda": 8, "word2vec": 8}
-    if name in dsl.UNPORTED:
-        mod(REF, "dsl")
-        assert hasattr(mod(REF, "features.feature").Feature, name)
-        text = _lattice_feature(PORT, "Text")
-        with pytest.raises(NotImplementedError,
-                           match=rf"Feature\.{name} .*queue 1, item 8\)"):
-            getattr(text, name)()
+    assert dsl.UNPORTED == {}
+    if name in ("lda", "word2vec"):
+        def build_unsupervised(pkg):
+            mod(pkg, "dsl")
+            toks = _lattice_feature(pkg, "TextList")
+            if name == "lda":
+                return [toks.count_vec(vocab_size=40).lda(k=3, max_iter=5)]
+            return [toks.word2vec(vector_size=6, min_count=1)]
+
+        want = run_features(REF, build_unsupervised, 300)
+        got = run_features(PORT, build_unsupervised, 300)
+        (gk, gv, gm), (wk, wv, wm) = ((s[:2], s[2], s[3:]) for s in
+                                      (got[0], want[0]))
+        assert gk == wk and gm == wm and gv.dtype == wv.dtype
+        np.testing.assert_allclose(gv, wv, rtol=1e-4, atol=1e-5)
+        assert np.abs(gv).sum() > 0
         return
 
     def build(pkg):

@@ -566,3 +566,133 @@ def test_torch_fused_forest_scores_on_card_through_k2(cuda, tmp_path,
     monkeypatch.setattr(native_trees, "predict_forest", lambda *a, **k: None)
     assert_rows_close(got, [row for b in batches for row in npf.score_batch(b)],
                       1, unit=np.float32)
+
+
+# -- the remaining model families (GLM, MLP, LDA) and LOCO -----------------------
+
+def _family_data(n=20_000, d=9, seed=5):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d)
+    z = X @ np.linspace(0.6, -0.4, d) * 0.5
+    return X, z, rng
+
+
+@pytest.mark.parametrize("family,kw", [
+    ("gaussian", {}), ("poisson", {}), ("gamma", {}), ("binomial", {}),
+    ("tweedie", {"link_power": 0.0}), ("tweedie", {"link_power": -0.5})])
+def test_glm_on_the_card_matches_the_cpu(cuda, family, kw):
+    """IRLS on the card against the CPU, folds batched: betas within rtol
+    1e-4, atol 1e-5 (the CV means are held at rtol 1e-5 by chip_smoke.py)."""
+    from transmogrifai_tpu_torch.models.glm import OpGeneralizedLinearRegression
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X, z, rng = _family_data()
+    mu = np.exp(z)
+    y = {"gaussian": z + 0.3 * rng.randn(len(z)),
+         "binomial": (rng.rand(len(z)) < 1 / (1 + np.exp(-z))).astype(float),
+         "gamma": rng.gamma(2.0, mu / 2.0)}.get(family, rng.poisson(mu) * 1.0)
+    W = (np.arange(len(y))[None, :] % 3 != np.arange(3)[:, None]).astype(float)
+    got = OpGeneralizedLinearRegression(family=family, reg_param=0.01,
+                                        device="cuda", **kw)
+    want = OpGeneralizedLinearRegression(family=family, reg_param=0.01,
+                                         device="cpu", **kw)
+    for g, w in zip(got.fit_arrays_folds(X, y, W),
+                    want.fit_arrays_folds(X, y, W)):
+        assert np.isfinite(g["beta"]).all()
+        np.testing.assert_allclose(g["beta"], w["beta"], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(g["intercept"], w["intercept"], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_mlp_on_the_card_matches_the_cpu(cuda):
+    """Full-batch Adam on the card against the CPU, three folds batched.
+    After 10 steps the layers and probabilities agree within 1e-5; after
+    100 the probabilities within 2e-2 and each fold's AuROC within 1e-3:
+    Adam turns the float32 sums' other order into sign-like steps where a
+    gradient is near zero, and the two devices' weights part (on an H100,
+    2e-3 to 8e-3 after 100 steps at 20k rows, as far apart as one device's
+    row-chunked and unchunked fits)."""
+    from transmogrifai_tpu_torch.evaluators.binary import _roc_pr_areas
+    from transmogrifai_tpu_torch.models.mlp import (
+        OpMultilayerPerceptronClassifier,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X, z, rng = _family_data()
+    y = (z + 0.5 * rng.randn(len(z)) > 0).astype(float)
+    W = (np.arange(len(y))[None, :] % 3 != np.arange(3)[:, None]).astype(float)
+    for steps, atol in ((10, 1e-5), (100, 2e-2)):
+        kw = dict(hidden_layers=(10, 10), max_iter=steps)
+        got = OpMultilayerPerceptronClassifier(device="cuda", **kw)
+        want = OpMultilayerPerceptronClassifier(device="cpu", **kw)
+        for f, (g, w) in enumerate(zip(got.fit_arrays_folds(X, y, W),
+                                       want.fit_arrays_folds(X, y, W))):
+            if steps == 10:
+                for (Wg, bg), (Ww, bw) in zip(g["layers"], w["layers"]):
+                    np.testing.assert_allclose(Wg, Ww, atol=atol)
+                    np.testing.assert_allclose(bg, bw, atol=atol)
+            val = W[f] == 0
+            pg = got.predict_arrays(g, X[val])[2][:, 1]
+            pw = want.predict_arrays(w, X[val])[2][:, 1]
+            np.testing.assert_allclose(pg, pw, atol=atol)
+            assert abs(_roc_pr_areas(y[val], pg)[0]
+                       - _roc_pr_areas(y[val], pw)[0]) <= 1e-3
+
+
+def test_lda_on_the_card_matches_the_cpu(cuda):
+    """Variational EM on the card against the CPU: topics and inferred
+    mixtures within rtol 1e-4."""
+    from transmogrifai_tpu_torch.models import unsupervised as uns
+
+    rng = np.random.RandomState(0)
+    counts = rng.poisson(0.3, size=(2000, 200)).astype(np.float32)
+    init = uns.initial_topics(42, 10, 200)
+    got, want = (uns.lda_em_core(torch.tensor(counts, device=dev),
+                                 torch.tensor(init, device=dev), 1.1, 1.01,
+                                 iters=10).cpu().numpy()
+                 for dev in (cuda, torch.device("cpu")))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_loco_zero_out_passes_launch_k2_equal_to_plain(cuda):
+    """RecordInsightsLOCO over a forest on the card: one K2 launch per
+    zero-out pass plus the base pass, each equal to its plain version."""
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.insights.loco import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.models.base import PredictorModel
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    from transmogrifai_tpu_torch.types.columns import VectorColumn
+    from transmogrifai_tpu_torch.types.dataset import Dataset
+    from transmogrifai_tpu_torch.types.vector_metadata import (
+        VectorColumnMeta, VectorMetadata,
+    )
+
+    X, z, rng = _family_data(n=3000, d=7)
+    y = (z + 0.5 * rng.randn(len(z)) > 0).astype(float)
+    est = OpRandomForestClassifier(num_trees=5, max_depth=5, device="cuda")
+    model = PredictorModel(est, est.fit_arrays(X, y))
+    meta = VectorMetadata("vec", tuple(
+        VectorColumnMeta("vec", "OPVector", descriptor_value=f"x{j}")
+        for j in range(7))).reindexed()
+    kept = []
+    real = tk.bin_matrix
+
+    def keep(x, e, dtype):
+        kept.append((x.clone(), e.clone(), dtype))
+        return real(x, e, dtype)
+
+    import transmogrifai_tpu_torch.models.trees as trees_mod
+
+    trees_mod.bin_matrix = keep
+    try:
+        stage = RecordInsightsLOCO(model, top_k=3)
+        feat = stage.set_input(FeatureBuilder.OPVector("vec")
+                               .as_predictor()).get_output()
+        stage.transform(Dataset({"vec": VectorColumn(X.astype(np.float32),
+                                                     meta)}))[feat.name]
+    finally:
+        trees_mod.bin_matrix = real
+    assert len(kept) == 7 + 1
+    for x, e, dtype in kept:
+        assert torch.equal(tk.bin_matrix(x, e, dtype),
+                           tk.bin_matrix_plain(x, e, dtype))

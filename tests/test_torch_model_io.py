@@ -419,7 +419,8 @@ def test_kill_during_save_leaves_loadable_artifact(tmp_path, point):
 #: scores against the JAX package's ``score()`` on the same weights: the
 #: JAX package scores linear heads in float32 on its device path
 SCORE_ATOL = {"lr": 1e-6, "nb": 1e-5, "svc": 1e-9, "linreg": 1e-5,
-              "rf": 1e-6, "gbt": 1e-6, "rf_reg": 1e-5, "gbt_reg": 1e-5}
+              "rf": 1e-6, "gbt": 1e-6, "rf_reg": 1e-5, "gbt_reg": 1e-5,
+              "glm": 1e-9, "mlp": 1e-6}
 
 
 @pytest.mark.parametrize("family", list(SERVE_FAMILIES))

@@ -13,7 +13,7 @@ route (``TX_PRODUCT_MESH=0``): the torch package has no mesh yet.
 import numpy as np
 import pytest
 
-from torch_parity import PORT, REF, mod, selector_models
+from torch_parity import PORT, REF, mod, selector_models, small_gbt_grid
 
 
 def _both(path):
@@ -341,10 +341,39 @@ def test_factory_builds_ported_families_on_its_device():
     assert type(sel.splitter).__name__ == "DataBalancer"
 
 
-def test_unported_validator_options_raise(monkeypatch):
+def test_unported_validator_options_raise(monkeypatch, tmp_path):
+    """autotune, validate_stream and the fused programs raise, naming
+    their item; ``checkpoint_path`` is ported: the port restores every row
+    of a checkpoint that the reference's validator wrote (LR and GBT
+    candidates), fits nothing, and selects as the reference did."""
     val = mod(PORT, "selector.validator")
-    with pytest.raises(NotImplementedError, match=r"item 1\)"):
-        val.OpCrossValidation(checkpoint_path="cv.json")
+    ckpt = str(tmp_path / "cv.json")
+    X, y = _cv_data(n=120)
+    want = mod(REF, "selector.validator").OpCrossValidation(
+        evaluator=mod(REF, "evaluators.binary")
+        .OpBinaryClassificationEvaluator(), seed=42, checkpoint_path=ckpt,
+    ).validate(selector_models(REF, small_gbt_grid(2, (2,))), X, y)
+    models = selector_models(PORT, small_gbt_grid(2, (2,)))
+
+    def no_fit(*args, **kw):
+        raise AssertionError("a restored candidate was refitted")
+
+    for est, _ in models:
+        for name in ("fit_arrays_batched", "fit_arrays_folds_grid",
+                     "fit_arrays_folds", "fit_arrays"):
+            if hasattr(est, name):
+                monkeypatch.setattr(type(est), name, no_fit)
+    restored = val.OpCrossValidation(
+        evaluator=mod(PORT, "evaluators.binary")
+        .OpBinaryClassificationEvaluator(), seed=42, checkpoint_path=ckpt,
+        device="cpu",
+    ).validate(models, X, y)
+    assert restored.best_params == want.best_params
+    assert [(r["model_type"], r["params"], r["fold_metrics"])
+            for r in restored.all_results] == \
+        [(r["model_type"], r["params"], r["fold_metrics"])
+         for r in want.all_results]
+    monkeypatch.undo()
     with pytest.raises(NotImplementedError, match=r"item 12\)"):
         val.OpCrossValidation(autotune=object())
     cv = val.OpCrossValidation(device="cpu")

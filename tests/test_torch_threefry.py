@@ -92,3 +92,51 @@ def test_uniform_bit_equal():
     got = _tf().uniform(np.asarray(key), (5, 11))
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [2, 3, 7])
+def test_split_bit_equal(seed, num):
+    got = _tf().split(_tf().prng_key(seed), num)
+    np.testing.assert_array_equal(
+        got, np.asarray(jax.random.split(jax.random.PRNGKey(seed), num)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(), (5,), (37, 10), (539, 10)])
+def test_normal_bit_equal(seed, shape):
+    """sqrt(2) * XLA's float32 erf_inv of a uniform on (-1, 1)."""
+    got = _tf().normal(_tf().prng_key(seed), shape)
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_xla_float32_functions_bit_equal():
+    """The float32 ``erf_inv``, ``log1p`` and ``log`` that XLA:CPU
+    computes, over 200k draws each (the tails included)."""
+    from jax._src.lax import special
+
+    rng = np.random.RandomState(1)
+    u = np.concatenate([rng.uniform(-1, 1, 200_000),
+                        [-0.99999994, 0.99999994, 0.0, 1e-8]]).astype(np.float32)
+    np.testing.assert_array_equal(
+        _tf().erf_inv(u), np.asarray(jax.jit(special.erf_inv)(jnp.asarray(u))))
+    x = -(u * u)
+    np.testing.assert_array_equal(
+        _tf().xla_log1p(x), np.asarray(jax.jit(jnp.log1p)(jnp.asarray(x))))
+    v = np.concatenate([rng.uniform(0, 3, 200_000), rng.uniform(0, 1e-3, 1000),
+                        rng.uniform(0, 1e6, 1000)]).astype(np.float32)
+    np.testing.assert_array_equal(
+        _tf().xla_log(v), np.asarray(jax.jit(jnp.log)(jnp.asarray(v))))
+
+
+@pytest.mark.parametrize("seed,k,v", [(42, 10, 1000), (0, 4, 50), (7, 3, 11)])
+def test_dirichlet_matches_jax(seed, k, v):
+    """The log-space Marsaglia-Tsang gamma draws key for key, then the
+    softmax: within rtol 1e-5 (the softmax's ``exp`` is numpy's)."""
+    got = _tf().dirichlet(_tf().prng_key(seed), np.ones(v), (k,))
+    want = np.asarray(jax.random.dirichlet(jax.random.PRNGKey(seed),
+                                           jnp.full((v,), 1.0), (k,)))
+    assert got.shape == (k, v) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -104,8 +104,9 @@ def test_one_hot_pair_tie_is_logged():
 
 
 def test_unported_routes_raise():
-    """The host C++ learner and the fused plan raise, naming their item;
-    the forests' per-node subsets (item 6a) no longer do: a default forest
+    """The fused plan raises, naming its item; the host C++ learner
+    (``backend="native"``) gives the JAX package's native heaps bit for
+    bit; the forests' per-node subsets (item 6a) no longer raise: a default forest
     fits, folds and predicts.  The scoring mirror of the device-fused
     program is ported (``predict_arrays_torch``, within an ULP of the
     numpy route here)."""
@@ -118,11 +119,24 @@ def test_unported_routes_raise():
     folds = rf.fit_arrays_folds(X, y, np.ones((2, N)))
     for a, b in zip(folds[1]["heaps"], params["heaps"]):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        trees.OpGBTClassifier(device="cpu", backend="native").fit_arrays(X, y)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        trees.OpRandomForestClassifier(device="cpu", backend="native") \
-            .fit_arrays_folds(X, y, np.ones((3, N)))
+    # the host C++ learner (backend="native"): heaps bit-equal to the
+    # JAX package's native learner on the same inputs
+    ref_trees = mod(REF, "models.trees")
+    got = trees.OpGBTClassifier(device="cpu", backend="native").fit_arrays(X, y)
+    want = ref_trees.OpGBTClassifier(backend="native").fit_arrays(X, y)
+    for a, b in zip(got["heaps"], want["heaps"]):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert got["f0"] == want["f0"] and got["max_depth"] == want["max_depth"]
+    W = (np.arange(N)[None, :] % 3 != np.arange(3)[:, None]).astype(float)
+    got = trees.OpRandomForestClassifier(device="cpu", backend="native") \
+        .fit_arrays_folds(X, y, W)
+    want = ref_trees.OpRandomForestClassifier(backend="native") \
+        .fit_arrays_folds(X, y, W)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["edges"], w["edges"])
+        for a, b in zip(g["heaps"], w["heaps"]):
+            np.testing.assert_array_equal(a, np.asarray(b))
     gbt = trees.OpGBTClassifier(device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         gbt.fused_tree_plan(X, y, np.ones((3, N)), [{}])

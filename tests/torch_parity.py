@@ -363,9 +363,10 @@ def tree_fits_agree(want, got, X, classification: bool, gbt: bool = False):
 #: elementwise heads are bit-exact to an ULP, matmul heads a few ULP
 ULP_BUDGETS = {
     "rf": (1, 0.0), "rf_reg": (1, 0.0), "svc": (1, 0.0),
-    "linreg": (1, 0.0),
+    "linreg": (1, 0.0), "glm": (1, 0.0),
     "lr": (4, 0.0), "nb": (4, 0.0),
     "gbt": (64, 0.0), "gbt_reg": (64, 0.0),
+    "mlp": (64, 1e-9),
 }
 
 #: the families of the JAX package's tests/test_fused_pipeline.py that the
@@ -385,6 +386,10 @@ SERVE_FAMILIES = {
                .OpRandomForestRegressor(num_trees=8, max_depth=4), False),
     "gbt_reg": (lambda p: mod(p, "models.trees")
                 .OpGBTRegressor(num_trees=6, max_depth=3), False),
+    "mlp": (lambda p: mod(p, "models.mlp").OpMultilayerPerceptronClassifier(
+        hidden_layers=(4,), max_iter=15), True),
+    "glm": (lambda p: mod(p, "models.glm")
+            .OpGeneralizedLinearRegression(), False),
 }
 
 
@@ -605,3 +610,95 @@ def vector_slice(pkg: str, label, preds, **lr_kw):
     pred = mod(pkg, "models.logistic_regression").OpLogisticRegression(
         **lr_kw, **kw).set_input(label, checked).get_output()
     return vec, checked, pred
+
+
+def rff_datasets(pkg: str, n: int = 2000, n_score: int = 1000,
+                 seed: int = 42):
+    """(train, scoring) datasets of the RawFeatureFilter drills in ``pkg``:
+    the passenger columns plus ``sparse`` (a Real filled on one row, below
+    the default min fill rate) and ``extras`` (a RealMap whose key ``k1``
+    is always present and ``k2`` on one row); the scoring set, drawn from
+    another seed, holds every height at the training maximum, so its
+    distribution moves past the default JS-divergence limit."""
+    cols_mod, ft = mod(pkg, "types.columns"), mod(pkg, "types.feature_types")
+    ds_cls = mod(pkg, "types.dataset").Dataset
+    out = []
+    for rows, s, drift in ((n, seed, False), (n_score, seed + 1000, True)):
+        base = passengers(PORT, rows, s)
+        rng = np.random.RandomState(s + 7)
+        cols = {}
+        for name in base:
+            c = base[name]
+            vals = np.asarray(c.values)
+            if name == "height" and drift:
+                vals = np.full_like(vals, train_height_max)
+            ftype = getattr(ft, c.feature_type.__name__)
+            if isinstance(c, mod(PORT, "types.columns").NumericColumn):
+                cols[name] = cols_mod.NumericColumn(vals, np.asarray(c.mask),
+                                                    ftype)
+            else:
+                cols[name] = cols_mod.TextColumn(list(c.values), ftype)
+        if not drift:
+            train_height_max = float(np.max(base["height"].values))
+        sparse_mask = np.zeros(rows, bool)
+        sparse_mask[0] = True
+        cols["sparse"] = cols_mod.NumericColumn(
+            np.where(sparse_mask, 1.5, 0.0), sparse_mask, ft.Real)
+        cols["extras"] = cols_mod.MapColumn(
+            [{"k1": float(v), **({"k2": 2.0} if i == 1 else {})}
+             for i, v in enumerate(rng.randn(rows))], ft.RealMap)
+        out.append(ds_cls(cols))
+    return tuple(out)
+
+
+def rff_features(pkg: str):
+    """(label, predictors) of the RawFeatureFilter drills: the passenger
+    features plus ``sparse`` and ``extras``."""
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    survived, preds = passenger_features(pkg)
+    preds = preds + [fb.Real("sparse").as_predictor(),
+                     fb.RealMap("extras").as_predictor()]
+    return survived, preds
+
+
+def carry_and_reload(build, data, tmp_path, rtol=0.0, atol=0.0):
+    """Train ``build(pkg)``'s result feature (the last of the features it
+    returns) in both packages over ``data(pkg)``; the reference's fitted
+    state carried across with ``interop.load_reference_state`` scores as
+    the reference does, and the port's own model, saved and loaded into a
+    freshly built workflow, scores as it did (bit for bit).  Returns the
+    port's scored result column."""
+    import os
+
+    out = {}
+    for pkg in (REF, PORT):
+        reset_uids(pkg)
+        feats = build(pkg)
+        wf = workflow(pkg, feats[-1], data(pkg))
+        model = wf.train()
+        out[pkg] = (model, feats[-1], model.score()[feats[-1].name])
+    reset_uids(PORT)
+    feats = build(PORT)
+    carried = mod(PORT, "interop").load_reference_state(
+        workflow(PORT, feats[-1], data(PORT)), reference_states(out[REF][0]))
+    got = carried.score(data(PORT))[feats[-1].name]
+    want = out[REF][2]
+    for a, b in ((got, want),):
+        av = getattr(a, "prediction", getattr(a, "values", None))
+        bv = getattr(b, "prediction", getattr(b, "values", None))
+        np.testing.assert_allclose(np.asarray(av, np.float64),
+                                   np.asarray(bv, np.float64),
+                                   rtol=rtol, atol=atol)
+    model, feat, scored = out[PORT]
+    path = os.path.join(str(tmp_path), "port_model")
+    model.save(path)
+    reset_uids(PORT)
+    feats = build(PORT)
+    loaded = mod(PORT, "workflow.workflow").OpWorkflowModel.load(
+        path, workflow(PORT, feats[-1], data(PORT)))
+    again = loaded.score(data(PORT))[feats[-1].name]
+    for name in ("prediction", "probability", "values"):
+        if getattr(scored, name, None) is not None:
+            np.testing.assert_array_equal(np.asarray(getattr(again, name)),
+                                          np.asarray(getattr(scored, name)))
+    return scored

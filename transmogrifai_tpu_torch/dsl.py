@@ -11,9 +11,9 @@ reference:
     features = transmogrify([p_class, sex, age, ...])
     checked = survived.sanity_check(features, remove_bad_features=True)
 
-Every method of the JAX package's DSL is on ``Feature``.  LDA and word2vec
-(``lda``, ``word2vec``) are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP item (8).
+Every method of the JAX package's DSL is on ``Feature``, LDA and word2vec
+(``lda``, ``word2vec``: ``models/unsupervised.py``) included; ``UNPORTED``
+is empty.
 """
 from __future__ import annotations
 
@@ -75,22 +75,8 @@ def _as_feature_op(self: Feature, other, op_name: str, fn, rev: bool = False):
 
 
 #: the methods whose stages are not ported yet, by the ROADMAP.md queue 1
-#: item that brings them
-UNPORTED = {
-    # item 8: the unsupervised families
-    "lda": 8, "word2vec": 8,
-}
-
-
-def _not_ported(name: str, item: int):
-    def method(self: Feature, *args, **kw):
-        raise NotImplementedError(
-            f"Feature.{name} is not ported to the torch package yet "
-            f"(ROADMAP.md queue 1, item {item})"
-        )
-
-    method.__name__ = name
-    return method
+#: item that brings them: none is left
+UNPORTED: dict = {}
 
 
 def _patch_feature() -> None:
@@ -425,6 +411,24 @@ def _patch_feature() -> None:
             .set_input(self).get_output()
         )
 
+    def lda(self: Feature, k: int = 10, max_iter: int = 30) -> Feature:
+        """Topic mixture of a term-count/TF vector (reference:
+        RichVectorFeature.lda via ml.clustering.LDA)."""
+        from .models.unsupervised import OpLDA
+
+        return OpLDA(k=k, max_iter=max_iter).set_input(self).get_output()
+
+    def word2vec(self: Feature, vector_size: int = 100,
+                 min_count: int = 5) -> Feature:
+        """Mean skip-gram embedding of a TextList (reference:
+        RichTextFeature.word via ml.feature.Word2Vec)."""
+        from .models.unsupervised import OpWord2Vec
+
+        return (
+            OpWord2Vec(vector_size=vector_size, min_count=min_count)
+            .set_input(self).get_output()
+        )
+
     def remove_stop_words(self: Feature, language: str = "en") -> Feature:
         """Drop function words from a TextList (reference:
         RichTextFeature.removeStopWords via StopWordsRemover)."""
@@ -562,6 +566,8 @@ def _patch_feature() -> None:
     F.idf = idf
     F.tfidf = tfidf
     F.count_vec = count_vec
+    F.lda = lda
+    F.word2vec = word2vec
     F.remove_stop_words = remove_stop_words
     F.tokenize_regex = tokenize_regex
     F.exists = exists
@@ -571,8 +577,6 @@ def _patch_feature() -> None:
     F.to_unit_circle = to_unit_circle
     F.to_date_list = to_date_list
     F.to_multi_pick_list = to_multi_pick_list
-    for name, item in UNPORTED.items():
-        setattr(F, name, _not_ported(name, item))
 
 
 _patch_feature()

@@ -10,9 +10,12 @@ analog) and confusion counts at the 0.5 prediction, all on the host.
 candidate's score histogram as a 32x32 one-hot outer-product matmul for
 the TPU's matrix unit; here it is a ``scatter_add_`` into B x 1024 float64
 bins.  The masks are 0/1 and y is 0/1, so every bin is an integer count:
-exact in any summation order, so deterministic on the card.  The JAX
-package's OpBinScoreEvaluator comes with the other evaluators (ROADMAP.md
-queue 1, item 8).
+exact in any summation order, so deterministic on the card.
+
+``OpBinScoreEvaluator`` (reference: OpBinScoreEvaluator.scala) bins the
+positive-class scores into ``num_bins`` equal-width bins on [0, 1] and
+reports each bin's count, mean score and mean label, and the Brier score
+(host numpy, the JAX package's code).
 """
 from __future__ import annotations
 
@@ -168,4 +171,45 @@ class OpBinaryClassificationEvaluator(OpEvaluatorBase):
             F1=f1, Error=error, TP=tp, TN=tn, FP=fp, FN=fn,
             thresholds=ths.tolist(),
             precision_by_threshold=p_by, recall_by_threshold=r_by,
+        )
+
+
+@dataclass
+class BinScoreMetrics(EvaluationMetrics):
+    bin_centers: list = field(default_factory=list)
+    n_per_bin: list = field(default_factory=list)
+    avg_score_per_bin: list = field(default_factory=list)
+    avg_label_per_bin: list = field(default_factory=list)
+    brier_score: float = 0.0
+
+
+class OpBinScoreEvaluator(OpEvaluatorBase):
+    """Score-bin calibration (reference: OpBinScoreEvaluator.scala)."""
+
+    metric_name = "brier_score"
+    larger_better = False
+
+    def __init__(self, num_bins: int = 100) -> None:
+        self.num_bins = num_bins
+
+    def evaluate_arrays(self, y, pred: PredictionColumn):
+        score = (
+            pred.probability[:, 1]
+            if pred.probability is not None and pred.probability.shape[1] > 1
+            else pred.prediction
+        )
+        edges = np.linspace(0.0, 1.0, self.num_bins + 1)
+        which = np.clip(np.digitize(score, edges) - 1, 0, self.num_bins - 1)
+        centers, counts, avg_s, avg_y = [], [], [], []
+        for b in range(self.num_bins):
+            m = which == b
+            centers.append(float((edges[b] + edges[b + 1]) / 2))
+            counts.append(int(m.sum()))
+            avg_s.append(float(score[m].mean()) if m.any() else 0.0)
+            avg_y.append(float(y[m].mean()) if m.any() else 0.0)
+        brier = float(np.mean((score - y) ** 2))
+        return BinScoreMetrics(
+            bin_centers=centers, n_per_bin=counts,
+            avg_score_per_bin=avg_s, avg_label_per_bin=avg_y,
+            brier_score=brier,
         )

@@ -1,8 +1,7 @@
 """Per-feature distribution summaries for RawFeatureFilter.
 
 Host copy of ``transmogrifai_tpu/filters/feature_distribution.py`` (the
-schema contract captures these summaries; the RawFeatureFilter itself
-comes with ROADMAP.md queue 1, item 8).  Counterpart of FeatureDistribution / PreparedFeatures / Summary (reference:
+schema contract and the RawFeatureFilter read these summaries).  Counterpart of FeatureDistribution / PreparedFeatures / Summary (reference:
 core/.../filters/FeatureDistribution.scala:286, PreparedFeatures.scala,
 Summary.scala): for each raw feature (and each key of map features) track
 count, null count, and a fixed-width histogram - numerics bin by value

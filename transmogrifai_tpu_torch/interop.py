@@ -28,8 +28,11 @@ from __future__ import annotations
 from typing import Any, Mapping, Sequence
 
 from .models.base import PredictorEstimator, PredictorModel
+from .models.unsupervised import OpLDA, OpLDAModel, OpWord2Vec, OpWord2VecModel
 from .ops.bucketizers import DecisionTreeNumericBucketizer, NumericBucketizerModel
 from .ops.categorical import OneHotModel, OneHotVectorizer
+from .ops.maps import MapVectorizer, MapVectorizerModel
+from .ops.text import CountVectorizerModel, OpCountVectorizer
 from .ops.numeric import (
     BinaryVectorizer,
     IntegralVectorizer,
@@ -69,6 +72,12 @@ _FITTED = {
     FillMissingWithMean: (_FillMeanModel, ("fill",)),
     OpScalarStandardScaler: (_ScaleModel, ("mean", "std")),
     PercentileCalibrator: (_PercentileModel, ("splits", "buckets")),
+    MapVectorizer: (
+        MapVectorizerModel, ("plans", "track_nulls", "clean_text", "clean_keys"),
+    ),
+    OpCountVectorizer: (CountVectorizerModel, ("vocabulary", "min_tf", "binary")),
+    OpLDA: (OpLDAModel, ("topics", "alpha")),
+    OpWord2Vec: (OpWord2VecModel, ("vocab", "vectors")),
 }
 
 
@@ -117,7 +126,10 @@ def _fitted_for(stage: Estimator, cls_name: str, state: Mapping[str, Any]):
             f"stage {stage.uid} ({type(stage).__name__}) pairs with a "
             f"fitted {cls_name}, expected {cls.__name__}"
         )
-    return cls(**{k: state[k] for k in fields})
+    model = cls(**{k: state[k] for k in fields})
+    if hasattr(stage, "device") and hasattr(model, "device"):
+        model.device = stage.device  # a fitted device stage runs where its estimator did
+    return model
 
 
 def load_reference_state(
@@ -134,9 +146,12 @@ def load_reference_state(
     regression's ``beta`` and ``intercept``; multiclass logistic
     regression's ``betas``, ``intercepts``, ``classes`` and ``family``,
     multinomial or OvR; the tree heaps, edges, classes and GBT margin
-    terms; naive Bayes' ``theta``, ``prior``, ``classes`` and ``shift``),
-    and a model selector's winner - binary, multiclass or regression.  Estimators in the result score on
-    ``workflow.device``.
+    terms; naive Bayes' ``theta``, ``prior``, ``classes`` and ``shift``;
+    the GLM's ``beta``, ``intercept``, ``family`` and ``link_power``; the
+    MLP's ``layers``, ``classes``, ``mu`` and ``sd``), ``OpLDAModel``'s
+    ``topics`` and ``alpha``, ``OpWord2VecModel``'s ``vocab`` and
+    ``vectors``, and a model selector's winner - binary, multiclass or
+    regression.  Estimators in the result score on ``workflow.device``.
     """
     resolve_device(workflow.device)
     stages = flatten(compute_dag(workflow.result_features))
@@ -177,12 +192,9 @@ def load_reference_artifact(path: str, workflow: OpWorkflow) -> OpWorkflowModel:
     its saved metadata.  The saved schema contract, when there is one,
     becomes the model's.  Estimators score on ``workflow.device``."""
     path, doc, arrays = model_io.read_artifact(path)
-    if doc.get("blacklisted_raw"):
-        raise NotImplementedError(
-            "the artifact blacklists raw features: the RawFeatureFilter "
-            "is not ported to the torch package yet (ROADMAP.md queue 1, "
-            "item 8)"
-        )
+    # the saved RawFeatureFilter blacklist cuts the same stages out of
+    # ``workflow``'s DAG before the states pair with it
+    model_io.apply_saved_blacklist(doc, workflow)
     states = []
     for saved in doc["stages"]:
         state = dict(model_io._decode(saved["state"], arrays))
@@ -192,6 +204,7 @@ def load_reference_artifact(path: str, workflow: OpWorkflow) -> OpWorkflowModel:
                              meta["model_selector_summary"])
         states.append((saved["class"].rpartition(".")[2], state))
     model = load_reference_state(workflow, states)
+    model.blacklisted_features = list(workflow.blacklisted_features)
     model.parameters = dict(model_io._decode(doc["parameters"], arrays))
     model.train_time_s = doc.get("train_time_s", 0.0)
     model.schema_contract = model_io.read_schema_contract(path)

@@ -1,13 +1,16 @@
-"""Python bridge to the native C++ tree scoring routines.
+"""Python bridge to the native C++ histogram tree learner and its scoring.
 
-Counterpart of the scoring half of ``transmogrifai_tpu/models/
-native_trees.py``: the flat-heap forest walk (``tx_predict_forest_hist``)
-and the host binning (``tx_bin_data``) of ``native/txtrees.cpp``, through
-the port's own build of the library (``utils/native.py``).  They are the
-host serving route of the tree families (``predict_arrays_np``), as in
-the JAX package.  Each returns None when the shared library is
-unavailable (callers take their numpy walk).  The host C++ learner
-(``backend="native"``) is not ported (ROADMAP.md queue 1, item 1).
+Counterpart of ``transmogrifai_tpu/models/native_trees.py``: the host
+learner (``fit_forest``, ``fit_gbt``: ``tx_fit_forest_hist``,
+``tx_fit_gbt_hist``), the flat-heap forest walk
+(``tx_predict_forest_hist``) and the host binning (``tx_bin_data``) of
+``native/txtrees.cpp``, through the port's own build of the library
+(``utils/native.py``).  The learner emits the same flat-heap layout as the
+device learner of ``tree_kernel.py``, so scoring, serialization and LOCO
+do not depend on which one fitted a model; ``backend="native"`` of the
+tree families trains on it.  The walk and the binning are the host
+serving route (``predict_arrays_np``).  Each returns None when the shared
+library is unavailable.
 """
 from __future__ import annotations
 
@@ -21,6 +24,91 @@ from ..utils import native
 
 def available() -> bool:
     return native.has_tree_symbols()
+
+
+def fit_forest(
+    bins: np.ndarray,       # [n, d] int32
+    stats_row: np.ndarray,  # [n, C] float32
+    w_row: np.ndarray,      # [n] float32
+    boot_w: np.ndarray,     # [T, n] float32
+    feat_masks: np.ndarray, # [T, d] bool
+    seeds: np.ndarray,      # [T] uint64
+    max_depth: int,
+    max_bins: int,
+    impurity_kind: str,
+    min_instances_per_node: float = 1.0,
+    min_info_gain: float = 0.0,
+    feature_subset_p: float = 1.0,
+    n_threads: int = 0,
+) -> Optional[tuple]:
+    lib = native.get_lib()
+    if lib is None or not hasattr(lib, "tx_fit_forest_hist"):
+        return None
+    bins = np.ascontiguousarray(bins, dtype=np.int32)
+    stats_row = np.ascontiguousarray(stats_row, dtype=np.float32)
+    w_row = np.ascontiguousarray(w_row, dtype=np.float32)
+    boot_w = np.ascontiguousarray(boot_w, dtype=np.float32)
+    masks = np.ascontiguousarray(feat_masks, dtype=np.uint8)
+    seeds = np.ascontiguousarray(seeds, dtype=np.uint64)
+    n, d = bins.shape
+    T = boot_w.shape[0]
+    C = stats_row.shape[1]
+    M = 2 ** (max_depth + 1) - 1
+    hf = np.zeros((T, M), dtype=np.int32)
+    ht = np.zeros((T, M), dtype=np.int32)
+    hl = np.zeros((T, M), dtype=np.uint8)
+    hv = np.zeros((T, M, C), dtype=np.float32)
+    lib.tx_fit_forest_hist(
+        bins.ctypes.data, stats_row.ctypes.data, w_row.ctypes.data,
+        boot_w.ctypes.data, masks.ctypes.data, seeds.ctypes.data,
+        np.int64(n), np.int32(d), np.int32(T),
+        np.int32(max_depth), np.int32(max_bins), np.int32(C),
+        np.int32(1 if impurity_kind == "variance" else 0),
+        float(min_instances_per_node), float(min_info_gain),
+        float(feature_subset_p), np.int32(n_threads),
+        hf.ctypes.data, ht.ctypes.data, hl.ctypes.data, hv.ctypes.data,
+    )
+    return hf, ht, hl.astype(bool), hv
+
+
+def fit_gbt(
+    bins: np.ndarray,   # [n, d] int32
+    y: np.ndarray,      # [n] float32
+    w_row: np.ndarray,  # [n] float32
+    num_trees: int,
+    max_depth: int,
+    max_bins: int,
+    is_classification: bool,
+    step_size: float,
+    f0: float,
+    min_instances_per_node: float = 1.0,
+    min_info_gain: float = 0.0,
+) -> Optional[tuple]:
+    lib = native.get_lib()
+    if lib is None or not hasattr(lib, "tx_fit_gbt_hist"):
+        return None
+    bins = np.ascontiguousarray(bins, dtype=np.int32)
+    y = np.ascontiguousarray(y, dtype=np.float32)
+    w_row = np.ascontiguousarray(w_row, dtype=np.float32)
+    n, d = bins.shape
+    C = 4
+    M = 2 ** (max_depth + 1) - 1
+    hf = np.zeros((num_trees, M), dtype=np.int32)
+    ht = np.zeros((num_trees, M), dtype=np.int32)
+    hl = np.zeros((num_trees, M), dtype=np.uint8)
+    hv = np.zeros((num_trees, M, C), dtype=np.float32)
+    F = np.zeros((n,), dtype=np.float32)
+    lib.tx_fit_gbt_hist(
+        bins.ctypes.data, y.ctypes.data, w_row.ctypes.data,
+        np.int64(n), np.int32(d), np.int32(num_trees),
+        np.int32(max_depth), np.int32(max_bins),
+        np.int32(1 if is_classification else 0),
+        float(step_size), float(f0),
+        float(min_instances_per_node), float(min_info_gain),
+        hf.ctypes.data, ht.ctypes.data, hl.ctypes.data, hv.ctypes.data,
+        F.ctypes.data,
+    )
+    return hf, ht, hl.astype(bool), hv
 
 
 #: fitted-heap arrays -> lib-ready contiguous arrays.  Per-batch

@@ -33,9 +33,14 @@ own library build, else the vectorized all-trees numpy walk.
 the float32 batch, then every tree walks at once as one [T, n] gather
 frontier over nodes packed into one int32 each (``_forest_stats_torch``),
 and the trees add in tree order (``seq_sum``) before the numpy route's
-head arithmetic.  Not ported yet, and raising ``NotImplementedError``
-with their ROADMAP.md queue 1 item: the host C++ learner
-(``backend="native"``, item 1) and the fused-training plan (item 9).
+head arithmetic.
+
+``backend="native"`` trains on the host C++ histogram learner of
+``native/txtrees.cpp`` (``native_trees.fit_forest``, ``fit_gbt``) over
+host bins, as the JAX package's native backend does, one fold at a time;
+its models score like any other (K2 on the device).  Not ported yet, and
+raising ``NotImplementedError`` with its ROADMAP.md queue 1 item: the
+fused-training plan (item 9).
 """
 from __future__ import annotations
 
@@ -72,15 +77,22 @@ def _not_ported(what: str, item) -> NotImplementedError:
     )
 
 
-def _check_backend(requested: str) -> None:
-    """``"auto"`` (the estimator's device) is the one backend here."""
+def _check_backend(requested: str) -> str:
+    """``"auto"`` trains on the estimator's device, ``"native"`` on the
+    host C++ learner, which must be built (no quiet fall back to the
+    device learner)."""
     if requested == "native":
-        raise _not_ported("the host C++ tree learner (backend='native')", 1)
+        if not native_trees.available():
+            raise RuntimeError(
+                "backend='native' needs the host C++ tree learner, but the "
+                "native library (utils/native.py) is not available")
+        return requested
     if requested != "auto":
         raise ValueError(
-            f"unknown tree backend {requested!r}: the torch package runs "
-            "trees on the estimator's device (backend='auto')"
+            f"unknown tree backend {requested!r}: 'auto' (the estimator's "
+            "device) or 'native' (the host C++ learner)"
         )
+    return requested
 
 
 _EDGE_SAMPLE_CAP = 1 << 19  # rows used for the quantile sketch on huge inputs
@@ -349,7 +361,9 @@ class _RandomForest(_TreeEnsembleBase):
         bootstrap and subset masks once and fits as one grid x fold fan-out
         over its min instances and min info gains.  Returns, per grid
         point, one param dict per fold."""
-        _check_backend(str(self.params.get("backend", "auto")))
+        if _check_backend(str(self.params.get("backend", "auto"))) == "native":
+            return [self.with_params(**pmap)._fit_native_folds(X, y, W)
+                    for pmap in grid]
         n, d = X.shape
         cands = [self.with_params(**pmap) for pmap in grid]
         n_stats = (len(np.unique(y)) + 1) if self.is_classification else 3
@@ -387,6 +401,45 @@ class _RandomForest(_TreeEnsembleBase):
                     for f in range(W_d.shape[0])
                 ]
         return results
+
+    def _fit_native_folds(self, X, y, W) -> list:
+        """The host C++ learner, one fold (weight row of W) at a time, on
+        the JAX package's inputs: host bins, the Poisson bootstrap and the
+        per-tree seeds from one ``RandomState``."""
+        n, d = X.shape
+        p = self.params
+        edges = _sampled_bin_edges(X, int(p["max_bins"]), int(p["seed"]))
+        bins = bin_data(np.asarray(X, np.float32), edges)
+        stats, C, imp, classes = self._stats_rows(y)
+        T = 1 if self.single_tree else int(p["num_trees"])
+        rng = np.random.RandomState(p["seed"])
+        if self.single_tree:
+            boot = np.ones((1, n), dtype=np.float32)
+            subset_p = 1.0
+        else:
+            boot = rng.poisson(
+                p["subsampling_rate"], size=(T, n)
+            ).astype(np.float32)
+            subset_p = _subset_fraction(
+                p["feature_subset_strategy"], d, self.is_classification
+            )
+        feat_masks = np.ones((T, d), dtype=bool)
+        seed_ints = rng.randint(0, 2**31 - 1, size=T)
+        depth = self._forest_key(n, d, C)[0]
+        out = []
+        for w in np.asarray(W, np.float32):
+            heaps = native_trees.fit_forest(
+                bins, stats, w, boot, feat_masks,
+                seed_ints.astype(np.uint64),
+                max_depth=depth, max_bins=int(p["max_bins"]),
+                impurity_kind=imp,
+                min_instances_per_node=float(p["min_instances_per_node"]),
+                min_info_gain=float(p["min_info_gain"]),
+                feature_subset_p=float(subset_p),
+            )
+            out.append({"edges": edges, "heaps": heaps, "classes": classes,
+                        "max_depth": depth})
+        return out
 
     def predict_arrays(self, params: Any, X: np.ndarray):
         bins = self._device_bins(X, params["edges"])
@@ -519,7 +572,8 @@ class _GBT(_TreeEnsembleBase):
         sizes, min instances and min info gains.  Returns, per grid point,
         one param dict per fold."""
         self._check_labels(y)
-        _check_backend(str(self.params.get("backend", "auto")))
+        if _check_backend(str(self.params.get("backend", "auto"))) == "native":
+            return self._fit_native_grid(X, y, W, grid)
         n, d = X.shape
         cands = [self.with_params(**pmap) for pmap in grid]
         groups: dict[tuple, list[int]] = {}
@@ -560,6 +614,49 @@ class _GBT(_TreeEnsembleBase):
                     }
                     for f in range(W_d.shape[0])
                 ]
+        return results
+
+    def _fit_native_grid(self, X, y, W, grid) -> list:
+        """The host C++ boosting learner (``tx_fit_gbt_hist``) for every
+        grid point and fold, over one host binning per (max_bins, seed):
+        the JAX package's ``_fit_native`` - the same initial margin, loss
+        and Newton leaf values as the device learner."""
+        W = np.asarray(W, np.float32)
+        y32 = np.asarray(y, np.float32)
+        n, d = X.shape
+        binned: dict[tuple, tuple] = {}
+        results = []
+        for pmap in grid:
+            p = self.with_params(**pmap).params
+            key = (int(p["max_bins"]), int(p["seed"]))
+            if key not in binned:
+                edges = _sampled_bin_edges(X, *key)
+                binned[key] = (edges, bin_data(np.asarray(X, np.float32),
+                                               edges))
+            edges, bins = binned[key]
+            depth = self.with_params(**pmap)._gbt_depth(n, d)
+            folds = []
+            for w in W:
+                wsum = max(float(w.sum()), 1e-12)
+                if self.is_classification:
+                    pbar = float(np.clip((w * y32).sum() / wsum, 1e-6,
+                                         1 - 1e-6))
+                    f0 = float(np.log(pbar / (1.0 - pbar)))
+                else:
+                    f0 = float((w * y32).sum() / wsum)
+                heaps = native_trees.fit_gbt(
+                    bins, y32, w,
+                    num_trees=int(p["num_trees"]), max_depth=depth,
+                    max_bins=int(p["max_bins"]),
+                    is_classification=self.is_classification,
+                    step_size=float(p["step_size"]), f0=f0,
+                    min_instances_per_node=float(p["min_instances_per_node"]),
+                    min_info_gain=float(p["min_info_gain"]),
+                )
+                folds.append({"edges": edges, "heaps": heaps, "f0": f0,
+                              "max_depth": depth,
+                              "step_size": float(p["step_size"])})
+            results.append(folds)
         return results
 
     def _head(self, F: np.ndarray):

@@ -22,16 +22,26 @@ The approx mode runs where the validator's device is CUDA and n >= 100 000
 (the JAX package's rule is its TPU backend and the same n);
 ``TX_CV_RANK_METRICS=approx|exact`` overrides either way.
 
+``checkpoint_path`` checkpoints the CV state: each completed (model, grid
+point) row of fold metrics is written to a JSON file (atomically) and
+restored instead of refitted on a restart, and ``<checkpoint>.heartbeat``
+is touched at the start and after every save, the liveness signal of
+``workflow/supervisor.py``.  The keys are the JAX package's
+(``"<model type>:<sorted params json>:<exact|approx>"``, un-suffixed
+legacy keys read as exact), so each package restores the other's file.
+The fits are traced as the JAX package's ``cv.fit_batch``, ``cv.fit_folds``
+and ``cv.fit`` spans (``obs/trace.py``).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item when asked for: the CV checkpoint and its heartbeat
-(``checkpoint_path``, item 1), successive-halving ``autotune`` (item 12),
+queue 1 item when asked for: successive-halving ``autotune`` (item 12),
 the fused training programs (``train_fused``, item 9), ``validate_stream``
 (item 12).  The CV mesh and its guarded collectives are item 10: this
-package fits on one device.  The ``cv.*`` trace spans come with the obs
-modules (item 1).
+package fits on one device.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -42,6 +52,7 @@ import torch
 from ..evaluators.base import OpEvaluatorBase
 from ..evaluators.binary import masked_rank_metrics
 from ..models.base import PredictorEstimator
+from ..obs import trace as _obs_trace
 from ..types.columns import PredictionColumn
 from ..utils.device import resolve_device
 
@@ -55,6 +66,27 @@ def _not_ported(what: str, item) -> NotImplementedError:
         f"{what} is not ported to the torch package yet "
         f"(ROADMAP.md queue 1, item {item})"
     )
+
+
+def _params_hash(params: dict) -> str:
+    """Stable 12-hex identity of a hyperparameter map (the JAX package's
+    ``autotune.cost_model.params_hash``: sha256 of the sorted JSON)."""
+    blob = json.dumps(params, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def _numeric_params(pmap: dict) -> dict:
+    """The numeric hyperparameters of one grid point, as span attrs."""
+    return {
+        k: float(v) for k, v in pmap.items()
+        if isinstance(v, (int, float)) and not isinstance(v, bool)
+    }
+
+
+def _ckpt_key(est, pmap: dict, mode: str) -> str:
+    """A checkpoint row's key; the metric mode is part of it, so rows of
+    the approximate device metrics never mix with exact host ones."""
+    return f"{est.model_type}:{json.dumps(pmap, sort_keys=True)}:{mode}"
 
 
 def _margins_kernel(X: torch.Tensor, betas: torch.Tensor, b0s: torch.Tensor):
@@ -145,17 +177,52 @@ class OpValidator:
         autotune=None,
         device: str = "cuda",
     ) -> None:
-        if checkpoint_path is not None:
-            raise _not_ported("the CV checkpoint (checkpoint_path)", 1)
         if autotune is not None:
             raise _not_ported("successive-halving autotune", 12)
         self.evaluator = evaluator
         self.seed = seed
         self.stratify = stratify
+        self.checkpoint_path = checkpoint_path
         self.device = str(device)
         #: the fused training programs: None or False take the
         #: kernel-at-a-time path, True raises (not ported)
         self.train_fused: Optional[bool] = None
+
+    # -- CV checkpoint ------------------------------------------------------
+    def _ckpt_load(self) -> dict:
+        if not self.checkpoint_path or not os.path.exists(self.checkpoint_path):
+            return {}
+        try:
+            with open(self.checkpoint_path) as f:
+                done = json.load(f)
+        except (OSError, ValueError):
+            return {}
+        # un-suffixed keys come from the exact host metrics of older files:
+        # a restart after an upgrade must not refit every candidate
+        return {
+            (k if k.endswith((":exact", ":approx")) else k + ":exact"): v
+            for k, v in done.items()
+        }
+
+    def _ckpt_save(self, done: dict) -> None:
+        if not self.checkpoint_path:
+            return
+        tmp = self.checkpoint_path + ".tmp"
+        os.makedirs(os.path.dirname(self.checkpoint_path) or ".", exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(done, f)
+        os.replace(tmp, self.checkpoint_path)
+        self._beat()
+
+    def _beat(self) -> None:
+        """Progress heartbeat for the supervisor (workflow/supervisor.py):
+        liveness is CV progress, so a wedged launch or a killed host stops
+        the beat."""
+        if not self.checkpoint_path:
+            return
+        from ..workflow.supervisor import beat
+
+        beat(self.checkpoint_path + ".heartbeat")
 
     def train_masks(self, y: np.ndarray) -> np.ndarray:
         raise NotImplementedError
@@ -226,6 +293,9 @@ class OpValidator:
                 _ybin.append(_binary_labels(y))
             return _ybin[0]
 
+        ckpt = self._ckpt_load()
+        self._beat()  # validation started: open the liveness window
+        n_features = int(Xh.shape[1])
         all_results = []
         best = None  # (metric, estimator, params)
         for est, grid in models:
@@ -238,7 +308,13 @@ class OpValidator:
             mode = ("approx" if approx_rank and batched
                     and metric_name in ("AuROC", "AuPR") else "exact")
             metrics = np.zeros((g, k))
-            if batched:
+            done_mask = [_ckpt_key(est, pmap, mode) in ckpt for pmap in grid]
+            for j, pmap in enumerate(grid):
+                if done_mask[j]:
+                    metrics[j] = ckpt[_ckpt_key(est, pmap, mode)]
+            if all(done_mask):
+                pass  # every row restored from the checkpoint
+            elif batched:
                 # ONE batched fit for the whole fold x grid batch: the
                 # [B, n] per-candidate weights are tiled on the device
                 # from the [k, n] fold masks, fold-major like the regs
@@ -253,7 +329,15 @@ class OpValidator:
                     wj = torch.as_tensor(w, device=dev).to(torch.float32)
                     Wj = (trainj * wj[None, :]).repeat_interleave(g, dim=0)
                 y_fit = torch.as_tensor(np.asarray(y), device=dev).to(torch.float32)
-                betas, b0s = est.fit_arrays_batched(Xj, y_fit, Wj, regs, ens)
+                # one span for the one-launch-sequence batch: per-candidate
+                # walls do not exist here
+                with _obs_trace.span(
+                    "cv.fit_batch", family=est.model_type,
+                    candidates=int(k * g), folds=int(k), n_rows=int(n),
+                    n_features=n_features,
+                ):
+                    betas, b0s = est.fit_arrays_batched(Xj, y_fit, Wj,
+                                                        regs, ens)
                 if mode == "approx":
                     # rank metrics on the device against the resident X: no
                     # per-fold validation slice leaves the card
@@ -281,29 +365,59 @@ class OpValidator:
                 # binning when the estimator batches whole grids, else one
                 # fold fan-out per grid point
                 W = masks.astype(np.float64) * w[None, :]
-                grid_fold_params = (
-                    est.fit_arrays_folds_grid(Xh, y, W, grid)
-                    if hasattr(est, "fit_arrays_folds_grid") else None
-                )
-                for j, pmap in enumerate(grid):
+                todo = [j for j in range(g) if not done_mask[j]]
+                grid_fold_params = None
+                if hasattr(est, "fit_arrays_folds_grid"):
+                    with _obs_trace.span(
+                        "cv.fit_batch", family=est.model_type,
+                        candidates=int(len(todo) * k), folds=int(k),
+                        n_rows=int(n), n_features=n_features,
+                    ):
+                        grid_fold_params = est.fit_arrays_folds_grid(
+                            Xh, y, W, [grid[j] for j in todo])
+                for pos, j in enumerate(todo):
+                    pmap = grid[j]
                     cand = est.with_params(**pmap)
-                    fold_params = (grid_fold_params[j]
-                                   if grid_fold_params is not None
-                                   else cand.fit_arrays_folds(Xh, y, W))
+                    if grid_fold_params is not None:
+                        fold_params = grid_fold_params[pos]
+                    else:
+                        with _obs_trace.span(
+                            "cv.fit_folds", family=est.model_type,
+                            params_hash=_params_hash(pmap), folds=int(k),
+                            n_rows=int(n), n_features=n_features,
+                            **_numeric_params(pmap),
+                        ):
+                            fold_params = cand.fit_arrays_folds(Xh, y, W)
                     for f in range(k):
                         val = ~masks[f]
                         pred, raw, prob = cand.predict_arrays(
                             fold_params[f], Xh[val]
                         )
                         metrics[j, f] = self._metric_of(y[val], pred, raw, prob)
+                    ckpt[_ckpt_key(est, pmap, mode)] = metrics[j].tolist()
+                    self._ckpt_save(ckpt)
             else:
                 for j, pmap in enumerate(grid):
+                    if done_mask[j]:
+                        continue
                     cand = est.with_params(**pmap)
                     for f in range(k):
                         tr, val = masks[f], ~masks[f]
-                        params = cand.fit_arrays(Xh[tr], y[tr], w[tr])
+                        with _obs_trace.span(
+                            "cv.fit", family=est.model_type,
+                            params_hash=_params_hash(pmap), fold=int(f),
+                            n_rows=int(tr.sum()), n_features=n_features,
+                            **_numeric_params(pmap),
+                        ):
+                            params = cand.fit_arrays(Xh[tr], y[tr], w[tr])
                         pred, raw, prob = cand.predict_arrays(params, Xh[val])
                         metrics[j, f] = self._metric_of(y[val], pred, raw, prob)
+                    ckpt[_ckpt_key(est, pmap, mode)] = metrics[j].tolist()
+                    self._ckpt_save(ckpt)
+            if not all(done_mask):
+                for j, pmap in enumerate(grid):
+                    ckpt[_ckpt_key(est, pmap, mode)] = metrics[j].tolist()
+                self._ckpt_save(ckpt)
             mean_metrics = metrics.mean(axis=1)
             for j, pmap in enumerate(grid):
                 all_results.append(

@@ -575,6 +575,32 @@ def read_schema_contract(path: str):
         ) from e
 
 
+def apply_saved_blacklist(doc: dict, workflow) -> None:
+    """Re-derive the saved RawFeatureFilter blacklist on the freshly built
+    ``workflow`` (its DAG surgery, ``OpWorkflow._apply_blacklist``), so
+    its stages pair with the saved ones (reference: the loader reapplies
+    setBlacklist)."""
+    bl_names = set(doc.get("blacklisted_raw", ()))
+    already = {f.name for f in workflow.blacklisted_features if f.is_raw()}
+    if bl_names == already:
+        return
+    if already:
+        raise ValueError(
+            "target workflow already carries a different blacklist "
+            f"({sorted(already)}) than the saved model ({sorted(bl_names)}); "
+            "load needs a freshly built workflow"
+        )
+    by_name = {f.name: f for f in workflow.raw_features}
+    missing = bl_names - set(by_name)
+    if missing:
+        raise ValueError(
+            f"saved model blacklists raw features {sorted(missing)} "
+            "absent from the target workflow"
+        )
+    workflow.blacklisted_features = [by_name[n] for n in sorted(bl_names)]
+    workflow._apply_blacklist()
+
+
 def load_model(path: str, workflow):
     """Restore into the code-defined workflow (reference contract:
     OpWorkflow.loadModel), scoring on ``workflow.device``."""
@@ -587,15 +613,7 @@ def load_model(path: str, workflow):
 
     path, doc, arrays = read_artifact(path)
 
-    # the saved blacklist re-derives the RawFeatureFilter's DAG surgery
-    # at load in the JAX package; that filter is not ported yet
-    bl_names = sorted(doc.get("blacklisted_raw", ()))
-    if bl_names:
-        raise NotImplementedError(
-            f"the saved model blacklists raw features {bl_names}: the "
-            "RawFeatureFilter's blacklist surgery is not ported to the "
-            "torch package yet (ROADMAP.md queue 1, item 8)"
-        )
+    apply_saved_blacklist(doc, workflow)
 
     dag = compute_dag(workflow.result_features)
     dag_stages = flatten(dag)
@@ -659,6 +677,7 @@ def load_model(path: str, workflow):
         stages=fitted,
         parameters=_decode(doc["parameters"], arrays, device),
         train_time_s=doc.get("train_time_s", 0.0),
+        blacklisted_features=workflow.blacklisted_features,
         device=device,
     )
     # schema contract (optional: pre-contract artifacts have none) - the

@@ -14,6 +14,7 @@ defaults to ``"cuda"`` and is handed to every estimator the workflow fits.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
@@ -73,11 +74,14 @@ def fit_and_transform_dag(
     holdout: Optional[Dataset] = None,
     device: Optional[str] = None,
     cv_during: Optional[dict[str, list[PipelineStage]]] = None,
+    metrics=None,
 ) -> tuple[list[PipelineStage], Dataset, Optional[Dataset]]:
     """Fold layers fit->transform (reference: FitStagesUtil.
     fitAndTransformDAG:213-240, fitAndTransformLayer:254-293).  Every
     estimator with a ``device`` attribute is fitted on ``device`` when one
-    is given.
+    is given.  ``metrics`` (``utils.tracing.AppMetrics``) records each
+    stage's workflow-CV, fit and transform walls, as the reference's
+    OpSparkListener does.
 
     ``cv_during`` ({selector_uid: [during stages..., selector]}, from
     dag.cut_dag_during) enables workflow-level CV inline: when a selector
@@ -85,6 +89,11 @@ def fit_and_transform_dag(
     dataset, refitting the during stages per fold from scratch; the winner
     is then refit on the full data by the selector's own fit.  A selector
     (``has_test_eval``) evaluates its fitted model on the holdout."""
+    def timed(stage, phase: str, n: int):
+        if metrics is None:
+            return contextlib.nullcontext()
+        return metrics.timed(stage, phase, n)
+
     fitted: list[PipelineStage] = []
     for layer in dag:
         layer_models: list[Transformer] = []
@@ -97,8 +106,11 @@ def fit_and_transform_dag(
                     and getattr(stage, "is_model_selector", False)
                     and len(cv_during.get(stage.uid, [])) > 1
                 ):
-                    stage.find_best_estimator(train, cv_during[stage.uid])
-                model = stage.fit(train)
+                    with timed(stage, "workflow_cv", len(train)):
+                        stage.find_best_estimator(train,
+                                                  cv_during[stage.uid])
+                with timed(stage, "fit", len(train)):
+                    model = stage.fit(train)
                 if (getattr(stage, "has_test_eval", False)
                         and holdout is not None and len(holdout)):
                     model.evaluate_model(holdout)
@@ -108,7 +120,8 @@ def fit_and_transform_dag(
             else:
                 raise TypeError(f"stage {stage.uid} is neither Transformer nor Estimator")
         for model in layer_models:
-            train = model.transform(train)
+            with timed(model, "transform", len(train)):
+                train = model.transform(train)
             if holdout is not None and len(holdout):
                 holdout = model.transform(holdout)
         fitted.extend(layer_models)
@@ -150,8 +163,12 @@ class OpWorkflow:
         self._input_data: Any = None
         self._reader = None
         self.parameters: dict[str, Any] = {}
+        self._raw_feature_filter = None
         self._workflow_cv = False
         self._warm_stages: dict[str, PipelineStage] = {}
+        self.blacklisted_features: list[Feature] = []
+        self.blacklisted_map_keys: dict[str, list[str]] = {}
+        self.rff_results: Optional[dict] = None
 
     def set_result_features(self, *features: Feature) -> "OpWorkflow":
         self.result_features = tuple(features)
@@ -181,7 +198,11 @@ class OpWorkflow:
         return self
 
     def with_raw_feature_filter(self, rff) -> "OpWorkflow":
-        raise _not_ported("RawFeatureFilter", 8)
+        """Run ``rff`` (``filters.raw_feature_filter.RawFeatureFilter``)
+        on the raw data before training (reference:
+        OpWorkflow.withRawFeatureFilter:523-563)."""
+        self._raw_feature_filter = rff
+        return self
 
     def with_workflow_cv(self) -> "OpWorkflow":
         """Leakage-free workflow-level cross-validation: label-aware
@@ -192,14 +213,71 @@ class OpWorkflow:
         return self
 
     def generate_raw_data(self) -> Dataset:
-        """Reader hand-off (reference: OpWorkflow.generateRawData:222-246);
-        the RawFeatureFilter comes with item 8."""
+        """Reader hand-off and the optional RawFeatureFilter (reference:
+        OpWorkflow.generateRawData:222-246): the filter's blacklist is
+        kept on the workflow and cut out of the DAG."""
         if self._reader is not None:
-            return self._reader.generate_dataset(self.raw_features,
+            data = self._reader.generate_dataset(self.raw_features,
                                                  self.parameters)
-        if self._input_data is not None:
-            return _as_dataset(self._input_data, self.raw_features)
-        raise ValueError("no input data: call set_input_dataset or set_reader")
+        elif self._input_data is not None:
+            data = _as_dataset(self._input_data, self.raw_features)
+        else:
+            raise ValueError(
+                "no input data: call set_input_dataset or set_reader")
+        if self._raw_feature_filter is not None:
+            filtered = self._raw_feature_filter.filter_raw_data(
+                data, self.raw_features, workflow=self
+            )
+            self.blacklisted_features = filtered.blacklisted_features
+            self.blacklisted_map_keys = filtered.blacklisted_map_keys
+            self.rff_results = filtered.results
+            data = filtered.clean_data
+            if self.blacklisted_features:
+                self._apply_blacklist()
+        return data
+
+    def _apply_blacklist(self) -> None:
+        """DAG surgery after the RawFeatureFilter (reference:
+        OpWorkflow.setBlacklist:112-154): blacklisted raw features leave
+        every stage's inputs; a stage left with no inputs, or with inputs
+        it cannot take, is cut and its output joins the blacklist, in
+        topological order, so downstream stages shed it too.  Cutting a
+        response or a result feature is an error."""
+        bl = {f.uid for f in self.blacklisted_features}
+        bad_resp = [f for f in self.blacklisted_features if f.is_response]
+        if bad_resp:
+            raise ValueError(f"cannot blacklist response features: {bad_resp}")
+        result_uids = {f.uid for f in self.result_features}
+        dag = compute_dag(self.result_features)
+        for stage in flatten(dag):
+            kept = tuple(f for f in stage.input_features if f.uid not in bl)
+            if len(kept) == len(stage.input_features):
+                continue
+            ok = bool(kept)
+            if ok:
+                try:
+                    stage.check_input_types(kept)
+                except TypeError:
+                    ok = False  # a reduced arity the stage cannot take
+            out = stage.get_output()
+            if ok:
+                stage.input_features = kept
+            elif out.uid in result_uids:
+                raise ValueError(
+                    "RawFeatureFilter blacklisted features critical to "
+                    f"result feature {out.name!r} (via stage {stage.uid})"
+                )
+            else:
+                bl.add(out.uid)  # cascade: the stage's output dies too
+        merged = {f.uid: f for f in self.blacklisted_features}
+        for s in flatten(dag):
+            out = s.get_output()
+            if out.uid in bl:
+                merged.setdefault(out.uid, out)
+        self.blacklisted_features = list(merged.values())
+        self.raw_features = tuple(
+            f for f in self.raw_features if f.uid not in bl
+        )
 
     def with_model_stages(self, model: "OpWorkflowModel") -> "OpWorkflow":
         """Warm start: fitted stages of ``model`` replace their unfitted
@@ -256,6 +334,9 @@ class OpWorkflow:
             return self._train_traced(train_span)
 
     def _train_traced(self, train_span) -> "OpWorkflowModel":
+        from ..utils.tracing import AppMetrics
+
+        app_metrics = AppMetrics()
         t0 = time.perf_counter()
         with _obs_trace.span("workflow.ingest"):
             raw = self.generate_raw_data()
@@ -308,8 +389,10 @@ class OpWorkflow:
             cv_during = cut_dag_during(dag, selectors)
         fitted, train_out, holdout_out = fit_and_transform_dag(
             dag, train_data, holdout, device=self.device, cv_during=cv_during,
+            metrics=app_metrics,
         )
-        # capture the schema contract from the raw data: the serve tier
+        # capture the schema contract from the raw data after the
+        # RawFeatureFilter (its blacklist is out of raw_features): the serve tier
         # enforces this exact shape (names, dtypes, nullability,
         # per-feature distributions) against every batch.  Opt out with
         # set_parameters(schema_contract=False); a capture failure never
@@ -329,11 +412,14 @@ class OpWorkflow:
             stages=fitted,
             parameters=dict(self.parameters),
             train_time_s=time.perf_counter() - t0,
+            blacklisted_features=list(self.blacklisted_features),
+            rff_results=self.rff_results,
             schema_contract=contract,
             device=self.device,
         )
         model._train_data_cache = train_out
         model._holdout_data_cache = holdout_out
+        model.app_metrics = app_metrics
         return model
 
 
@@ -348,6 +434,8 @@ class OpWorkflowModel:
         stages: Sequence[PipelineStage],
         parameters: Optional[dict] = None,
         train_time_s: float = 0.0,
+        blacklisted_features: Sequence[Feature] = (),
+        rff_results: Optional[dict] = None,
         schema_contract=None,
         device: str = "cuda",
     ) -> None:
@@ -356,9 +444,12 @@ class OpWorkflowModel:
         self.stages = list(stages)
         self.parameters = dict(parameters or {})
         self.train_time_s = train_time_s
-        # the RawFeatureFilter's blacklist (ROADMAP.md queue 1, item 8):
-        # empty until that filter is ported
-        self.blacklisted_features: list[Feature] = []
+        # the RawFeatureFilter's blacklist and results
+        self.blacklisted_features = list(blacklisted_features)
+        self.rff_results = rff_results
+        #: the per-stage walls of the train() that fitted this model
+        #: (utils/tracing.AppMetrics); None for a loaded model
+        self.app_metrics = None
         # fit-time data shape (schema/contract.py), persisted in the
         # artifact as schema.json and enforced by the local scorer
         self.schema_contract = schema_contract
@@ -436,7 +527,7 @@ class OpWorkflowModel:
         )
 
     def summary_json(self) -> dict:
-        return {
+        out = {
             "stages": [
                 {
                     "uid": s.uid,
@@ -448,6 +539,9 @@ class OpWorkflowModel:
             ],
             "trainTimeSeconds": self.train_time_s,
         }
+        if self.app_metrics is not None:
+            out["stageMetrics"] = self.app_metrics.to_json()
+        return out
 
     def compute_data_up_to(self, feature: Feature, data: Any = None,
                            path: Optional[str] = None) -> Dataset:
