@@ -90,7 +90,18 @@ two agree:
   MLP; ``score_function()`` of the MLP and GLM heads, torch-fused
   against numpy-fused within the JAX package's ULP budgets; LDA and
   word2vec over 20k descriptions; and at 100k rows against a CPU child
-  (``--families-cpu N``; ``--families-only`` runs the phase alone).
+  (``--families-cpu N``; ``--families-only`` runs the phase alone);
+* the ingestion layer (``[ingest]``; ``--ingest-only`` runs it alone):
+  the README's 1M-row CSV through ``DeviceCSVIngest`` (pinned copies on
+  a side stream, double-buffered against the C++ parse) onto the card,
+  bit-equal to its CPU route, its parse, copy and total walls and their
+  overlap beside ``CSVReader``'s read of the same file; the repo's scale
+  path: ``synthetic_design_matrix_device`` makes 10M x 39 float32 on the
+  card (only y crosses the bus), ``fused_moments`` sweeps it and
+  ``OpCrossValidation.validate`` runs the LR grid on the card-resident
+  matrix, counted, gated by ``planted_truth_report`` with the AuROC of a
+  held-out 1M slice; and the conditional-aggregation example trained and
+  scored on the card, its columns equal to the CPU's.
 
 Every phase asserts; any failure exits non-zero.
 
@@ -3094,6 +3105,267 @@ def families_phase(kernels, errs: list, bin_errs: list,
     return out
 
 
+# -- [ingest]: the ingestion layer on the card --------------------------------
+#: the README's CSV (``write_readme_csv``, 29.4 MB at 1M rows) through
+#: DeviceCSVIngest over its numeric columns, in 4 MB chunks: about eight
+#: blocks through the double buffer (the default 64 MB chunk would be one)
+INGEST_CSV_ROWS = 1_000_000
+INGEST_COLUMNS = ("survived", "age", "fare")
+INGEST_CHUNK_BYTES = 4 << 20
+INGEST_REPEATS = 3                 # the walls: median of three
+#: the repo's scale path (bench.py): the design matrix made on the card,
+#: K1 over it, the LR grid's 3-fold CV on it, bench.py's planted-truth
+#: refit at reg 1e-3 gated on a held-out 1M slice of another seed
+INGEST_TEXT_DIMS = SCALE_SHAPE[1] - 7
+INGEST_HOLDOUT_ROWS = 1_000_000
+INGEST_HOLDOUT_SEED = 43
+INGEST_GATE_REG = 1e-3
+
+
+def median_wall(fn, repeats: int = INGEST_REPEATS):
+    """(median host wall in s, the last result) of ``fn()`` run
+    ``repeats`` times, the card synchronised at both ends of each."""
+    walls, out = [], None
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), out
+
+
+def ingest_csv_walls(path: str, schema: dict) -> dict:
+    """The CSV half of [ingest]: the producer's work alone (parse and block
+    assembly), the consumer's alone (pinned copies and non_blocking sends
+    on a side stream of the same blocks), both through the pump, the CPU
+    route (bit-equal to the card's) and CSVReader's read of the same
+    file."""
+    from transmogrifai_tpu_torch.features.feature_builder import FeatureBuilder
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.readers.fast_csv import (
+        DeviceCSVIngest,
+        chunk_to_block,
+        iter_csv_chunks,
+    )
+    from transmogrifai_tpu_torch.types import feature_types as ft
+
+    cols = list(INGEST_COLUMNS)
+    dev = torch.device("cuda", 0)
+
+    def ingest(device):
+        return DeviceCSVIngest(path, cols, schema, device=device,
+                               chunk_bytes=INGEST_CHUNK_BYTES).to_device()
+
+    t0 = time.perf_counter()
+    ingest("cuda")            # the side stream and pinned pool's first use
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    def parse():
+        return [chunk_to_block(c, cols) for c in iter_csv_chunks(
+            path, schema, chunk_bytes=INGEST_CHUNK_BYTES, wanted=cols)]
+
+    read_s, blocks = median_wall(parse)
+    side = torch.cuda.Stream(device=dev)
+
+    def send():
+        out = []
+        for b, m in blocks:
+            hb = torch.from_numpy(b).pin_memory()
+            hm = torch.from_numpy(m).pin_memory()
+            with torch.cuda.stream(side):
+                out.append((hb.to(dev, non_blocking=True),
+                            hm.to(dev, non_blocking=True)))
+        side.synchronize()
+        return out
+
+    copy_s, _ = median_wall(send)
+    total_s, (X, M, rows) = median_wall(lambda: ingest("cuda"))
+    Xc, Mc, rows_c = ingest("cpu")
+    assert X.device.type == dev.type and X.dtype == torch.float32
+    assert rows == rows_c == INGEST_CSV_ROWS, (rows, rows_c)
+    assert tuple(X.shape) == (INGEST_CSV_ROWS, len(cols))
+    assert torch.equal(X.cpu(), Xc) and torch.equal(M.cpu(), Mc), \
+        "the card's ingest differs from the CPU route"
+    missing_age = int((~Mc[:, 1]).sum())
+    assert 0 < missing_age < INGEST_CSV_ROWS // 5, missing_age
+    feats = [FeatureBuilder(ft.RealNN, "survived").as_response(),
+             FeatureBuilder(ft.PickList, "sex").as_predictor(),
+             FeatureBuilder(ft.Real, "age").as_predictor(),
+             FeatureBuilder(ft.Real, "fare").as_predictor()]
+    t0 = time.perf_counter()
+    ds = CSVReader(path).generate_dataset(feats)
+    reader_s = time.perf_counter() - t0
+    assert np.array_equal(ds["age"].mask, Mc[:, 1].numpy())
+    return {"blocks": len(blocks), "first_s": first_s, "read_s": read_s,
+            "copy_s": copy_s, "total_s": total_s, "reader_s": reader_s,
+            "overlap": (read_s + copy_s - total_s) / copy_s,
+            "bytes": X.numel() * 4 + M.numel(), "missing_age": missing_age}
+
+
+def ingest_phase(kernels, errs: list, timings: dict) -> dict:
+    """``[ingest]``: DeviceCSVIngest on the README's 1M-row CSV, bit-equal
+    to its CPU route, with its walls and overlap; the repo's scale path -
+    ``synthetic_design_matrix_device`` at 10M x 39 on the card, K1 over it
+    (the SanityChecker's moment sweep) and ``OpCrossValidation.validate``
+    of the LR grid on the card-resident matrix, counted, gated by
+    ``planted_truth_report`` on a held-out 1M slice - and the
+    conditional-aggregation example trained and scored on the card, its
+    columns equal to the CPU's."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+    from transmogrifai_tpu_torch.examples import synthetic
+    from transmogrifai_tpu_torch.examples.conditional_aggregation import (
+        conditional_aggregation_workflow,
+    )
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.selector.factories import lr_grid
+    from transmogrifai_tpu_torch.selector.validator import OpCrossValidation
+    from transmogrifai_tpu_torch.types import feature_types as ft
+    from transmogrifai_tpu_torch.types.columns import PredictionColumn
+
+    tag = "ingest"
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    # (1) the CSV through the double-buffered pump
+    schema = {"survived": ft.RealNN, "age": ft.Real, "fare": ft.Real}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = synthetic.write_readme_csv(os.path.join(tmp, "passengers.csv"),
+                                          INGEST_CSV_ROWS)
+        mb = os.path.getsize(path) / 1e6
+        log(f"[{tag}] wrote the README's {INGEST_CSV_ROWS}-row CSV ({mb:.1f} "
+            f"MB) in {time.perf_counter() - t0:.3f} s")
+        csv = ingest_csv_walls(path, schema)
+    log(f"[{tag}] DeviceCSVIngest {list(INGEST_COLUMNS)} of {mb:.1f} MB in "
+        f"{INGEST_CHUNK_BYTES >> 20} MB chunks ({csv['blocks']} blocks, "
+        f"{csv['bytes'] / 1e6:.1f} MB to the card), median of "
+        f"{INGEST_REPEATS}: parse alone {csv['read_s']:.4f} s, copy alone "
+        f"{csv['copy_s']:.4f} s, both through the pump {csv['total_s']:.4f} "
+        f"s (first call {csv['first_s']:.4f} s); overlap (parse + copy - "
+        f"total) / copy {csv['overlap']:.3f}; X, mask and rows bit-equal "
+        f"to device='cpu' ({csv['missing_age']} missing ages); CSVReader's "
+        f"read of the same file {csv['reader_s']:.4f} s")
+
+    # (2) the scale path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    X, y, meta = synthetic.synthetic_design_matrix_device(
+        SCALE_SHAPE[0], text_dims=INGEST_TEXT_DIMS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    yd = torch.from_numpy(y.astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    moments = kernels.fused_moments(X, yd)
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - t0
+    cv = OpCrossValidation(num_folds=3, stratify=True,
+                           evaluator=OpBinaryClassificationEvaluator())
+    grid = lr_grid()
+    t0 = time.perf_counter()
+    res = cv.validate([(OpLogisticRegression(), grid)], X, y)
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    launches = {k: getattr(kernels, k).launches
+                for k in ("fused_moments", "bin_matrix")}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert tuple(X.shape) == SCALE_SHAPE and X.device.type == dev.type, \
+        (X.shape, X.device)
+    assert launches == {"fused_moments": 1, "bin_matrix": 0}, launches
+    assert len(res.all_results) == len(grid)
+    assert {r["rank_metric_mode"] for r in res.all_results} == {"approx"}
+    # the moments describe the planted columns: one gender a row, the
+    # imputation indicator on ~10% of rows
+    x_sum = moments[0].double().cpu().numpy() / SCALE_SHAPE[0]
+    assert abs(x_sum[4:7].sum() - 1.0) < 1e-3, x_sum[4:7]
+    assert abs(x_sum[1] - 0.1) < 0.01, x_sum[1]
+    log(f"[{tag}] synthetic_design_matrix_device {SCALE_SHAPE} "
+        f"({X.numel() * 4 / 1e9:.2f} GB on the card, y alone to the host) in "
+        f"{gen_s:.3f} s; K1 over it {1e3 * k1_s:.2f} ms (host wall, first "
+        f"call); OpCrossValidation.validate of the LR grid ({len(grid)} "
+        f"points x 3 folds, approx rank metrics) on the card-resident X in "
+        f"{cv_s:.3f} s, best {res.best_params} CV AuROC "
+        f"{res.best_metric:.6f}; launches {launches}; peak device memory "
+        f"{peak_gb:.2f} GB")
+
+    gate = OpLogisticRegression(reg_param=INGEST_GATE_REG, max_iter=25)
+    t0 = time.perf_counter()
+    params = gate.fit_arrays(X, y)
+    fit_s = time.perf_counter() - t0
+    err = check_moments(kernels, X, yd)
+    errs.append(err)
+    key = ("fused_moments", tuple(SCALE_SHAPE))
+    timing = timings.get(key) or time_moments(kernels, X, yd)
+    shapes = {key: {**timing, "path_calls": launches["fused_moments"],
+                    "max_abs_err": err["max_abs_err"]}}
+    del X, yd, moments
+    Xh, yh, _ = synthetic.synthetic_design_matrix_device(
+        INGEST_HOLDOUT_ROWS, seed=INGEST_HOLDOUT_SEED,
+        text_dims=INGEST_TEXT_DIMS)
+    pred, raw, prob = gate.predict_arrays(params, Xh)
+    auroc = float(OpBinaryClassificationEvaluator().evaluate_arrays(
+        yh, PredictionColumn(pred, raw, prob)).AuROC)
+    del Xh
+    torch.cuda.empty_cache()
+    report = synthetic.planted_truth_report(params["beta"], meta, auroc)
+    log(f"[{tag}] planted truth: LR(reg {INGEST_GATE_REG}) refit on the "
+        f"card in {fit_s:.3f} s, AuROC {auroc:.6f} on {INGEST_HOLDOUT_ROWS} "
+        f"held-out rows (seed {INGEST_HOLDOUT_SEED}); {json.dumps(report)}")
+    assert report["ok"], report
+    log_path_shapes("the [ingest] scale path's", shapes)
+
+    # (3) the conditional-aggregation example, card against CPU
+    scored = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        wf, feats = conditional_aggregation_workflow(device)
+        cols = wf.train().score().columns()
+        scored[device] = {f.name: cols[f.name].to_list() for f in feats}
+    ex_s = time.perf_counter() - t0
+    assert scored["cuda"] == scored["cpu"], scored
+    assert scored["cuda"]["numVisitsWeekPrior"] == [3.0, None, 1.0]
+    assert scored["cuda"]["numPurchasesNextDay"] == [1.0, 1.0, None]
+    log(f"[{tag}] conditional_aggregation: trained and scored on the card "
+        f"and the CPU in {ex_s:.3f} s, columns equal: {scored['cuda']}")
+    wall = time.perf_counter() - t_phase
+    log(f"[{tag}] phase wall {wall:.1f} s")
+    return {"launches": launches, "shapes": shapes, "wall_s": wall,
+            "csv": csv, "gen_s": gen_s, "cv_s": cv_s, "peak_gb": peak_gb,
+            "report": report}
+
+
+def ingest_only_main() -> int:
+    """``--ingest-only``: the kernels' build and the [ingest] phase alone."""
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.set_float32_matmul_precision("highest")
+    log("[header] card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip())
+    kernels.build()
+    ing = ingest_phase(kernels, [], {})
+    print(json.dumps({"launches": ing["launches"], "wall_s": ing["wall_s"],
+                      "csv": ing["csv"], "gen_s": ing["gen_s"],
+                      "cv_s": ing["cv_s"], "peak_gb": ing["peak_gb"],
+                      "shapes": [[k, list(shape), t["ms"], t["bound_ms"],
+                                  t["plain_ms"]]
+                                 for (k, shape), t in ing["shapes"].items()]}))
+    return 0
+
+
 def families_by_path(fam: dict, k: str) -> dict:
     """A kernel's launches on the [families] phase's paths."""
     ln = fam["launches"]
@@ -3210,6 +3482,8 @@ def main() -> int:
         return vectors_only_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--families-only":
         return families_only_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--ingest-only":
+        return ingest_only_main()
     if len(sys.argv) == 3 and sys.argv[1] == "--families-cpu":
         return families_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
@@ -3667,6 +3941,10 @@ def card_main(cpu_child: subprocess.Popen,
     families = families_phase(kernels, errs, bin_errs, families_cpu_child,
                               timings)
 
+    # -- 10c. the ingestion layer (K1 at the scale shape timed in section 2) --
+    timings[("fused_moments", SCALE_SHAPE)] = at_scale
+    ingest = ingest_phase(kernels, errs, timings)
+
     # -- 11. result lines ---------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
@@ -3684,6 +3962,7 @@ def card_main(cpu_child: subprocess.Popen,
                 **{f"{p}_{phase}": v["run"]["launches"][phase][k]
                    for p, v in vectors.items() for phase in ("train", "score")},
                 **families_by_path(families, k),
+                "ingest_scale": ingest["launches"][k],
                 **serve_by_path(serve, k)}
 
     def sel_launches(k):
@@ -3734,6 +4013,8 @@ def card_main(cpu_child: subprocess.Popen,
            for p, v in vectors.items()},
         "families_path_shapes": sel_shape_rows("fused_moments",
                                                families["shapes"]),
+        "ingest_path_shapes": sel_shape_rows("fused_moments",
+                                             ingest["shapes"]),
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {

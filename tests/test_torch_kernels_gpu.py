@@ -696,3 +696,53 @@ def test_loco_zero_out_passes_launch_k2_equal_to_plain(cuda):
     for x, e, dtype in kept:
         assert torch.equal(tk.bin_matrix(x, e, dtype),
                            tk.bin_matrix_plain(x, e, dtype))
+
+
+@pytest.mark.parametrize("chunk_bytes", [4096, 1 << 20])
+def test_device_csv_ingest_on_the_card_equals_the_cpu_route(cuda, tmp_path,
+                                                            chunk_bytes):
+    """``DeviceCSVIngest`` through pinned copies on a side stream: X, mask
+    and rows on the card bit-equal to the ``device="cpu"`` route, over
+    many small chunks and one large one; a header-only file gives
+    zero-row tensors on the card."""
+    from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+    from transmogrifai_tpu_torch.readers.fast_csv import DeviceCSVIngest
+    from transmogrifai_tpu_torch.types import feature_types as ft
+
+    path = write_readme_csv(str(tmp_path / "p.csv"), 20_000)
+    cols = ["survived", "age", "fare"]
+    schema = {"survived": ft.RealNN, "age": ft.Real, "fare": ft.Real}
+    got = DeviceCSVIngest(path, cols, schema, chunk_bytes=chunk_bytes,
+                          device="cuda").to_device()
+    want = DeviceCSVIngest(path, cols, schema, chunk_bytes=chunk_bytes,
+                           device="cpu").to_device()
+    assert got[0].device.type == got[1].device.type == "cuda"
+    assert got[2] == want[2] == 20_000
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert not bool(want[1][:, 1].all())          # ages are missing
+    header = tmp_path / "h.csv"
+    header.write_text("survived,age,fare\n")
+    X, M, rows = DeviceCSVIngest(str(header), cols, schema).to_device()
+    assert X.device.type == "cuda" and X.shape == (0, 3) and rows == 0
+
+
+def test_device_design_matrix_is_made_on_the_card(cuda):
+    """``synthetic_design_matrix_device`` on the card: X [n, 7 + text_dims]
+    float32 there, y float64 on the host, the host generator's metadata,
+    one gender a row, Poisson counts, seeded."""
+    from transmogrifai_tpu_torch.examples import synthetic
+
+    X, y, meta = synthetic.synthetic_design_matrix_device(100_000,
+                                                          text_dims=8)
+    assert X.device.type == "cuda" and X.dtype == torch.float32
+    assert tuple(X.shape) == (100_000, 15)
+    assert isinstance(y, np.ndarray) and y.dtype == np.float64
+    host_meta = synthetic.synthetic_design_matrix(10, text_dims=8)[2]
+    assert [c.column_name() for c in meta.columns] \
+        == [c.column_name() for c in host_meta.columns]
+    assert bool((X[:, 4:7].sum(dim=1) == 1).all())
+    assert bool((X[:, 7:] == X[:, 7:].round()).all())
+    assert abs(float(X[:, 7:].mean()) - 0.15) < 0.01
+    X2, y2, _ = synthetic.synthetic_design_matrix_device(100_000, text_dims=8)
+    assert torch.equal(X, X2) and np.array_equal(y, y2)

@@ -247,3 +247,32 @@ def test_rows_with_the_same_leaves_score_the_same_bits():
     np.testing.assert_array_equal(prob, tk_mod.predict_forest_np(
         bins, params["heaps"], params["max_depth"]))
     assert np.unique(port.predict_arrays_np(params, X)[2][:, 1]).size == 1
+
+
+@pytest.mark.parametrize("classification", [True, False])
+@pytest.mark.parametrize("num_trees", [3, 20, 50])
+def test_score_route_and_served_head_agree_bit_for_bit(num_trees,
+                                                       classification):
+    """``predict_arrays`` (``score()`` and the validator's predictions, on
+    ``tree_kernel.predict_forest``) and ``predict_arrays_torch`` (the
+    served head) scale the tree-order sum by the same float32 1/T, so they
+    give the same bits at tree counts whose 1/T is not exact in float32.
+    Before, ``predict_forest`` divided by T and the two routes were one
+    float32 ULP apart on a fifth to a quarter of the values."""
+    X, y = _data(classification, seed=5)
+    name = ("OpRandomForestClassifier" if classification
+            else "OpRandomForestRegressor")
+    est = getattr(mod(PORT, "models.trees"), name)(
+        device="cpu", num_trees=num_trees, max_depth=6)
+    params = est.fit_arrays(X, y)
+    want = est.predict_arrays(params, X)
+    got = est.predict_arrays_torch(
+        est.torch_params(params, torch.device("cpu")),
+        torch.from_numpy(np.asarray(X, np.float32)))
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        assert g.dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g, w)

@@ -184,11 +184,13 @@ def test_compute_data_up_to_matches_reference():
     np.testing.assert_array_equal(x_port, x_ref)
 
 
-def test_model_compute_data_up_to_matches_reference():
+def test_model_compute_data_up_to_matches_reference(tmp_path):
     """OpWorkflowModel.compute_data_up_to(feature, data=) applies the
     fitted upstream stages to new data: bit-equal to the reference's and
-    to the checked column that score() computes on the same rows."""
-    out = []
+    to the checked column that score() computes on the same rows.  With
+    ``path=`` both the workflow's and the model's datasets are saved as
+    Avro, and each package's file reads back equal in either package."""
+    out, avro = [], {}
     for pkg in (REF, PORT):
         wf, checked, pred = _upto(pkg)
         model = wf.train()
@@ -204,11 +206,27 @@ def test_model_compute_data_up_to_matches_reference():
         if pkg == PORT:
             with pytest.raises(ValueError, match="needs data="):
                 model.compute_data_up_to(checked)
-            with pytest.raises(NotImplementedError, match="item 12"):
-                model.compute_data_up_to(checked, data=new, path="out.avro")
-            with pytest.raises(NotImplementedError, match="item 12"):
-                wf.compute_data_up_to(checked, path="out.avro")
+        for side, run in (
+                ("model", lambda p: model.compute_data_up_to(
+                    checked, data=new, path=p)),
+                ("workflow", lambda p: wf.compute_data_up_to(checked,
+                                                             path=p))):
+            path = str(tmp_path / f"{pkg}-{side}.avro")
+            avro[pkg, side] = (path, run(path).to_pylists())
     np.testing.assert_array_equal(out[1], out[0])
+    for side in ("model", "workflow"):
+        records = {}
+        for writer in (REF, PORT):
+            path, written = avro[writer, side]
+            for reader in (REF, PORT):
+                schema, recs = mod(reader, "readers.avro_reader") \
+                    .read_avro_records(path)
+                records[writer, reader] = recs
+                assert [f.get("doc", f["name"]) for f in schema["fields"]] \
+                    == list(written)
+                assert len(recs) == len(next(iter(written.values())))
+        first = records[REF, REF]
+        assert all(r == first for r in records.values()), side
 
 
 def test_with_model_stages_warm_start_matches_reference():
@@ -294,3 +312,57 @@ def test_summary_pretty_raises_with_its_item():
             assert corr_port[name] == pytest.approx(want, rel=3e-5), name
     scorer = model.score_function()
     assert scorer.fused_backend == "numpy" and scorer.fused_reason is None
+
+
+
+def _csv_slice_workflow(pkg: str, reader):
+    """The README CSV's columns (survived, sex, age, fare) through
+    transmogrify -> SanityChecker -> OpLogisticRegression, read by
+    ``reader``, with ``streaming_ingest=True``; returns (workflow,
+    prediction)."""
+    reset_uids(pkg)
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    ft = mod(pkg, "types.feature_types")
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    survived = fb(ft.RealNN, "survived").as_response()
+    preds = [fb(ft.PickList, "sex").as_predictor(),
+             fb(ft.Real, "age").as_predictor(),
+             fb(ft.Real, "fare").as_predictor()]
+    vec = mod(pkg, "ops.transmogrifier").transmogrify(preds)
+    checked = mod(pkg, "preparators.sanity_checker").SanityChecker(
+        **kw).set_input(survived, vec).get_output()
+    pred = mod(pkg, "models.logistic_regression").OpLogisticRegression(
+        **kw).set_input(survived, checked).get_output()
+    wf = (mod(pkg, "workflow.workflow").OpWorkflow(**kw)
+          .set_result_features(pred).set_reader(reader)
+          .set_parameters(streaming_ingest=True))
+    assert wf.parameters["streaming_ingest"] is True
+    return wf, pred
+
+
+def test_streaming_ingest_flag_trains_from_a_csv_reader(tmp_path):
+    """``set_parameters(streaming_ingest=True)`` is stored, and a reader
+    without a chunk stream (``CSVReader``) trains on the batch path, as in
+    the reference (its ``_streaming_eligible``); the port used to raise
+    in ``set_parameters``.  The scores agree with the reference's within
+    1e-5.  A reader that has ``stream_dataset`` raises item 12 at
+    ``train()``, and ``streaming_ingest=False`` opts out of it."""
+    path = mod(PORT, "examples.synthetic").write_readme_csv(
+        str(tmp_path / "passengers.csv"), N)
+    probs = []
+    for pkg in (REF, PORT):
+        wf, pred = _csv_slice_workflow(
+            pkg, mod(pkg, "readers.csv_reader").CSVReader(path))
+        probs.append(probabilities(wf.train().score(), pred.name))
+    p_ref, p_port = probs
+    assert p_port.shape == p_ref.shape == (N, 2)
+    np.testing.assert_allclose(p_port, p_ref, rtol=0, atol=1e-5)
+
+    class StreamingCSVReader(mod(PORT, "readers.csv_reader").CSVReader):
+        def stream_dataset(self, *args, **kwargs):
+            raise AssertionError("not reached")
+
+    wf, _ = _csv_slice_workflow(PORT, StreamingCSVReader(path))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        wf.train()
+    assert not wf.set_parameters(streaming_ingest=False)._streaming_eligible()

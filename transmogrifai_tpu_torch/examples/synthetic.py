@@ -4,9 +4,10 @@ Counterpart of the reference's 10M-row generator (reference: test-data/
 DataGeneration.sc - perturbed Passenger-like records: age/height/weight
 numerics, gender categorical, free-text description, dates, boolean label).
 Vectorized numpy generation (no per-row python), an optional free-text
-column, and a direct-to-design-matrix path for device benchmarks.  The JAX
-package's on-device generator is not ported: its draws come from
-``jax.random`` and would not match these host draws anyway.
+column, and a direct-to-design-matrix path for device benchmarks, on the
+host (``synthetic_design_matrix``) or generated on the card
+(``synthetic_design_matrix_device``, torch's generator: the same
+distribution and metadata, not the same draws).
 
 Neither package has a multiclass or regression generator of its own:
 ``synthetic_passengers_labelled`` adds a planted three-class label and a
@@ -16,11 +17,13 @@ ceilings over the observed columns.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..types import feature_types as ft
 from ..types.columns import NumericColumn, TextColumn
 from ..types.dataset import Dataset
 from ..types.vector_metadata import VectorColumnMeta, VectorMetadata
+from ..utils.device import resolve_device
 
 _GENDERS = np.array(["male", "female", "other"])
 
@@ -32,6 +35,51 @@ _GENDERS = np.array(["male", "female", "other"])
 # monotone in f_obs, giving an analytically-pinned ceiling, estimated by
 # 5x4M-draw Monte Carlo (std 3e-4):
 BAYES_AUROC_OBSERVED = 0.7493
+# logistic fits see coefficients attenuated by the eps convolution
+# (~ 1/sqrt(1 + (0.5/1.7)^2) ~ 0.96) plus imputation bias on age; the
+# recovery gates below use ratio windows that cover it
+PLANTED = {
+    "age": 0.03,
+    "height": -0.02,
+    "female_vs_male": 1.6,   # +1.2 - (-0.4)
+    "other_vs_male": 0.0,
+    "weight": 0.0,           # pure correlated nuisance (0.3*height noise)
+}
+
+
+def planted_truth_report(beta, meta, auroc: float) -> dict:
+    """Recovery report for a raw-scale linear/logistic coefficient vector
+    fitted on synthetic_design_matrix output: planted-vs-learned
+    coefficients and the gap to the observable Bayes AuROC.  ``ok`` is the
+    scale path's correctness gate: it turns a run at scale from 'runs'
+    into 'correct'."""
+    names = meta.column_names()
+    idx = {n.rsplit("_", 1)[0]: i for i, n in enumerate(names)}
+    beta = np.asarray(beta, np.float64)
+    age = float(beta[idx["age"]])
+    height = float(beta[idx["height"]])
+    fm = float(beta[idx["gender_female"]] - beta[idx["gender_male"]])
+    om = float(beta[idx["gender_other"]] - beta[idx["gender_male"]])
+    weight = float(beta[idx["weight"]])
+    gap = BAYES_AUROC_OBSERVED - float(auroc)
+    ok = (
+        0.024 <= age <= 0.033
+        and -0.023 <= height <= -0.015
+        and 1.30 <= fm <= 1.70
+        and abs(om) <= 0.08
+        and abs(weight) <= 0.006
+        and abs(gap) <= 0.012
+    )
+    return {
+        "age_coef": round(age, 5),
+        "height_coef": round(height, 5),
+        "female_vs_male": round(fm, 4),
+        "other_vs_male": round(om, 4),
+        "weight_coef": round(weight, 5),
+        "bayes_auroc": BAYES_AUROC_OBSERVED,
+        "auroc_gap": round(gap, 4),
+        "ok": bool(ok),
+    }
 
 
 _WORDS = np.array(
@@ -284,3 +332,50 @@ def _design_matrix_metas(text_dims: int) -> VectorMetadata:
         for j in range(text_dims)
     )
     return VectorMetadata("features", tuple(metas)).reindexed()
+
+
+def synthetic_design_matrix_device(
+    n: int, seed: int = 42, text_dims: int = 32, device="cuda"
+):
+    """Same schema as synthetic_design_matrix but generated ON THE DEVICE
+    from a seeded ``torch.Generator`` there: at 10M rows the host path
+    would ship a ~1.5 GB design matrix over the bus before a single fit;
+    here only the [n] label vector crosses (SURVEY §7 'hard parts: 10M-row
+    ingest').  Returns (X [n, 7 + text_dims] float32 on ``device``, y [n]
+    float64 numpy, metadata); the draws are torch's, so X matches the
+    host generator in distribution, not value.  The default device is the
+    card and raises without CUDA."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def uniform():
+        return torch.rand(n, generator=g, device=dev)
+
+    def normal():
+        return torch.randn(n, generator=g, device=dev)
+
+    age = torch.randint(1, 90, (n,), generator=g, device=dev).to(torch.float32)
+    age_present = uniform() > 0.1
+    height = 170.0 + 15.0 * normal()
+    weight = 70.0 + 12.0 * normal() + 0.3 * (height - 170.0)
+    gidx = torch.randint(0, 3, (n,), generator=g, device=dev)  # 1 = "female"
+    logit = (0.03 * (age - 45.0) - 0.02 * (height - 170.0)
+             + torch.where(gidx == 1, 1.2, -0.4) + 0.5 * normal())
+    y = uniform() < torch.sigmoid(logit)
+    present = age_present.to(torch.float32)
+    age_mean = ((age * present).sum(dtype=torch.float64)
+                / present.sum(dtype=torch.float64).clamp(min=1.0))
+    X = torch.empty((n, 7 + text_dims), dtype=torch.float32, device=dev)
+    X[:, 0] = torch.where(age_present, age, age_mean.to(torch.float32))
+    X[:, 1] = 1.0 - present
+    X[:, 2] = height
+    X[:, 3] = weight
+    for j in range(3):
+        X[:, 4 + j] = (gidx == j).to(torch.float32)
+    if text_dims:
+        rates = torch.full((n, text_dims), 0.15, dtype=torch.float32,
+                           device=dev)
+        X[:, 7:] = torch.poisson(rates, generator=g)
+    return X, y.cpu().numpy().astype(np.float64), _design_matrix_metas(
+        text_dims)

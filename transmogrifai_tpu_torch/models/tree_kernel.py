@@ -579,12 +579,24 @@ def predict_forest_stats_np(bins, heaps, max_depth: int):
     return hv[trees, idx]                 # [T, n, C]
 
 
+def forest_mean_scale(n_trees: int) -> float:
+    """The forest mean's float32 1/T: the tree-order sum is multiplied by
+    it on every route (the C++ host walk, numpy, torch on the CPU and on
+    the card).  torch divides by a scalar exactly on the CPU but multiplies
+    by its reciprocal on CUDA, and jax's ``mean`` multiplies, so ``/ T``
+    would give other bits on one device than on the other."""
+    return float(np.float32(1.0) / np.float32(n_trees))
+
+
 def predict_forest_np(bins, heaps, max_depth: int):
     """Numpy mirror of predict_forest: mean normalized per-tree stats
-    [n, C-1] via the vectorized all-trees traversal."""
+    [n, C-1] via the vectorized all-trees traversal (numpy's axis-0 sum
+    adds the trees in tree order, as ``seq_sum`` does)."""
     stats = predict_forest_stats_np(bins, heaps, max_depth)
     w = np.maximum(stats[..., 0:1], 1e-12)
-    return (stats[..., 1:] / w).mean(axis=0)
+    normed = stats[..., 1:] / w
+    return normed.sum(axis=0) * normed.dtype.type(
+        forest_mean_scale(normed.shape[0]))
 
 
 def seq_sum(parts):
@@ -602,11 +614,12 @@ def seq_sum(parts):
 def predict_forest(bins, heaps, max_depth: int):
     """Average normalized per-tree outputs [n, C-1] on the bins' device;
     heaps are [T, ...] tensors there.  The trees add in tree order
-    (``seq_sum``): rows with the same leaves get the same bits."""
+    (``seq_sum``) and the sum is scaled by ``forest_mean_scale``: rows with
+    the same leaves get the same bits, on every device."""
     hf, ht, hl, hv = heaps
     per_tree = []
     for t in range(hf.shape[0]):
         out = predict_tree(bins, hf[t], ht[t], hl[t], hv[t], max_depth)
         w = torch.clamp(out[:, 0:1], min=1e-12)
         per_tree.append(out[:, 1:] / w)  # normalized stats (probs or mean)
-    return seq_sum(per_tree) / len(per_tree)
+    return seq_sum(per_tree) * forest_mean_scale(len(per_tree))

@@ -59,6 +59,7 @@ from .tree_kernel import (
     effective_max_depth,
     fit_forest_folds_grid,
     fit_gbt_folds_grid,
+    forest_mean_scale,
     heap_impurity_importances,
     node_subset_masks,
     predict_forest,
@@ -475,16 +476,13 @@ class _RandomForest(_TreeEnsembleBase):
         """Torch mirror of ``predict_arrays_np`` over float32 ``X`` and
         ``torch_params``: K2 binning, the all-trees gather walk, then the
         normalized leaf stats added in tree order and scaled by float32
-        1/T, as the C++ host walk does it, on every device and host: torch
-        divides by a scalar exactly on the CPU but multiplies by its
-        reciprocal on CUDA, so ``/ T`` would give other bits on the card.
-        numpy's ``mean`` (the host route without the C++ library) divides;
-        where T is not a power of two it may differ by a float32 ULP."""
+        1/T (``tree_kernel.forest_mean_scale``), as ``predict_forest``, the
+        numpy walk and the C++ host walk do it."""
         stats = _forest_stats_torch(_device_bins_for_walk(X, params), params)
         w = torch.clamp(stats[..., 0:1], min=1e-12)
         normed = stats[..., 1:] / w
-        inv_t = float(np.float32(1.0) / np.float32(stats.shape[0]))
-        out = seq_sum(list(normed.unbind(0))) * inv_t
+        out = (seq_sum(list(normed.unbind(0)))
+               * forest_mean_scale(stats.shape[0]))
         if self.is_classification:
             pred = params["classes"][torch.argmax(out, dim=1)]
             return pred, out, out

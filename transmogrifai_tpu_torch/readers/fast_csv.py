@@ -11,21 +11,26 @@ numeric columns.  Chunk boundaries are aligned to newlines with even
 quote parity so quoted embedded newlines never split a record.
 
 :func:`read_csv_columnar` - file -> {name: Column} for Dataset ingest
-(the CSVReader fast path).  The device-resident design-matrix ingest
-with its double-buffered host->device hand-off
-(:class:`DeviceCSVIngest`) comes with local scoring (ROADMAP.md queue 1,
-item 7) and raises until then.
+(the CSVReader fast path).  :class:`DeviceCSVIngest` - file -> a
+device-resident [n, d] design matrix with a DOUBLE-BUFFERED host->device
+hand-off: the C++ parse of chunk i+1 overlaps the copy of chunk i to the
+card (pinned host memory, ``non_blocking`` copies on a side stream).
 """
 from __future__ import annotations
 
+import collections
+import queue
+import threading
 from typing import Mapping, Optional, Sequence, Type
 
 import numpy as np
+import torch
 
 from ..obs import trace as _obs_trace
 from ..types.columns import Column, NumericColumn, TextColumn
 from ..types.feature_types import FeatureType, OPNumeric, Text
 from ..utils import native
+from ..utils.device import resolve_device
 
 DEFAULT_CHUNK_BYTES = 64 << 20
 
@@ -450,22 +455,141 @@ def chunk_to_block(
     return block, mask
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        "(ROADMAP.md queue 1, item 7)")
+def _drain(q: queue.Queue, producer: threading.Thread) -> None:
+    """Let a producer that the consumer stopped listening to run to its
+    end: take what it puts until it exits, then join it."""
+    while producer.is_alive():
+        try:
+            q.get(timeout=0.05)
+        except queue.Empty:
+            pass
+    producer.join()
 
 
-def double_buffered_to_device(producer, n_cols: int) -> tuple:
-    """The double-buffered host->device pump (pinned-memory copies on the
-    card) comes with local scoring: raises."""
-    raise _not_ported("the double-buffered host->device CSV pump")
+def double_buffered_to_device(producer, n_cols: int,
+                              device="cuda") -> tuple:
+    """Shared double-buffered host->device pump: ``producer(queue)`` runs in
+    a background thread pushing (values_block [rows, d] float32, mask_block
+    [rows, d] bool) tuples, then None; an exception it puts is re-raised
+    here.  On the card each block and mask is copied into pinned host
+    memory and sent with ``non_blocking`` copies on a side stream, one
+    event recorded per block, so the parse of the next block overlaps the
+    copy in flight; the current stream waits on the side stream before
+    the blocks are concatenated on the card.  A block's pinned buffers are
+    held until its event has completed.  With ``device="cpu"`` the blocks
+    concatenate on the host.  Returns (X [n, n_cols] float32, mask [n,
+    n_cols] bool, rows) on ``device``; empty input yields zero-row tensors
+    of the right width.  The default device is the card: without CUDA it
+    raises before the producer starts."""
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    side = torch.cuda.Stream(device=dev) if on_card else None
+    q: queue.Queue = queue.Queue(maxsize=2)
+    t = threading.Thread(target=producer, args=(q,), daemon=True)
+    t.start()
+    blocks, masks, total = [], [], 0
+    in_flight: collections.deque = collections.deque()  # (event, pinned)
+    finished = False
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                finished = True
+                break
+            if isinstance(item, BaseException):
+                finished = True
+                raise item
+            block, mask = item
+            total += block.shape[0]
+            hb, hm = torch.from_numpy(block), torch.from_numpy(mask)
+            if not on_card:
+                blocks.append(hb)
+                masks.append(hm)
+                continue
+            hb, hm = hb.pin_memory(), hm.pin_memory()
+            with torch.cuda.stream(side):
+                blocks.append(hb.to(dev, non_blocking=True))
+                masks.append(hm.to(dev, non_blocking=True))
+                done = torch.cuda.Event()
+                done.record(side)
+            in_flight.append((done, (hb, hm)))
+            while in_flight and in_flight[0][0].query():
+                in_flight.popleft()
+    finally:
+        if finished:
+            t.join()
+        else:
+            _drain(q, t)
+    if not blocks:
+        return (torch.zeros((0, n_cols), dtype=torch.float32, device=dev),
+                torch.zeros((0, n_cols), dtype=torch.bool, device=dev), 0)
+    if not on_card:
+        return torch.cat(blocks), torch.cat(masks), total
+    main = torch.cuda.current_stream(dev)
+    main.wait_stream(side)
+    X, M = torch.cat(blocks), torch.cat(masks)
+    for b in blocks + masks:
+        # made on the side stream, read by the concatenation on this one
+        b.record_stream(main)
+    if in_flight:
+        in_flight[-1][0].synchronize()  # the last pinned buffers' copies
+    return X, M, total
 
 
 class DeviceCSVIngest:
     """CSV -> device-resident [n, d] float32 design matrix with the parse
-    of chunk i+1 overlapping the device transfer of chunk i.  Comes with
-    local scoring: constructing one raises."""
+    of chunk i+1 overlapping the device transfer of chunk i.
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise _not_ported("DeviceCSVIngest")
+    A background thread runs the C++ scanner over aligned byte chunks and
+    feeds a bounded queue (depth 2 = classic double buffer); the consumer
+    (:func:`double_buffered_to_device`) sends each block to ``device``
+    while the next chunk parses, and concatenates there.  ``device``
+    defaults to the card and raises without CUDA; ``"cpu"`` concatenates
+    on the host.
+    """
+
+    def __init__(self, path: str, columns: Sequence[str],
+                 schema: Mapping[str, Type[FeatureType]],
+                 has_header: bool = True,
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                 errors: str = "coerce",
+                 quarantine=None,
+                 telemetry=None,
+                 device: str = "cuda") -> None:
+        from ..schema.quarantine import QuarantineBuffer, check_errors_mode
+
+        self.device = resolve_device(device)
+        self.path = path
+        self.columns = list(columns)
+        self.schema = dict(schema)
+        self.has_header = has_header
+        self.chunk_bytes = chunk_bytes
+        self.errors = check_errors_mode(errors)
+        if self.errors != "coerce" and quarantine is None:
+            quarantine = QuarantineBuffer(source=path)
+        self.quarantine = quarantine
+        self.telemetry = telemetry
+
+    def _parse_worker(self, q: queue.Queue) -> None:
+        try:
+            for chunk in iter_csv_chunks(
+                self.path, self.schema, has_header=self.has_header,
+                chunk_bytes=self.chunk_bytes, wanted=self.columns,
+                errors=self.errors, quarantine=self.quarantine,
+                telemetry=self.telemetry,
+            ):
+                q.put(chunk_to_block(chunk, self.columns))
+            q.put(None)
+        except BaseException as e:  # surface parse errors to the consumer
+            q.put(e)
+
+    def to_device(self):
+        """Returns (X [n, d] float32, valid_mask [n, d] bool, rows) on the
+        ingest's device.  Missing numeric cells are 0 with mask False (the
+        NumericColumn contract, device-side)."""
+        with _obs_trace.span(
+            "ingest.device", source=self.path, format="csv_native",
+        ):
+            return double_buffered_to_device(
+                self._parse_worker, len(self.columns), self.device
+            )

@@ -253,13 +253,16 @@ class OpValidator:
     def validate(
         self,
         models: Sequence[tuple[PredictorEstimator, Sequence[dict]]],
-        X: np.ndarray,
+        X,
         y: np.ndarray,
         weights: Optional[np.ndarray] = None,
     ) -> ValidationResult:
         """Pick the best (estimator, param-map) by mean validation metric
         across folds (reference: OpValidator.validate:129 +
-        OpCrossValidation fold aggregation :60,118-124)."""
+        OpCrossValidation fold aggregation :60,118-124).  ``X`` is a host
+        array or a tensor; a float32 tensor on the validator's device
+        (``examples.synthetic.synthetic_design_matrix_device``) is fitted
+        where it lies."""
         env = os.environ.get("TX_TRAIN_FUSED", "").strip().lower()
         if self.train_fused or env in ("1", "true", "on"):
             raise _not_ported("the fused training programs (train_fused)", 9)
@@ -271,16 +274,31 @@ class OpValidator:
         larger = self.evaluator.larger_better
         metric_name = getattr(self.evaluator, "metric_name", "")
         approx_rank = self._approx_rank(n, dev)
-        Xh = np.asarray(X)
         # ONE float32 upload of the design matrix per validate call, shared
-        # by every batched family; lazy, so host-only families never pay it
+        # by every batched family; lazy, so host-only families never pay
+        # it, and a float32 tensor already on the device is used as it is
         _xdev: list = []
 
         def xdev() -> torch.Tensor:
             if not _xdev:
-                _xdev.append(torch.tensor(
-                    np.ascontiguousarray(Xh, dtype=np.float32), device=dev))
+                if isinstance(X, torch.Tensor):
+                    _xdev.append(X.to(device=dev, dtype=torch.float32))
+                else:
+                    _xdev.append(torch.tensor(
+                        np.ascontiguousarray(X, dtype=np.float32),
+                        device=dev))
             return _xdev[0]
+
+        # the host copy, made at most once and only for a family or metric
+        # mode that runs on the host: a card-resident X on the batched
+        # LR's device rank metrics never crosses the bus
+        _xh: list = []
+
+        def xhost() -> np.ndarray:
+            if not _xh:
+                _xh.append(X.cpu().numpy() if isinstance(X, torch.Tensor)
+                           else np.asarray(X))
+            return _xh[0]
 
         # one np.unique scan per validate() at most, and only if some
         # classifier asks
@@ -295,7 +313,7 @@ class OpValidator:
 
         ckpt = self._ckpt_load()
         self._beat()  # validation started: open the liveness window
-        n_features = int(Xh.shape[1])
+        n_features = int(X.shape[1])
         all_results = []
         best = None  # (metric, estimator, params)
         for est, grid in models:
@@ -357,7 +375,7 @@ class OpValidator:
                             b = f * g + j
                             pred, raw, prob = est.predict_arrays(
                                 {"beta": betas[b], "intercept": b0s[b]},
-                                Xh[val],
+                                xhost()[val],
                             )
                             metrics[j, f] = self._metric_of(yv, pred, raw, prob)
             elif hasattr(est, "fit_arrays_folds"):
@@ -374,7 +392,7 @@ class OpValidator:
                         n_rows=int(n), n_features=n_features,
                     ):
                         grid_fold_params = est.fit_arrays_folds_grid(
-                            Xh, y, W, [grid[j] for j in todo])
+                            xhost(), y, W, [grid[j] for j in todo])
                 for pos, j in enumerate(todo):
                     pmap = grid[j]
                     cand = est.with_params(**pmap)
@@ -387,11 +405,11 @@ class OpValidator:
                             n_rows=int(n), n_features=n_features,
                             **_numeric_params(pmap),
                         ):
-                            fold_params = cand.fit_arrays_folds(Xh, y, W)
+                            fold_params = cand.fit_arrays_folds(xhost(), y, W)
                     for f in range(k):
                         val = ~masks[f]
                         pred, raw, prob = cand.predict_arrays(
-                            fold_params[f], Xh[val]
+                            fold_params[f], xhost()[val]
                         )
                         metrics[j, f] = self._metric_of(y[val], pred, raw, prob)
                     ckpt[_ckpt_key(est, pmap, mode)] = metrics[j].tolist()
@@ -409,8 +427,8 @@ class OpValidator:
                             n_rows=int(tr.sum()), n_features=n_features,
                             **_numeric_params(pmap),
                         ):
-                            params = cand.fit_arrays(Xh[tr], y[tr], w[tr])
-                        pred, raw, prob = cand.predict_arrays(params, Xh[val])
+                            params = cand.fit_arrays(xhost()[tr], y[tr], w[tr])
+                        pred, raw, prob = cand.predict_arrays(params, xhost()[val])
                         metrics[j, f] = self._metric_of(y[val], pred, raw, prob)
                     ckpt[_ckpt_key(est, pmap, mode)] = metrics[j].tolist()
                     self._ckpt_save(ckpt)

@@ -191,9 +191,9 @@ class OpWorkflow:
 
     def set_parameters(self, **params: Any) -> "OpWorkflow":
         """Workflow parameters; ``schema_contract=False`` opts out of the
-        schema-contract capture at ``train()``."""
-        if params.get("streaming_ingest"):
-            raise _not_ported("streaming ingest", 12)
+        schema-contract capture at ``train()``; ``streaming_ingest``
+        (default on, as in the reference) streams only from a reader with
+        a chunk stream (``_streaming_eligible``)."""
         self.parameters.update(params)
         return self
 
@@ -279,6 +279,20 @@ class OpWorkflow:
             f for f in self.raw_features if f.uid not in bl
         )
 
+    def _streaming_eligible(self) -> bool:
+        """Streaming ingest applies when the reader exposes the chunk
+        stream seam (``stream_dataset``) and nothing downstream needs the
+        whole dataset before the first chunk (RawFeatureFilter does).  Opt
+        out with ``set_parameters(streaming_ingest=False)`` (reference:
+        OpWorkflow._streaming_eligible).  No ported reader has the seam
+        yet."""
+        return (
+            self._reader is not None
+            and hasattr(self._reader, "stream_dataset")
+            and self._raw_feature_filter is None
+            and bool(self.parameters.get("streaming_ingest", True))
+        )
+
     def with_model_stages(self, model: "OpWorkflowModel") -> "OpWorkflow":
         """Warm start: fitted stages of ``model`` replace their unfitted
         counterparts (matched by uid) when this workflow trains, so only
@@ -310,11 +324,9 @@ class OpWorkflow:
         """Fit and transform only the stages strictly upstream of
         ``feature`` on the workflow's device and return the dataset of
         every column generated before it (reference:
-        OpWorkflowCore.computeDataUpTo:273-284).  Saving it as Avro
-        (``path``) comes with the Avro reader (ROADMAP.md queue 1,
-        item 12)."""
-        if path is not None:
-            raise _not_ported("compute_data_up_to's Avro output (path=)", 12)
+        OpWorkflowCore.computeDataUpTo:273-284); with ``path``, also
+        saved there as an Avro file (``readers.avro_reader.
+        save_dataset_avro``)."""
         resolve_device(self.device)
         raw = self.generate_raw_data()
         upto = [
@@ -323,6 +335,10 @@ class OpWorkflow:
         ]
         upto = self._warm([layer for layer in upto if layer])
         _, data, _ = fit_and_transform_dag(upto, raw, device=self.device)
+        if path is not None:
+            from ..readers.avro_reader import save_dataset_avro
+
+            save_dataset_avro(data, path)
         return data
 
     def train(self) -> "OpWorkflowModel":
@@ -338,6 +354,8 @@ class OpWorkflow:
 
         app_metrics = AppMetrics()
         t0 = time.perf_counter()
+        if self._streaming_eligible():
+            raise _not_ported("streaming ingest", 12)
         with _obs_trace.span("workflow.ingest"):
             raw = self.generate_raw_data()
         train_span.set_attr("rows", len(raw))
@@ -546,11 +564,8 @@ class OpWorkflowModel:
     def compute_data_up_to(self, feature: Feature, data: Any = None,
                            path: Optional[str] = None) -> Dataset:
         """All columns generated before ``feature``, by the fitted stages
-        (reference: OpWorkflowModel's side of computeDataUpTo).  Saving it
-        as Avro (``path``) comes with the Avro reader (ROADMAP.md queue 1,
-        item 12)."""
-        if path is not None:
-            raise _not_ported("compute_data_up_to's Avro output (path=)", 12)
+        (reference: OpWorkflowModel's side of computeDataUpTo); with
+        ``path``, also saved there as an Avro file."""
         if data is None:
             # the training cache holds fully-transformed columns, not raw
             raise ValueError("compute_data_up_to on a fitted model needs data=")
@@ -578,6 +593,10 @@ class OpWorkflowModel:
                 f"this trained model's DAG (uids {sorted(missing)}); train "
                 "a workflow containing them first"
             )
+        if path is not None:
+            from ..readers.avro_reader import save_dataset_avro
+
+            save_dataset_avro(out, path)
         return out
 
     def summary(self) -> str:
