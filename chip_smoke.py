@@ -44,10 +44,8 @@ two agree:
   timed at the serving shapes (``--serve-only`` runs this phase alone);
 * the same four families on the passenger data's front
   (transmogrify(label=...) -> SanityChecker), their forest and GBT grids
-  cut to depths 3 and 6, at 200k rows on the card, counted; under
-  workflow CV on 100k rows (its in-fold kernel shapes timed); and, at
-  their full grids (the depth-12 forest and GBT too), at 20k rows on the
-  card against a CPU child (``--default-selector-cpu N``);
+  cut to depths 3 and 6, at 200k rows on the card, counted; and under
+  workflow CV on 100k rows (its in-fold kernel shapes timed);
 * the multiclass and regression selectors on the planted labels of
   ``synthetic_passengers_labelled``: transmogrify(label=...) ->
   SanityChecker -> the parameterless MultiClassificationModelSelector
@@ -101,7 +99,19 @@ two agree:
   ``OpCrossValidation.validate`` runs the LR grid on the card-resident
   matrix, counted, gated by ``planted_truth_report`` with the AuROC of a
   held-out 1M slice; and the conditional-aggregation example trained and
-  scored on the card, its columns equal to the CPU's.
+  scored on the card, its columns equal to the CPU's;
+* the fused training programs (``[fused_train]``; ``--fused-train-only``
+  runs it alone): ``OpCrossValidation(num_folds=3).validate`` of the LR
+  grid (exact and approx rank metrics), the linear SVM at 3
+  regularisations, linear regression, an 8-tree depth-6 forest classifier
+  and regressor at two min info gains and a 10-tree depth-3 GBT at two
+  step sizes, on 1M rows of the synthetic design matrix (39 columns) on
+  the card, each forced through the fused programs and through the
+  kernel-at-a-time path: every family fused, betas bit-equal, fold metrics
+  within 1e-9, the same winners, K2's launches in the fused tree plans
+  counted and held against plain.  Every selector phase also logs its
+  ``train_fused`` trail (at 200 000 rows and more the auto gate takes
+  the linear families through the fused programs).
 
 Every phase asserts; any failure exits non-zero.
 
@@ -700,9 +710,12 @@ CMP_METRIC_ATOL = {"approx": 1e-3, "exact": 1e-5}
 #: (the margins of a winner without probabilities, the linear SVM)
 CMP_PROB_ATOL = {"OpLogisticRegression": 1e-4, "OpGBTClassifier": 1e-3,
                  "OpRandomForestClassifier": 1e-3, "OpLinearSVC": 1e-4}
-#: the fits inside a validation (its scoring is the rest)
+#: the fits inside a validation (its scoring is the rest; a family's fused
+#: training dispatch, ``fused_linear`` or ``fused_tree``, holds its scoring
+#: and metrics too)
 FIT_PHASES = ("lr_batch", "lr_folds", "svc_batch", "linreg_batch",
-              "nb_folds", "gbt_grid", "rf_grid", "dt_grid")
+              "nb_folds", "gbt_grid", "rf_grid", "dt_grid", "fused_linear",
+              "fused_tree")
 #: trees deeper than this split nodes of a few dozen rows, where the card's
 #: and the CPU's float32 roundings (exp, reduction orders) flip near-tied
 #: splits: their mean metrics are held to CMP_DEEP_TREE_ATOL (the depth-12
@@ -721,8 +734,8 @@ RANK_METRICS_ATOL = 1e-6          # device rank metrics, card against CPU
 WCV_ROWS = 100_000
 #: the parameterless selector (LR 8, forest 18 at 50 trees, GBT 9 at 20
 #: trees, linear SVM 8 grid points), which the [readme] phase trains on
-#: README_ROWS rows read from a CSV, and [default_selector] card against
-#: CPU at DEFAULT_CMP_ROWS
+#: README_ROWS rows read from a CSV (its 20k-row card-against-CPU run in
+#: [default_selector] was cut to make room for [fused_train])
 DEFAULT_CANDIDATES = 8 + 18 + 9 + 8
 #: [default_selector] trains the same families on the passenger front with
 #: the forest and GBT grids cut to DEFAULT_CUT_DEPTHS (their depth-12 level
@@ -732,7 +745,6 @@ DEFAULT_CUT = "default families, cut tree depths"
 DEFAULT_CUT_DEPTHS = (3, 6)
 DEFAULT_CUT_CANDIDATES = 8 + 12 + 6 + 8
 DEFAULT_SELECTOR_ROWS = 200_000
-DEFAULT_CMP_ROWS = 20_000
 
 
 def default_cut_models(device: str) -> list:
@@ -778,12 +790,15 @@ def selector_walls(sync: bool, keep_grid: bool = False, extra=()):
     its device work): the linear families' fold x grid fits (LR, SVM and
     linear regression batches, the multiclass LR's fold fits, naive
     Bayes' fold fits), the GBT, forest and decision-tree grid fits, the
-    whole validation, the winner's refit, workflow CV and the selector's
-    fit, and each (class, method, label) of ``extra``, summed by label.
+    whole validation, the fused training dispatches (``local/fused_train``
+    ``run_linear`` and ``run_tree``), the winner's refit, workflow CV and
+    the selector's fit, and each (class, method, label) of ``extra``,
+    summed by label.
     A fit inside another fit or a refit counts as the outer one only.
     With ``keep_grid``, also keep what every GBT, forest and tree grid fit
     returned.  Yields {"walls": {phase: s}, "grid": [GBT grid fits],
     "rf_grid": [forest grid fits], "dt_grid": [tree grid fits]}."""
+    from transmogrifai_tpu_torch.local import fused_train
     from transmogrifai_tpu_torch.models.linear_regression import (
         OpLinearRegression,
     )
@@ -797,7 +812,9 @@ def selector_walls(sync: bool, keep_grid: bool = False, extra=()):
     from transmogrifai_tpu_torch.selector.validator import OpValidator
 
     rec = {"walls": {}, "grid": [], "rf_grid": [], "dt_grid": []}
-    targets = [(OpLogisticRegression, "fit_arrays_batched", "lr_batch"),
+    targets = [(fused_train, "run_linear", "fused_linear"),
+               (fused_train, "run_tree", "fused_tree"),
+               (OpLogisticRegression, "fit_arrays_batched", "lr_batch"),
                (OpLogisticRegression, "fit_arrays_folds", "lr_folds"),
                (OpLinearSVC, "fit_arrays_batched", "svc_batch"),
                (OpLinearRegression, "fit_arrays_batched", "linreg_batch"),
@@ -914,6 +931,20 @@ def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
     }
 
 
+def log_train_fused(tag: str, trail) -> None:
+    """A validation's fused-training trail: per family the backend, with
+    the reason of a kernel-at-a-time one, or the mode, shape bucket and
+    wall of a fused one."""
+    if trail is None:
+        log(f"[{tag}] train_fused: no family reached the fused gate")
+        return
+    parts = [
+        f"{fam} fused ({e['mode']}, {e['bucket']}, exec {e['exec_ms']:.1f} ms)"
+        if e["backend"] == "fused" else f"{fam} existing ({e['reason']})"
+        for fam, e in trail["families"].items()]
+    log(f"[{tag}] train_fused {trail['backend']}: {'; '.join(parts)}")
+
+
 def log_selector(tag: str, r: dict) -> None:
     w = r["walls"]
     log(f"[{tag}] train {r['train_s']:.3f} s, score {r['score_s']:.3f} s; "
@@ -922,6 +953,10 @@ def log_selector(tag: str, r: dict) -> None:
         + (f", forest grid fit {w['rf_grid']:.3f} s" if "rf_grid" in w else "")
         + (f", SVM fold x grid fit {w['svc_batch']:.3f} s"
            if "svc_batch" in w else "")
+        + (f", fused linear dispatches {w['fused_linear']:.3f} s"
+           if "fused_linear" in w else "")
+        + (f", fused tree dispatches {w['fused_tree']:.3f} s"
+           if "fused_tree" in w else "")
         + f", validation scoring "
         f"{w['scoring']:.3f} s, refit {w.get('refit', 0.0):.3f} s, "
         f"selector fit {w.get('selector_fit', 0.0):.3f} s"
@@ -938,21 +973,19 @@ def log_selector(tag: str, r: dict) -> None:
         f"{s['validation_metric']['value']:.6f}); holdout AuROC "
         f"{r['holdout_auroc']:.6f}; AuROC on all rows {r['auroc']:.6f}; "
         f"launches {r['launches']}")
+    log_train_fused(tag, s.get("train_fused"))
 
 
-def selector_cpu_main(rows: int, model_types=SELECTOR_TYPES) -> int:
-    """``--selector-cpu N`` (``--default-selector-cpu N``: the
-    parameterless selector's default families): train and score the
-    selector workflow on the CPU at N rows
-    with the card's rank-metric mode and write what the card's run is held
-    against to stdout as an npz archive."""
+def selector_cpu_main(rows: int) -> int:
+    """``--selector-cpu N``: train and score the selector workflow on the
+    CPU at N rows with the card's rank-metric mode and write what the
+    card's run is held against to stdout as an npz archive."""
     os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
     torch.set_num_threads(3)  # the card's phases run beside this process
     torch.set_float32_matmul_precision("highest")
     from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
 
-    r = run_selector("cpu", synthetic_passengers(rows, seed=42, with_text=False),
-                     model_types=model_types)
+    r = run_selector("cpu", synthetic_passengers(rows, seed=42, with_text=False))
     meta = {k: r[k] for k in ("train_s", "score_s", "walls", "results",
                               "modes", "holdout_auroc", "auroc")}
     meta["winner"] = [r["summary"]["best_model_type"],
@@ -963,9 +996,9 @@ def selector_cpu_main(rows: int, model_types=SELECTOR_TYPES) -> int:
     return 0
 
 
-def start_selector_cpu(rows: int, flag: str = "--selector-cpu") -> subprocess.Popen:
+def start_selector_cpu(rows: int) -> subprocess.Popen:
     return subprocess.Popen(
-        [sys.executable, __file__, flag, str(rows)],
+        [sys.executable, __file__, "--selector-cpu", str(rows)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
 
@@ -1029,18 +1062,14 @@ def assert_counted(run: dict, kept: dict) -> None:
 
 
 def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
-                           cpu_child: subprocess.Popen,
                            timings: dict) -> dict:
     """``[default_selector]``: the parameterless selector's four families,
     their tree grids cut to DEFAULT_CUT_DEPTHS, trained and scored on the
-    card on ``data`` (counted, every kernel call
-    held against its plain version and timed per shape unless ``timings``,
-    the earlier paths', hold the shape) and under workflow CV on
-    ``wdata``; at their full grids, at DEFAULT_CMP_ROWS on the card
-    against the CPU child's training.  Returns what
-    the result lines need."""
-    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
-
+    card on ``data`` (counted, every kernel call held against its plain
+    version and timed per shape unless ``timings``, the earlier paths',
+    hold the shape) and under workflow CV on ``wdata``.  (Its card run of
+    the full grids at 20k rows against a CPU child was cut to make room
+    for [fused_train].)  Returns what the result lines need."""
     tag = "default_selector"
     with kernel_inputs(kernels) as kept:
         dp = run_selector("cuda", data, kernels, model_types=DEFAULT_CUT)
@@ -1081,42 +1110,6 @@ def default_selector_phase(kernels, data, wdata, errs: list, bin_errs: list,
     del wkept
     log_path_shapes(f"the {tag} workflow CV path's", wshapes)
 
-    # card against CPU at DEFAULT_CMP_ROWS, the rank-metric mode pinned
-    cdata = synthetic_passengers(DEFAULT_CMP_ROWS, seed=42, with_text=False)
-    # (one card run: the grid heaps' run-to-run identity is held by the
-    # multiclass and regression phases' two 20k card runs)
-    os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
-    try:
-        d1 = run_selector("cuda", cdata, keep_grid=True, model_types=None)
-    finally:
-        del os.environ["TX_CV_RANK_METRICS"]
-    ctag = f"{tag} {DEFAULT_CMP_ROWS} rows"
-    log_selector(ctag, d1)
-    assert len(d1["rf_grid"]) == 1 and len(d1["grid"]) == 1
-    sc = finish_selector_cpu(cpu_child)
-    log(f"[{ctag}] cpu: train {sc['train_s']:.3f} s (forest grid fit "
-        f"{sc['walls'].get('rf_grid', 0.0):.3f} s, GBT grid fit "
-        f"{sc['walls'].get('gbt_grid', 0.0):.3f} s), score "
-        f"{sc['score_s']:.3f} s, holdout AuROC {sc['holdout_auroc']:.6f}")
-    metric_diff = 0.0
-    assert len(d1["results"]) == len(sc["results"]) == DEFAULT_CANDIDATES
-    for c_gpu, c_cpu in zip(d1["results"], sc["results"]):
-        assert (c_gpu["model_type"], c_gpu["params"]) == \
-            (c_cpu["model_type"], c_cpu["params"])
-        assert c_gpu["rank_metric_mode"] == c_cpu["rank_metric_mode"]
-        diff = abs(c_gpu["metric"] - c_cpu["metric"])
-        log(f"[{ctag}]   {c_gpu['model_type']} "
-            f"{json.dumps(c_gpu['params'], sort_keys=True)}: card "
-            f"{c_gpu['metric']:.6f}, cpu {c_cpu['metric']:.6f}, |diff| "
-            f"{diff:.3g} (tolerance {cmp_metric_atol(c_gpu):g})")
-        assert diff <= cmp_metric_atol(c_gpu), (c_gpu, c_cpu)
-        metric_diff = max(metric_diff, diff)
-    win_gpu = [d1["summary"]["best_model_type"], d1["summary"]["best_params"]]
-    assert win_gpu == sc["winner"], (win_gpu, sc["winner"])
-    pdiff = float(np.abs(d1["prob"] - sc["prob"]).max())
-    assert pdiff <= CMP_PROB_ATOL[win_gpu[0]], pdiff
-    log(f"[{ctag}] cuda vs cpu: the same winner {win_gpu}, max |mean metric "
-        f"diff| {metric_diff:.3g}, max |winner score diff| {pdiff:.3g}")
     return {"plain": dp, "workflow_cv": dw, "shapes": shapes,
             "wcv_shapes": wshapes}
 
@@ -1197,55 +1190,16 @@ def readme_example(path: str):
 
 #: the [readme] train is profiled over one window: the forest grid's fit
 #: of this depth group (its 6 grid points x 3 folds in one level loop)
-README_PROFILE_DEPTH = 6
-
-
-@contextlib.contextmanager
-def profile_window(depth: int):
-    """Within the block, profile (``profile``) the first forest grid fit of
-    the ``depth`` group alone, the card synchronised at both ends of it.
-    Yields {"by_name", "wall_s", "stop_read_s"}, filled once that fit has
-    run: its device time by op name, its wall and what the profiler's
-    stop and read took after it."""
-    from transmogrifai_tpu_torch.models import trees
-
-    fit = trees.fit_forest_folds_grid
-    out: dict = {}
-
-    def shim(*args, **kw):
-        if out or kw.get("max_depth") != depth:
-            return fit(*args, **kw)
-
-        def window():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            heaps = fit(*args, **kw)
-            torch.cuda.synchronize()
-            return heaps, time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        (heaps, wall_s), by_name = profile(window)
-        out.update(by_name=by_name, wall_s=wall_s,
-                   stop_read_s=time.perf_counter() - t0 - wall_s)
-        return heaps
-
-    trees.fit_forest_folds_grid = shim
-    try:
-        yield out
-    finally:
-        trees.fit_forest_folds_grid = fit
-
-
 def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
     """``[readme]``: README.md's example on the card over a README_ROWS-row
     CSV: train() counted (K1 once, K2 for the GBT and forest depth groups
     and the 81 tree validation predictions), every kernel call held against
     its plain version and timed per shape unless ``timings`` hold the
-    shape, and one forest depth group profiled (``profile_window``: the
-    profiler's stop and read of the whole train took longer than the
-    train's own device time); the reader's native route, the holdout
-    AuROC and ``summary_pretty()`` checked; score() of the CSV's rows.
-    Returns the run and its kernel shapes."""
+    shape; the reader's native route, the holdout AuROC and
+    ``summary_pretty()`` checked; score() of the CSV's rows.  (Its profiled
+    forest depth group, 22 s of the profiler's stop and read, was cut to
+    make room for [fused_train].)  Returns the run and its kernel
+    shapes."""
     import tempfile
 
     from transmogrifai_tpu_torch.evaluators.binary import (
@@ -1266,8 +1220,7 @@ def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
         kernels.reset_launches()
         stage_targets = readme_stage_targets()
         with kernel_inputs(kernels) as kept, \
-                selector_walls(True, extra=stage_targets) as rec, \
-                profile_window(README_PROFILE_DEPTH) as window:
+                selector_walls(True, extra=stage_targets) as rec:
             t0 = time.perf_counter()
             model = wf.train()
             train_s = time.perf_counter() - t0
@@ -1308,13 +1261,9 @@ def readme_phase(kernels, errs: list, bin_errs: list, timings: dict) -> dict:
     log_selector(tag, run)
     for label in sorted({label for _, _, label in stage_targets}):
         log(f"[{tag}] cuda stage {label}: {1e3 * walls.get(label, 0.0):.1f} ms")
-    assert window, "the profiled forest depth group did not run"
     log(f"[{tag}] cuda: train {train_s:.3f} s ({README_ROWS / train_s:.0f} "
-        f"rows/s; its forest depth-{README_PROFILE_DEPTH} group profiled, "
-        f"the profiler's stop and read {window['stop_read_s']:.1f} s of it), "
-        f"score {score_s:.3f} s ({README_ROWS / score_s:.0f} rows/s)")
-    log_profile(tag, 1e3 * window["wall_s"], window["by_name"], 14,
-                what=f"the forest grid's depth-{README_PROFILE_DEPTH} group")
+        f"rows/s), score {score_s:.3f} s ({README_ROWS / score_s:.0f} "
+        "rows/s)")
 
     assert len(run["results"]) == DEFAULT_CANDIDATES, len(run["results"])
     assert train_launches["fused_moments"] == 1, train_launches
@@ -1807,6 +1756,7 @@ def log_problem_selector(tag: str, r: dict) -> None:
         f"{json.dumps(r['holdout'], sort_keys=True)}; evaluate() on the "
         f"training rows {json.dumps(r['train_metrics'], sort_keys=True)}; "
         f"launches {r['launches']}")
+    log_train_fused(tag, s.get("train_fused"))
 
 
 def problem_cpu_main(problem: str, rows: int) -> int:
@@ -2866,6 +2816,7 @@ def families_phase(kernels, errs: list, bin_errs: list,
     for c in b["results"]:
         log(f"[{tag}]   {c['model_type']} {json.dumps(c['params'], sort_keys=True)}: "
             f"mean AuROC {c['metric']:.6f} ({c['rank_metric_mode']})")
+    log_train_fused(tag, b["summary"].get("train_fused"))
     log(f"[{tag}] OpBinScoreEvaluator on the holdout: Brier "
         f"{b['brier']:.6f}, rows per bin (100 bins) "
         f"{[c for c in b['bin_counts'] if c][:12]}...")
@@ -3296,6 +3247,7 @@ def ingest_phase(kernels, errs: list, timings: dict) -> dict:
         f"{cv_s:.3f} s, best {res.best_params} CV AuROC "
         f"{res.best_metric:.6f}; launches {launches}; peak device memory "
         f"{peak_gb:.2f} GB")
+    log_train_fused(tag, res.train_fused)
 
     gate = OpLogisticRegression(reg_param=INGEST_GATE_REG, max_iter=25)
     t0 = time.perf_counter()
@@ -3341,6 +3293,221 @@ def ingest_phase(kernels, errs: list, timings: dict) -> dict:
     return {"launches": launches, "shapes": shapes, "wall_s": wall,
             "csv": csv, "gen_s": gen_s, "cv_s": cv_s, "peak_gb": peak_gb,
             "report": report}
+
+
+# -- the fused training programs -----------------------------------------------
+
+#: the [fused_train] phase's design matrix: examples/synthetic.py's at the
+#: repo's scale width (39 columns), 1M rows
+FUSED_TRAIN_ROWS = 1_000_000
+FUSED_TRAIN_TEXT_DIMS = SCALE_SHAPE[1] - 7
+#: fused against existing: the JAX package's own bar for its fused path
+FUSED_METRIC_ATOL = 1e-9
+#: the GBT's trees: 2 step sizes x 3 folds x 10 trees = 60 fits, inside
+#: one fused dispatch (``fits_per_dispatch``: 76 at 1M x 39, depth 3)
+FUSED_GBT_TREES = 10
+
+
+def fused_train_families() -> list:
+    """(name, estimator, grid, regression, rank-metric mode) of the
+    [fused_train] phase's families on the card."""
+    from transmogrifai_tpu_torch.models.linear_regression import (
+        OpLinearRegression,
+    )
+    from transmogrifai_tpu_torch.models.linear_svc import OpLinearSVC
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTClassifier,
+        OpRandomForestClassifier,
+        OpRandomForestRegressor,
+    )
+    from transmogrifai_tpu_torch.selector.factories import lr_grid
+
+    forest_grid = [{"max_depth": 6, "min_info_gain": m} for m in (0.0, 0.01)]
+    return [
+        ("lr", OpLogisticRegression(), lr_grid(), False, "exact"),
+        ("lr_approx", OpLogisticRegression(), lr_grid(), False, "approx"),
+        ("svc", OpLinearSVC(), [{"reg_param": r} for r in (0.01, 0.1, 0.5)],
+         False, "exact"),
+        ("linreg", OpLinearRegression(), lr_grid(), True, "exact"),
+        ("rf", OpRandomForestClassifier(num_trees=8, max_depth=6),
+         forest_grid, False, "exact"),
+        ("rf_reg", OpRandomForestRegressor(num_trees=8, max_depth=6),
+         forest_grid, True, "exact"),
+        ("gbt", OpGBTClassifier(num_trees=FUSED_GBT_TREES, max_depth=3),
+         [{"step_size": s} for s in (0.1, 0.3)], False, "exact"),
+    ]
+
+
+@contextlib.contextmanager
+def kept_betas(est):
+    """Within the block, keep the betas of every fused linear dispatch
+    (``run_linear``) and of every kernel-at-a-time batched fit of
+    ``est``'s class.  Yields {"fused": [...], "existing": [...]}."""
+    from transmogrifai_tpu_torch.local import fused_train
+
+    kept = {"fused": [], "existing": []}
+    if not hasattr(est, "fit_arrays_batched"):  # a tree family: no betas
+        yield kept
+        return
+    run, fit = fused_train.run_linear, type(est).fit_arrays_batched
+
+    def run_keep(*args, **kw):
+        res = run(*args, **kw)
+        kept["fused"].append((res.betas, res.b0s))
+        return res
+
+    def fit_keep(self, *args, **kw):
+        out = fit(self, *args, **kw)
+        kept["existing"].append(out)
+        return out
+
+    fused_train.run_linear = run_keep
+    type(est).fit_arrays_batched = fit_keep
+    try:
+        yield kept
+    finally:
+        fused_train.run_linear = run
+        type(est).fit_arrays_batched = fit
+
+
+def fused_train_phase(kernels, errs: list, bin_errs: list,
+                      timings: dict) -> dict:
+    """``[fused_train]``: ``OpCrossValidation(num_folds=3).validate`` of
+    each family of ``fused_train_families`` on FUSED_TRAIN_ROWS rows of the
+    synthetic design matrix on the card, forced through the fused training
+    programs (``train_fused=True``, K2 launches counted) and through the
+    kernel-at-a-time path (``False``): every forced family reports
+    ``backend == "fused"``, the betas are bit-equal, the fold metrics
+    within FUSED_METRIC_ATOL and the winners the same; every K2 call of
+    the fused runs held against its plain version."""
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+    from transmogrifai_tpu_torch.evaluators.regression import (
+        OpRegressionEvaluator,
+    )
+    from transmogrifai_tpu_torch.examples.synthetic import (
+        synthetic_design_matrix,
+    )
+    from transmogrifai_tpu_torch.selector.validator import OpCrossValidation
+
+    tag = "fused_train"
+    t_phase = time.perf_counter()
+    X, y, _ = synthetic_design_matrix(FUSED_TRAIN_ROWS, seed=0,
+                                      text_dims=FUSED_TRAIN_TEXT_DIMS)
+    X = np.asarray(X, np.float64)
+    y_reg = X[:, 3] * 2.0 - X[:, 7] + 0.1 * np.random.RandomState(0).randn(
+        FUSED_TRAIN_ROWS)
+    log(f"[{tag}] design matrix {X.shape} made in "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {w.__name__: 0 for w in kernels.WRAPPERS}
+    existing_launches = dict(launches)
+    kept_all: dict = {w.__name__: [] for w in kernels.WRAPPERS}
+    rows = []
+    for name, est, grid, regression, mode in fused_train_families():
+        ev = (OpRegressionEvaluator() if regression
+              else OpBinaryClassificationEvaluator())
+        yy = y_reg if regression else y
+        runs, walls = {}, {}
+        os.environ["TX_CV_RANK_METRICS"] = mode
+        try:
+            with kept_betas(est) as betas:
+                for fused in (True, False):
+                    cv = OpCrossValidation(num_folds=3, evaluator=ev,
+                                           stratify=not regression)
+                    cv.train_fused = fused
+                    torch.cuda.synchronize()
+                    kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    with kernel_inputs(kernels) as kept:
+                        runs[fused] = cv.validate([(est, grid)], X, yy)
+                    torch.cuda.synchronize()
+                    walls[fused] = time.perf_counter() - t0
+                    counts = (launches if fused else existing_launches)
+                    for w in kernels.WRAPPERS:
+                        counts[w.__name__] += w.launches
+                    if fused:
+                        for k, calls in kept.items():
+                            kept_all[k] += calls
+                    del kept
+        finally:
+            del os.environ["TX_CV_RANK_METRICS"]
+        fam = runs[True].train_fused["families"][est.model_type]
+        assert fam["backend"] == "fused", (name, fam)
+        assert fam["mode"] == mode, (name, fam)
+        assert runs[False].train_fused["families"][est.model_type] == {
+            "backend": "existing", "reason": "disabled"}
+        diff = max(float(np.abs(np.subtract(a["fold_metrics"],
+                                            b["fold_metrics"])).max())
+                   for a, b in zip(runs[True].all_results,
+                                   runs[False].all_results))
+        assert diff <= FUSED_METRIC_ATOL, (name, diff)
+        assert runs[True].best_params == runs[False].best_params, name
+        same_betas = None
+        if betas["fused"]:
+            (fb, fb0), = betas["fused"]
+            (eb, eb0), = betas["existing"]
+            same_betas = bool(np.array_equal(fb, eb)
+                              and np.array_equal(fb0, eb0))
+            assert same_betas, f"{name}: fused and existing betas differ"
+        rows.append({"family": name, "fused_s": walls[True],
+                     "existing_s": walls[False], "max_metric_diff": diff,
+                     "betas_equal": same_betas, "trail": fam,
+                     "best": runs[True].best_params,
+                     "best_metric": runs[True].best_metric})
+        log(f"[{tag}] {name} ({est.model_type}, {len(grid)} points x 3 "
+            f"folds, {mode}): fused {walls[True]:.3f} s (exec "
+            f"{fam['exec_ms']:.1f} ms, {fam['bucket']}), existing "
+            f"{walls[False]:.3f} s; max |fold metric diff| {diff:.3g} "
+            f"(bar {FUSED_METRIC_ATOL:g}); betas bit-equal "
+            f"{same_betas}; best {json.dumps(runs[True].best_params)} "
+            f"{runs[True].metric_name} {runs[True].best_metric:.6f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one K2 binning a fused tree plan, none in a linear dispatch
+    n_tree = sum(1 for r in rows if r["family"] in ("rf", "rf_reg", "gbt"))
+    assert launches == {"fused_moments": 0, "bin_matrix": n_tree}, launches
+    assert len(kept_all["bin_matrix"]) == launches["bin_matrix"]
+    shapes: dict = {}
+    hold_path_inputs(kernels, kept_all, shapes, errs, bin_errs,
+                     timings=timings)
+    log_path_shapes(f"the {tag} path's", shapes)
+    wall = time.perf_counter() - t_phase
+    log(f"[{tag}] launches in the fused runs {launches}, in the "
+        f"kernel-at-a-time runs {existing_launches}; peak device memory "
+        f"{peak_gb:.2f} GB; phase wall {wall:.1f} s")
+    return {"launches": launches, "existing_launches": existing_launches,
+            "shapes": shapes, "rows": rows, "peak_gb": peak_gb,
+            "wall_s": wall}
+
+
+def fused_train_only_main() -> int:
+    """``--fused-train-only``: the kernels' build and the [fused_train]
+    phase alone."""
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.set_float32_matmul_precision("highest")
+    log("[header] card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip())
+    kernels.build()
+    ft = fused_train_phase(kernels, [], [], {})
+    print(json.dumps({
+        "launches": ft["launches"], "wall_s": ft["wall_s"],
+        "peak_gb": ft["peak_gb"],
+        "rows": [{k: v for k, v in r.items() if k != "trail"}
+                 for r in ft["rows"]],
+        "shapes": [[k, list(shape), t["ms"], t["bound_ms"], t["plain_ms"]]
+                   for (k, shape), t in ft["shapes"].items()]}))
+    return 0
 
 
 def ingest_only_main() -> int:
@@ -3484,12 +3651,12 @@ def main() -> int:
         return families_only_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--ingest-only":
         return ingest_only_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--fused-train-only":
+        return fused_train_only_main()
     if len(sys.argv) == 3 and sys.argv[1] == "--families-cpu":
         return families_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
         return selector_cpu_main(int(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--default-selector-cpu":
-        return selector_cpu_main(int(sys.argv[2]), None)
     if len(sys.argv) == 2 and sys.argv[1] == "--schema-cpu":
         return schema_cpu_main()
     for problem in PROBLEM_LABEL:
@@ -3503,7 +3670,6 @@ def main() -> int:
     # [default_selector] phases' launch-bound forest loops then run with
     # the host to themselves)
     children = [start_selector_cpu(SELECTOR_CMP_ROWS),
-                start_selector_cpu(DEFAULT_CMP_ROWS, "--default-selector-cpu"),
                 start_problem_cpu("multiclass"),
                 start_problem_cpu("regression"),
                 start_schema_cpu(),
@@ -3518,7 +3684,6 @@ def main() -> int:
 
 
 def card_main(cpu_child: subprocess.Popen,
-              default_cpu_child: subprocess.Popen,
               multiclass_cpu_child: subprocess.Popen,
               regression_cpu_child: subprocess.Popen,
               schema_cpu_child: subprocess.Popen,
@@ -3918,7 +4083,7 @@ def card_main(cpu_child: subprocess.Popen,
     dsel = default_selector_phase(
         kernels, synthetic_passengers(DEFAULT_SELECTOR_ROWS, seed=42,
                                       with_text=False),
-        wdata, errs, bin_errs, default_cpu_child,
+        wdata, errs, bin_errs,
         {**sel_shapes, **readme["shapes"]})
     dpl, dwl = dsel["plain"]["launches"], dsel["workflow_cv"]["launches"]
 
@@ -3945,6 +4110,9 @@ def card_main(cpu_child: subprocess.Popen,
     timings[("fused_moments", SCALE_SHAPE)] = at_scale
     ingest = ingest_phase(kernels, errs, timings)
 
+    # -- 10d. the fused training programs ----------------------------------
+    fused = fused_train_phase(kernels, errs, bin_errs, timings)
+
     # -- 11. result lines ---------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
@@ -3963,6 +4131,7 @@ def card_main(cpu_child: subprocess.Popen,
                    for p, v in vectors.items() for phase in ("train", "score")},
                 **families_by_path(families, k),
                 "ingest_scale": ingest["launches"][k],
+                "fused_train": fused["launches"][k],
                 **serve_by_path(serve, k)}
 
     def sel_launches(k):
@@ -4015,6 +4184,8 @@ def card_main(cpu_child: subprocess.Popen,
                                                families["shapes"]),
         "ingest_path_shapes": sel_shape_rows("fused_moments",
                                              ingest["shapes"]),
+        "fused_train_existing_launches": fused["existing_launches"][
+            "fused_moments"],
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -4054,6 +4225,10 @@ def card_main(cpu_child: subprocess.Popen,
         "families_path_shapes": sel_shape_rows("bin_matrix",
                                                families["shapes"]),
         "serve_path_shapes": serve["k2_shapes"],
+        "fused_train_path_shapes": sel_shape_rows("bin_matrix",
+                                                  fused["shapes"]),
+        "fused_train_existing_launches": fused["existing_launches"][
+            "bin_matrix"],
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}

@@ -746,3 +746,52 @@ def test_device_design_matrix_is_made_on_the_card(cuda):
     assert abs(float(X[:, 7:].mean()) - 0.15) < 0.01
     X2, y2, _ = synthetic.synthetic_design_matrix_device(100_000, text_dims=8)
     assert torch.equal(X, X2) and np.array_equal(y, y2)
+
+
+def test_fused_lr_training_on_the_card_equals_the_existing_path(cuda):
+    """The fused training program of the LR grid on the card (the bitwise
+    fixed-point Newton, the gathered-row scoring, the exact device rank
+    metrics) against the kernel-at-a-time path on the card at 50k rows:
+    betas bit-equal, fold metrics within 1e-9, the same winner."""
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+    from transmogrifai_tpu_torch.examples.synthetic import (
+        synthetic_design_matrix,
+    )
+    from transmogrifai_tpu_torch.local import fused_train
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.selector import validator as val
+    from transmogrifai_tpu_torch.selector.factories import lr_grid
+
+    torch.set_float32_matmul_precision("highest")
+    X, y, _ = synthetic_design_matrix(50_000, text_dims=32, seed=0)
+    X = np.asarray(X, np.float64)
+    y = np.asarray(y)
+    est, grid, ev = OpLogisticRegression(), lr_grid(), \
+        OpBinaryClassificationEvaluator()
+    runs = {}
+    for fused in (False, True):
+        cv = val.OpCrossValidation(num_folds=3, evaluator=ev, stratify=True)
+        cv.train_fused = fused
+        runs[fused] = cv.validate([(est, grid)], X, y)
+    fam = runs[True].train_fused["families"]["OpLogisticRegression"]
+    assert (fam["backend"], fam["mode"]) == ("fused", "exact")
+    assert runs[True].best_params == runs[False].best_params
+    for a, b in zip(runs[True].all_results, runs[False].all_results):
+        assert np.abs(np.subtract(a["fold_metrics"],
+                                  b["fold_metrics"])).max() <= 1e-9
+    masks = val.stratified_kfold_masks(y, 3, 42, True)
+    regs_g, ens_g = val.lr_grid_scalars(est, grid)
+    regs, ens = np.tile(regs_g, 3), np.tile(ens_g, 3)
+    Xd = torch.tensor(X, dtype=torch.float32, device=cuda)
+    res = fused_train.run_linear(est, Xd, y, masks, np.ones(len(y)), False,
+                                 regs, ens, len(grid), ev, "exact")
+    W = torch.as_tensor(masks, device=cuda).to(torch.float32) \
+        .repeat_interleave(len(grid), dim=0)
+    betas, b0s = est.fit_arrays_batched(
+        Xd, torch.tensor(y, dtype=torch.float32, device=cuda), W, regs, ens)
+    np.testing.assert_array_equal(res.betas, betas)
+    np.testing.assert_array_equal(res.b0s, b0s)

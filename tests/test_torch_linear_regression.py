@@ -160,16 +160,30 @@ def test_high_mean_low_variance_columns():
 
 
 def test_unported_routes_raise():
-    """The fused training seam and the streamed fit raise with their
-    items; the scoring mirror of the device-fused program is ported
-    (``predict_arrays_torch``: a float64 matmul, whose row sums may take
-    another order than numpy's BLAS, so within a few ULP of it)."""
+    """The streamed fit raises with its item; the fused training seam is
+    ported (``fused_train_core`` gives the reference's keys, and its fit
+    is the batched fit's, bit for bit), and so is the scoring mirror of
+    the device-fused program (``predict_arrays_torch``: a float64 matmul,
+    whose row sums may take another order than numpy's BLAS, so within a
+    few ULP of it)."""
     est = lin.OpLinearRegression(device="cpu")
-    for call, item in ((lambda: est.fused_train_core(False), 9),
-                       (lambda: est.streaming_fit_stats(None, None), 12),
-                       (lambda: est.fit_from_stats([]), 12)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for call in (lambda: est.streaming_fit_stats(None, None),
+                 lambda: est.fit_from_stats([])):
+        with pytest.raises(NotImplementedError, match="item 12"):
             call()
+    core = est.fused_train_core(False)
+    want = mod(REF, "models.linear_regression").OpLinearRegression() \
+        .fused_train_core(False)
+    assert sorted(core) == sorted(want) == ["fit", "score", "sig"]
+    assert core["sig"] == want["sig"]
+    rng = np.random.RandomState(5)
+    Xf = torch.tensor(rng.randn(200, 4), dtype=torch.float32)
+    yf = Xf @ torch.tensor([1.0, -2.0, 0.5, 0.0]) + 0.1
+    W = torch.tensor((rng.rand(3, 200) > 0.3).astype(np.float32))
+    regs, ens = torch.tensor([0.0, 0.1, 0.1]), torch.tensor([0.0, 0.0, 0.5])
+    for a, b in zip(core["fit"](Xf, yf, W, regs, ens),
+                    lin.linreg_fit_batched_core(Xf, yf, W, regs, ens)):
+        assert torch.equal(a, b)
     assert not hasattr(est, "predict_arrays_xla")
     rng = np.random.RandomState(4)
     X = rng.randn(50, 3)

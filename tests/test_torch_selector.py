@@ -342,10 +342,14 @@ def test_factory_builds_ported_families_on_its_device():
 
 
 def test_unported_validator_options_raise(monkeypatch, tmp_path):
-    """autotune, validate_stream and the fused programs raise, naming
-    their item; ``checkpoint_path`` is ported: the port restores every row
-    of a checkpoint that the reference's validator wrote (LR and GBT
-    candidates), fits nothing, and selects as the reference did."""
+    """autotune and validate_stream raise, naming their item;
+    ``checkpoint_path`` is ported: the port restores every row of a
+    checkpoint that the reference's validator wrote (LR and GBT
+    candidates), fits nothing, and selects as the reference did.  The
+    fused programs are ported: ``train_fused=True`` and ``TX_TRAIN_FUSED=1``
+    run them (the LR grid fused; this GBT grid's two depths are two shape
+    groups, so it takes the kernel-at-a-time path, as the reference's
+    does) and select as the kernel-at-a-time path does."""
     val = mod(PORT, "selector.validator")
     ckpt = str(tmp_path / "cv.json")
     X, y = _cv_data(n=120)
@@ -380,10 +384,26 @@ def test_unported_validator_options_raise(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match=r"item 12\)"):
         cv.validate_stream([], iter(()))
     X, y = _cv_data(n=60)
-    cv.train_fused = True
-    with pytest.raises(NotImplementedError, match=r"item 9\)"):
-        cv.validate(selector_models(PORT), X, y)
-    cv.train_fused = None
-    monkeypatch.setenv("TX_TRAIN_FUSED", "1")
-    with pytest.raises(NotImplementedError, match=r"item 9\)"):
-        cv.validate(selector_models(PORT), X, y)
+    cv.evaluator = mod(PORT, "evaluators.binary") \
+        .OpBinaryClassificationEvaluator()
+    plain = cv.validate(selector_models(PORT), X, y)
+    assert plain.train_fused["backend"] == "existing"
+    assert {f["reason"] for f in plain.train_fused["families"].values()} \
+        == {"below_min_rows"}
+    want_fams = {"OpLogisticRegression": "fused",
+                 "OpGBTClassifier": "existing"}
+    for forced in ("param", "env"):
+        if forced == "param":
+            cv.train_fused = True
+        else:
+            cv.train_fused = None
+            monkeypatch.setenv("TX_TRAIN_FUSED", "1")
+        r = cv.validate(selector_models(PORT), X, y)
+        assert r.train_fused is cv.last_train_fused
+        assert r.train_fused["backend"] == "mixed"
+        fams = r.train_fused["families"]
+        assert {k: f["backend"] for k, f in fams.items()} == want_fams
+        assert fams["OpGBTClassifier"]["reason"] == "grid_shape_groups"
+        assert r.best_params == plain.best_params
+        for a, b in zip(r.all_results, plain.all_results):
+            assert abs(a["metric"] - b["metric"]) <= 1e-9

@@ -104,7 +104,8 @@ def test_one_hot_pair_tie_is_logged():
 
 
 def test_unported_routes_raise():
-    """The fused plan raises, naming its item; the host C++ learner
+    """The fused plan is ported: built where the reference's is, with its
+    signature and array names, its bins the reference's; the host C++ learner
     (``backend="native"``) gives the JAX package's native heaps bit for
     bit; the forests' per-node subsets (item 6a) no longer raise: a default forest
     fits, folds and predicts.  The scoring mirror of the device-fused
@@ -138,8 +139,25 @@ def test_unported_routes_raise():
         for a, b in zip(g["heaps"], w["heaps"]):
             np.testing.assert_array_equal(a, np.asarray(b))
     gbt = trees.OpGBTClassifier(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        gbt.fused_tree_plan(X, y, np.ones((3, N)), [{}])
+    W = np.ones((3, N))
+    try:
+        want = ref_trees.OpGBTClassifier(backend="jax").fused_tree_plan(
+            X, y, W, [{}])
+    except ValueError as e:  # single_class or dispatch_chunked
+        with pytest.raises(ValueError, match=f"^{e}$"):
+            gbt.fused_tree_plan(X, y, W, [{}])
+    else:
+        plan = gbt.fused_tree_plan(X, y, W, [{}])
+        assert plan["sig"] == want["sig"]
+        assert sorted(plan["arrays"]) == sorted(want["arrays"])
+        for k in ("step_g", "minipn_g", "minig_g"):
+            np.testing.assert_array_equal(  # the reference's float32 copy
+                plan["arrays"][k].astype(np.float32), want["arrays"][k])
+        assert plan["donate"] == want["donate"]
+        np.testing.assert_array_equal(plan["arrays"]["bins"].numpy(),
+                                      want["arrays"]["bins"])
+        state = plan["fit"](plan["arrays"])
+        assert len(state) == plan["n_state"] == want["n_state"]
     assert not hasattr(gbt, "predict_arrays_xla")
     # the forest's float32 mean: 1 float32 ULP (the C++ walk multiplies
     # by 1/T, the mirror divides by T); the GBT's float64 head: 64 ULP

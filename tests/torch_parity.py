@@ -702,3 +702,58 @@ def carry_and_reload(build, data, tmp_path, rtol=0.0, atol=0.0):
             np.testing.assert_array_equal(np.asarray(getattr(again, name)),
                                           np.asarray(getattr(scored, name)))
     return scored
+
+
+# -- the fused training programs ------------------------------------------
+def reference_fused_x64(monkeypatch) -> None:
+    """Let the reference's fused training programs run on this jax: they
+    open their 64-bit window through ``local.fused_train._x64``, which
+    calls ``jax.experimental.enable_x64`` (gone from jax 0.9); the test
+    swaps in ``jax.enable_x64(True)`` for its own duration.  The JAX
+    package is not edited."""
+    import jax
+
+    monkeypatch.setattr(mod(REF, "local.fused_train"), "_x64",
+                        lambda: jax.enable_x64(True))
+
+
+def fused_cv_data(n: int, regression: bool = False, seed: int = 0):
+    """The reference fused tests' data: ``synthetic_design_matrix`` (39
+    columns) as float64, its planted binary label, or a linear target with
+    noise for the regression families."""
+    X, y, _ = mod(PORT, "examples.synthetic").synthetic_design_matrix(
+        n, text_dims=32, seed=seed)
+    X = np.asarray(X, np.float64)
+    if regression:
+        rng = np.random.RandomState(seed)
+        return X, X[:, 3] * 2.0 - X[:, 7] + 0.1 * rng.randn(n)
+    return X, np.asarray(y)
+
+
+def fused_validate(pkg: str, est, grid, X, y, evaluator: str,
+                   fused, stratify: bool = True):
+    """``OpCrossValidation(num_folds=3)`` of ``pkg`` over one family with
+    ``train_fused`` set (the port's on the CPU); ``evaluator`` names an
+    evaluator class of ``evaluators.binary`` or ``evaluators.regression``."""
+    where = ("regression" if evaluator == "OpRegressionEvaluator"
+             else "binary")
+    ev = getattr(mod(pkg, f"evaluators.{where}"), evaluator)()
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    cv = mod(pkg, "selector.validator").OpCrossValidation(
+        num_folds=3, evaluator=ev, stratify=stratify, **kw)
+    cv.train_fused = fused
+    return cv.validate([(est, grid)], X, y)
+
+
+def fold_metric_diffs(want, got, key: str = "fold_metrics") -> np.ndarray:
+    """|got - want| of every (candidate, fold) metric, candidates matched by
+    params: [candidates, folds]; ``key="metric"``: of the CV means,
+    [candidates]."""
+    import json
+
+    by = {json.dumps(r["params"], sort_keys=True): r[key]
+          for r in want.all_results}
+    return np.array([
+        np.abs(np.asarray(r[key])
+               - by[json.dumps(r["params"], sort_keys=True)])
+        for r in got.all_results])

@@ -19,11 +19,12 @@ Squared loss takes any real label, so ``batched_needs_binary_y`` is
 False and the validator batches regression grids.
 
 Scoring has the numpy route (``predict_arrays_np``) and its torch mirror
-for the device-fused program (``predict_arrays_torch``).  Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP.md queue 1 item: the
-streamed sufficient-statistics fit (``streaming_fit_stats``,
-``fit_from_stats``; item 12) and the fused training seam
-(``fused_train_core``; item 9).
+for the device-fused program (``predict_arrays_torch``).
+``fused_train_core`` is the fused training program's seam
+(``local/fused_train.py``).  Not ported yet, raising
+``NotImplementedError`` with its ROADMAP.md queue 1 item: the streamed
+sufficient-statistics fit (``streaming_fit_stats``, ``fit_from_stats``;
+item 12).
 """
 from __future__ import annotations
 
@@ -92,10 +93,13 @@ def linreg_core(X, y, w, reg, elastic_net, l1_iters: int = 8):
     return beta, intercept
 
 
-def linreg_fit_batched_core(X, y, W, regs, ens, l1_iters: int = 8):
+def linreg_fit_batched_core(X, y, W, regs, ens, l1_iters: int = 8,
+                            fixed_point: bool = False):
     """B fits over the shared X [n, d] in one loop: W [B, n] per-candidate
     sample weights, regs/ens [B].  Per candidate the math is
-    :func:`linreg_core`'s.  Returns (betas [B, d], intercepts [B])."""
+    :func:`linreg_core`'s; ``fixed_point`` ends the reweighting loop at
+    the bitwise fixed point (the same betas).  Returns (betas [B, d],
+    intercepts [B])."""
     n, d = X.shape
     B = W.shape[0]
     wsum = W.sum(dim=1)                                 # [B]
@@ -130,7 +134,8 @@ def linreg_fit_batched_core(X, y, W, regs, ens, l1_iters: int = 8):
         return torch.where(torch.isfinite(new), new, beta)
 
     beta_s = run_newton(
-        step, torch.zeros((B, d), dtype=X.dtype, device=X.device), l1_iters)
+        step, torch.zeros((B, d), dtype=X.dtype, device=X.device), l1_iters,
+        fixed_point)
     beta = beta_s / sd
     intercept = ybar - ((mu + m0) * beta).sum(dim=1)
     return beta, intercept
@@ -178,8 +183,22 @@ class OpLinearRegression(PredictorEstimator):
         )
         return beta.cpu().numpy(), b0.cpu().numpy()
 
-    def fused_train_core(self, packed: bool):
-        raise _not_ported("the fused training seam (fused_train_core)", 9)
+    def fused_train_core(self, packed: bool = False):
+        """The fused training program's seam (the contract of
+        ``OpLogisticRegression.fused_train_core``): the score is the raw
+        prediction, the float32 matvec of ``predict_arrays``."""
+        if packed:
+            raise ValueError("the MXU-packed Gram is a TPU-only route")
+
+        def fit(X, y, W, regs, ens):
+            return linreg_fit_batched_core(X, y, W, regs, ens,
+                                           fixed_point=True)
+
+        def score(X, beta, b0):
+            return X @ beta + b0
+
+        return {"fit": fit, "score": score,
+                "sig": ("linreg", packed)}
 
     @staticmethod
     def streaming_fit_stats(X_block, y_block) -> tuple:

@@ -112,11 +112,13 @@ def svc_fit_batched_core(
     W: torch.Tensor,
     regs: torch.Tensor,
     iters: int = 20,
+    fixed_point: bool = False,
 ):
     """B squared-hinge fits in one Newton loop over the shared X [n, d]:
     W [B, n] per-candidate sample weights, regs [B].  Per candidate the
-    math is :func:`svc_newton_core`'s.  Returns (betas [B, d], intercepts
-    [B]) on the raw scale."""
+    math is :func:`svc_newton_core`'s; ``fixed_point`` ends the loop at
+    the bitwise fixed point (the same betas).  Returns (betas [B, d],
+    intercepts [B]) on the raw scale."""
     n, d = X.shape
     B = W.shape[0]
     ypm = 2.0 * y - 1.0
@@ -168,7 +170,7 @@ def svc_fit_batched_core(
         step,
         (torch.zeros((B, d), dtype=X.dtype, device=X.device),
          torch.zeros((B,), dtype=X.dtype, device=X.device)),
-        iters,
+        iters, fixed_point,
     )
     beta = beta_s / sd
     return beta, b0 - ((mu + m0) * beta).sum(dim=1)
@@ -181,6 +183,9 @@ class OpLinearSVC(PredictorEstimator):
 
     model_type = "OpLinearSVC"
     lowerable = True
+    #: the fused training program scores the validator's own rows in their
+    #: dtype (the host margin head's), not its float32 device copy
+    fused_score_rows = "source"
 
     def __init__(self, reg_param: float = 0.0, max_iter: int = 20,
                  device: str = "cuda", **kw) -> None:
@@ -216,6 +221,28 @@ class OpLinearSVC(PredictorEstimator):
             iters=int(self.params.get("max_iter", 20)),
         )
         return beta.cpu().numpy(), b0.cpu().numpy()
+
+    def fused_train_core(self, packed: bool = False):
+        """The fused training program's seam (the contract of
+        ``OpLogisticRegression.fused_train_core``).  The SVM has no
+        probability, so the evaluator ranks its 0/1 prediction: ``score``
+        is ``predict_arrays``' margin sign over the validator's own rows
+        (``fused_score_rows``: float64 for a float64 host X), in their
+        dtype, as the host head computes it."""
+        if packed:
+            raise ValueError("the MXU-packed Gram is a TPU-only route")
+        iters = int(self.params.get("max_iter", 20))
+
+        def fit(X, y, W, regs, ens):
+            return svc_fit_batched_core(X, y, W, regs, iters,
+                                        fixed_point=True)
+
+        def score(X, beta, b0):
+            z = X @ beta.to(X.dtype) + b0.to(X.dtype)
+            return (z > 0).to(torch.float64)
+
+        return {"fit": fit, "score": score,
+                "sig": ("svc", iters, packed, False)}
 
     def predict_arrays(self, params: Any, X: np.ndarray):
         """The margin head on the host in float64, as the JAX package's:

@@ -161,11 +161,14 @@ def lr_fit_batched_core(
     regs: torch.Tensor,
     ens: torch.Tensor,
     iters: int = 25,
+    fixed_point: bool = False,
 ):
     """B binary fits in one Newton loop over the shared X [n, d]: W [B, n]
     per-candidate sample weights, regs/ens [B].  Per candidate the math is
     :func:`lr_newton_core`'s; see the module docstring for the batched
-    layout.  Returns (betas [B, d], intercepts [B]) on the raw scale."""
+    layout.  ``fixed_point`` ends the loop at the bitwise fixed point
+    (``packed_newton.newton_fixed_point``): the same betas.  Returns
+    (betas [B, d], intercepts [B]) on the raw scale."""
     n, d = X.shape
     B = W.shape[0]
     wsum = W.sum(dim=1)[:, None]                       # [B, 1]
@@ -220,7 +223,7 @@ def lr_fit_batched_core(
         step,
         (torch.zeros((B, d), dtype=X.dtype, device=X.device),
          torch.zeros((B,), dtype=X.dtype, device=X.device)),
-        iters,
+        iters, fixed_point,
     )
     beta = beta_s / sd
     intercept = b0 - ((mu + m0) * beta).sum(dim=1)
@@ -491,6 +494,30 @@ class OpLogisticRegression(PredictorEstimator):
             iters=int(self.params.get("max_iter", 25)),
         )
         return beta.cpu().numpy(), b0.cpu().numpy()
+
+    def fused_train_core(self, packed: bool = False):
+        """The fused training program's seam (``local/fused_train.py``):
+        ``fit`` is the batched Newton of :meth:`fit_arrays_batched`, op
+        for op, with the bitwise fixed-point exit, so its betas are the
+        fixed-length loop's; ``score`` is ``predict_arrays``' ranking score
+        (the probability of class 1) over float32 validation rows.  Only
+        the JAX package's off-TPU route is here (``packed`` must be
+        False), and the Hessian is float32: ``sig`` names both, as the
+        JAX package's program signature does.  Binary labels only: the
+        validator's label gate owns that."""
+        if packed:
+            raise ValueError("the MXU-packed Gram is a TPU-only route")
+        iters = int(self.params.get("max_iter", 25))
+
+        def fit(X, y, W, regs, ens):
+            return lr_fit_batched_core(X, y, W, regs, ens, iters,
+                                       fixed_point=True)
+
+        def score(X, beta, b0):
+            return torch.sigmoid(X @ beta + b0)
+
+        return {"fit": fit, "score": score,
+                "sig": ("lr", iters, packed, False)}
 
     def fit_arrays_folds(self, X, y, W):
         """One config, k folds: W [k, n] per-fold sample weights -> list of

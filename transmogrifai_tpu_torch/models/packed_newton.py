@@ -14,9 +14,9 @@ row-chunk budget ``_gram_chunk_rows`` (``TX_PACKED_GRAM_ELEMS``): plain
 matmuls, as the JAX package computes them outside any Pallas kernel.
 The JAX package's MXU-packed CV Gram (``lr_fit_batched_packed*``,
 ``use_packed``) is a TPU-only route - off the TPU it takes the vmap
-route this package mirrors - and its bitwise fixed-point early exit
-(``newton_fixed_point``) belongs to the fused training programs
-(ROADMAP.md queue 1, item 9).
+route this package mirrors.  Its bitwise fixed-point early exit,
+``newton_fixed_point`` (``run_newton(..., fixed_point=True)``), is the
+fit loop of the fused training programs (``local/fused_train.py``).
 """
 from __future__ import annotations
 
@@ -51,11 +51,57 @@ def _gram_2d(Xh: torch.Tensor, wt_nB: torch.Tensor) -> torch.Tensor:
     return G
 
 
-def run_newton(step, init, length: int):
-    """``carry = step(carry)`` for exactly ``length`` iterations: the
-    JAX package's ``lax.scan`` of the step, as a Python loop.  The loop
-    never reads a value back to the host, so on the card every iteration
-    only enqueues work."""
+def _leaves(carry) -> tuple:
+    return tuple(carry) if isinstance(carry, (tuple, list)) else (carry,)
+
+
+def _int_view(t: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of a float tensor as a same-width integer tensor."""
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def newton_fixed_point(step, init, length: int):
+    """Run ``carry = step(carry)`` until the carry reaches a BITWISE fixed
+    point, or ``length`` iterations, whichever comes first.
+
+    The output is identical to ``length`` iterations of the same step:
+    the step is a deterministic function of its carry, so once
+    ``step(c)`` equals ``c`` bit for bit every further iteration gives
+    ``c`` again.  (``guarded_step`` zeroes the beta delta once the
+    gradient is at float32 noise, and the intercept update stops moving
+    ``b0`` once ``g0/h0`` is below half an ULP of it.)  A NaN anywhere
+    in the carry never ends the loop (NaN != NaN), so a diverging fit
+    runs the whole budget, as the fixed-length loop does.  The whole
+    batch exits together, when every candidate has reached its fixed
+    point: there is no per-candidate exit.
+
+    Each test of the exit is a host read of one device flag: one sync
+    per Newton step, as the JAX package's ``while_loop`` condition is
+    one per step.  The fixed-length loop enqueues without a sync."""
+    carry = init
+    for _ in range(length):
+        new = step(carry)
+        same = None
+        for old_leaf, new_leaf in zip(_leaves(carry), _leaves(new)):
+            eq = ((_int_view(old_leaf) == _int_view(new_leaf))
+                  & (new_leaf == new_leaf)).all()
+            same = eq if same is None else same & eq
+        carry = new
+        if bool(same):
+            break
+    return carry
+
+
+def run_newton(step, init, length: int, fixed_point: bool = False):
+    """The one point of truth for the Newton loop: ``carry = step(carry)``
+    for exactly ``length`` iterations (the JAX package's ``lax.scan`` of
+    the step, as a Python loop that never reads a value back to the host,
+    so on the card every iteration only enqueues work), or, with
+    ``fixed_point``, :func:`newton_fixed_point`, whose carry is the same
+    with the wasted tail iterations left out."""
+    if fixed_point:
+        return newton_fixed_point(step, init, length)
     carry = init
     for _ in range(length):
         carry = step(carry)

@@ -47,9 +47,15 @@ rows from the device.
 The GBT and forest fold and grid cores (``fit_gbt_folds``,
 ``fit_gbt_folds_grid``, ``fit_forest_folds``, ``fit_forest_folds_grid``)
 serve the model selector's cross-validation: folds and grid points run
-one after another, each fold a one-fold fit.  Not here: the TPU watchdog
-chunking of device programs and its knobs, the TPU-sized scatter cap and
-the int8 opt-out switch.
+one after another, each fold a one-fold fit.  The two grid functions are
+also the grid cores of the fused training plans (``trees.fused_tree_plan``;
+the JAX package's ``_fit_forest_folds_grid_core`` and
+``gbt_grid_scan_core``): eager torch has no jit wrapper to split them
+from, so the plans call them as they are and get the same heaps.
+``fits_per_dispatch`` is the JAX package's routing rule for those plans
+(see its docstring; ``local/fused_train.tree_fits_cap`` applies its
+``TX_TREE_*`` knobs).  Not here: the TPU watchdog chunking of device
+programs, the TPU-sized scatter cap and the int8 opt-out switch.
 """
 from __future__ import annotations
 
@@ -72,6 +78,35 @@ _HIST_PARTIAL_RATIO = 8
 #: both - about 1.5 GB at C = 4 - so a 10M-row fit stays well inside the
 #: card.
 _HIST_BLOCK_ELEMS = 1 << 25
+
+
+def _tree_fit_work(depth: int, n: int, d: int, max_bins: int,
+                   n_stats: int) -> float:
+    """Work units of ONE tree fit in the JAX package's routing rule: the
+    per-level (row, feature) scatter plus the split search, which grows
+    with the node count."""
+    scatter = (depth + 1.0) * float(n) * d * (n_stats + 1.0)
+    split = (2.0 ** depth) * d * max_bins * (6.0 * n_stats + 3.0)
+    return scatter + split
+
+
+def fits_per_dispatch(depth: int, n: int, d: int, max_bins: int,
+                      n_stats: int, budget_s: float = 30.0,
+                      override: int = 0) -> int:
+    """How many tree fits may share one fused dispatch: the JAX package's
+    rule, copied so that a fused tree plan refuses the same grids
+    (``dispatch_chunked``) and both packages' trails give the same
+    reasons.  The JAX package chunks its device programs on the host to
+    stay under a runtime watchdog of its accelerator; its constants (a
+    ``budget_s`` of 30 s at 2e9 work units a second) were set there and
+    say nothing about a CUDA card, which has no such watchdog.
+    ``override`` > 0 is the cap itself.  The ``TX_TREE_*`` knobs that set
+    both are read by ``local/fused_train.tree_fits_cap``, not here."""
+    if override > 0:
+        return override
+    rate = 2.0e9
+    per_fit = _tree_fit_work(depth, n, d, max_bins, n_stats)
+    return max(1, int(budget_s * rate / max(per_fit, 1.0)))
 
 
 def quantile_bin_edges(X: np.ndarray, max_bins: int) -> np.ndarray:

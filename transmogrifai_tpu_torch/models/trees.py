@@ -38,9 +38,13 @@ head arithmetic.
 ``backend="native"`` trains on the host C++ histogram learner of
 ``native/txtrees.cpp`` (``native_trees.fit_forest``, ``fit_gbt``) over
 host bins, as the JAX package's native backend does, one fold at a time;
-its models score like any other (K2 on the device).  Not ported yet, and
-raising ``NotImplementedError`` with its ROADMAP.md queue 1 item: the
-fused-training plan (item 9).
+its models score like any other (K2 on the device).
+
+``fused_tree_plan`` is the fused training programs' seam
+(``local/fused_train.py``): the host prep of ``fit_arrays_folds_grid``
+(the edges, the Poisson bootstrap, the per-tree seeds and their subset
+masks), the bins from K2, and the grid x fold fit and per-candidate
+predict mirrors over device tensors.
 """
 from __future__ import annotations
 
@@ -69,13 +73,6 @@ from .tree_kernel import (
     quantile_bin_edges,
     seq_sum,
 )
-
-
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        f"(ROADMAP.md queue 1, item {item})"
-    )
 
 
 def _check_backend(requested: str) -> str:
@@ -136,6 +133,14 @@ def _subset_fraction(strategy: str, d: int, is_classification: bool) -> float:
     if strategy == "onethird" or (strategy == "auto" and not is_classification):
         return 1.0 / 3.0
     return 1.0
+
+
+def _grid_scalars(cands, *params) -> dict:
+    """A fused plan's per-grid-point scalars, each (param, array name) as a
+    host float64 array: the exact values ``fit_arrays_folds_grid`` passes
+    its grid cores."""
+    return {name: np.asarray([float(c.params[p]) for c in cands], np.float64)
+            for p, name in params}
 
 
 def _heaps_np(heaps) -> tuple:
@@ -285,9 +290,6 @@ class _TreeEnsembleBase(PredictorEstimator):
         _check_backend(str(self.params.get("backend", "auto")))
         dev = resolve_device(self.device)
         return _bin_for_backend(_f32(X, dev), edges, int(self.params["max_bins"]))
-
-    def fused_tree_plan(self, X, y, W, grid):
-        raise _not_ported("the fused tree-training plan", 9)
 
     def torch_params(self, params: Any, device: torch.device) -> dict:
         out = _walk_params(params, device)
@@ -441,6 +443,73 @@ class _RandomForest(_TreeEnsembleBase):
             out.append({"edges": edges, "heaps": heaps, "classes": classes,
                         "max_depth": depth})
         return out
+
+    def fused_tree_plan(self, X, y, W, grid) -> dict:
+        """The fused training seam (``local/fused_train.run_tree``): the
+        host prep and K2 binning of ``fit_arrays_folds_grid`` for the one
+        shape group, its grid x fold fit over device tensors, and the
+        predict mirror per (grid point, fold) - ``predict_arrays``' own
+        ``predict_forest`` over gathered bins, so the scores are the
+        kernel-at-a-time path's bit for bit.  Raises ``ValueError`` naming
+        the JAX package's fallback reason when the grid cannot take one
+        fused dispatch: ``native_backend``, ``grid_shape_groups`` (more
+        than one static-shape group), ``dispatch_chunked`` (past
+        ``tree_kernel.fits_per_dispatch``) or ``single_class``."""
+        from ..local.fused_train import tree_fits_cap
+
+        n, d = X.shape
+        if _check_backend(str(self.params.get("backend", "auto"))) == "native":
+            raise ValueError("native_backend")
+        cands = [self.with_params(**pmap) for pmap in grid]
+        n_stats = (len(np.unique(y)) + 1) if self.is_classification else 3
+        if len({c._forest_key(n, d, n_stats) for c in cands}) > 1:
+            raise ValueError("grid_shape_groups")
+        (edges, stats, C, imp, classes, boot, feat_masks, node_masks,
+         depth) = cands[0]._forest_inputs(X, y)
+        max_bins = int(cands[0].params["max_bins"])
+        G, F, T = len(grid), len(W), boot.shape[0]
+        if G * F * T > tree_fits_cap(depth, n, d, max_bins, C):
+            raise ValueError("dispatch_chunked")
+        if self.is_classification and len(classes) < 2:
+            raise ValueError("single_class")
+        dev = resolve_device(self.device)
+        arrays = {
+            "bins": _bin_for_backend(_f32(X, dev), edges, max_bins),
+            "stats": _f32(stats, dev),
+            "w_rows": _f32(W, dev),
+            "boot": _f32(boot, dev),
+            "feat_masks": torch.as_tensor(feat_masks, device=dev),
+            # the per-node subset masks stand in for the JAX package's
+            # per-tree threefry keys
+            "node_masks": (None if node_masks is None
+                           else torch.as_tensor(node_masks, device=dev)),
+            **_grid_scalars(cands, ("min_instances_per_node", "minipn_g"),
+                            ("min_info_gain", "minig_g")),
+        }
+        is_classification = self.is_classification
+
+        def fit(a):
+            return fit_forest_folds_grid(
+                a["bins"], a["stats"], a["w_rows"], a["boot"],
+                a["feat_masks"], a["minipn_g"].tolist(),
+                a["minig_g"].tolist(), max_depth=depth, max_bins=max_bins,
+                impurity_kind=imp, n_stats=C, node_masks=a["node_masks"])
+
+        def score(state, bins_v, f, gi):
+            out = predict_forest(bins_v, tuple(h[gi, f] for h in state),
+                                 max_depth=depth)
+            return out[:, 1] if is_classification else out[:, 0]
+
+        return {
+            "arrays": arrays,
+            "donate": ("stats", "w_rows", "boot"),
+            "bins_key": "bins",
+            "fit": fit,
+            "n_state": 4,
+            "score": score,
+            "sig": ("forest", depth, max_bins, G, F, T, C, imp,
+                    is_classification),
+        }
 
     def predict_arrays(self, params: Any, X: np.ndarray):
         bins = self._device_bins(X, params["edges"])
@@ -613,6 +682,71 @@ class _GBT(_TreeEnsembleBase):
                     for f in range(W_d.shape[0])
                 ]
         return results
+
+    def fused_tree_plan(self, X, y, W, grid) -> dict:
+        """The fused training seam for boosted trees (the contract of
+        ``_RandomForest.fused_tree_plan``): one grid x fold boosting fit
+        and ``predict_arrays``' tree-order contribution sum per (grid
+        point, fold), with its head on the device in float64."""
+        from ..local.fused_train import tree_fits_cap
+
+        self._check_labels(y)
+        n, d = X.shape
+        if _check_backend(str(self.params.get("backend", "auto"))) == "native":
+            raise ValueError("native_backend")
+        cands = [self.with_params(**pmap) for pmap in grid]
+        keys = {(c._gbt_depth(n, d), int(c.params["max_bins"]),
+                 int(c.params["num_trees"]), int(c.params["seed"]))
+                for c in cands}
+        if len(keys) > 1:
+            raise ValueError("grid_shape_groups")
+        depth, max_bins, num_trees, seed = next(iter(keys))
+        G, F = len(grid), len(W)
+        if G * F * num_trees > tree_fits_cap(depth, n, d, max_bins, 4):
+            raise ValueError("dispatch_chunked")
+        dev = resolve_device(self.device)
+        edges = _sampled_bin_edges(X, max_bins, seed)
+        arrays = {
+            "bins": _bin_for_backend(_f32(X, dev), edges, max_bins),
+            "y32": _f32(y, dev),
+            "w_rows": _f32(W, dev),
+            **_grid_scalars(cands, ("step_size", "step_g"),
+                            ("min_instances_per_node", "minipn_g"),
+                            ("min_info_gain", "minig_g")),
+        }
+        steps = arrays["step_g"].tolist()
+        is_classification = self.is_classification
+
+        def fit(a):
+            f0s, heaps = fit_gbt_folds_grid(
+                a["bins"], a["y32"], a["w_rows"], a["step_g"].tolist(),
+                a["minipn_g"].tolist(), a["minig_g"].tolist(),
+                num_trees=num_trees, max_depth=depth, max_bins=max_bins,
+                is_classification=is_classification)
+            return (f0s,) + tuple(heaps)
+
+        def score(state, bins_v, f, gi):
+            f0s, hf, ht, hl, hv = state
+            contribs = []
+            for t in range(num_trees):
+                out = predict_tree(bins_v, hf[gi, f, t], ht[gi, f, t],
+                                   hl[gi, f, t], hv[gi, f, t], depth)
+                contribs.append(out[:, 1] / torch.clamp(out[:, 3], min=1e-12))
+            Fm = (f0s[gi, f] + steps[gi] * seq_sum(contribs)).to(torch.float64)
+            if is_classification:
+                return 1.0 / (1.0 + torch.exp(-Fm))
+            return Fm
+
+        return {
+            "arrays": arrays,
+            "donate": ("w_rows",),
+            "bins_key": "bins",
+            "fit": fit,
+            "n_state": 5,
+            "score": score,
+            "sig": ("gbt", depth, max_bins, G, F, num_trees,
+                    is_classification),
+        }
 
     def _fit_native_grid(self, X, y, W, grid) -> list:
         """The host C++ boosting learner (``tx_fit_gbt_hist``) for every

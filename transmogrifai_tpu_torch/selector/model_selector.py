@@ -287,5 +287,11 @@ class ModelSelector(Estimator):
                 "n_features": int(X.shape[1]),
             }
         }
+        if result.train_fused is not None:
+            # the fused-training trail: which families ran fused, and why
+            # the others took the kernel-at-a-time path
+            model.metadata["model_selector_summary"]["train_fused"] = (
+                result.train_fused
+            )
         self.metadata = model.metadata
         return model

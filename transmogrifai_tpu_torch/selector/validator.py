@@ -22,6 +22,17 @@ The approx mode runs where the validator's device is CUDA and n >= 100 000
 (the JAX package's rule is its TPU backend and the same n);
 ``TX_CV_RANK_METRICS=approx|exact`` overrides either way.
 
+The fused training programs (``local/fused_train.py``) take the batched
+linear and the tree families' dispatches when their gate opens: one fold
+x grid fit, scoring and metric matrix on the device, bit-equal betas and
+metrics within 1e-9 of the kernel-at-a-time path.  ``train_fused=None``
+(the default) engages them from ``TX_TRAIN_FUSED_MIN_ROWS`` rows (200 000)
+up; ``True`` forces them at any size, ``False`` turns them off, and
+``TX_TRAIN_FUSED=1|0`` forces or disables them for every validator.  A
+family they cannot take, or a failure inside them, falls back to the
+kernel-at-a-time path with its reason in the trail
+(``last_train_fused``, ``ValidationResult.train_fused``).
+
 ``checkpoint_path`` checkpoints the CV state: each completed (model, grid
 point) row of fold metrics is written to a JSON file (atomically) and
 restored instead of refitted on a restart, and ``<checkpoint>.heartbeat``
@@ -33,10 +44,9 @@ The fits are traced as the JAX package's ``cv.fit_batch``, ``cv.fit_folds``
 and ``cv.fit`` spans (``obs/trace.py``).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item when asked for: successive-halving ``autotune`` (item 12),
-the fused training programs (``train_fused``, item 9), ``validate_stream``
-(item 12).  The CV mesh and its guarded collectives are item 10: this
-package fits on one device.
+queue 1 item when asked for: successive-halving ``autotune`` (item 12)
+and ``validate_stream`` (item 12).  The CV mesh and its guarded
+collectives are item 10: this package fits on one device.
 """
 from __future__ import annotations
 
@@ -103,6 +113,10 @@ class ValidationResult:
     metric_name: str
     larger_better: bool
     all_results: list = field(default_factory=list)  # per (model, grid) dicts
+    #: the fused-training trail: per family the backend (fused, or
+    #: existing with its reason) and, for a fused one, its walls, mode and
+    #: shape bucket; None when no family reached the fused gate
+    train_fused: Optional[dict] = None
 
 
 def stratified_kfold_masks(
@@ -184,9 +198,15 @@ class OpValidator:
         self.stratify = stratify
         self.checkpoint_path = checkpoint_path
         self.device = str(device)
-        #: the fused training programs: None or False take the
-        #: kernel-at-a-time path, True raises (not ported)
+        #: the fused training programs: None = auto (TX_TRAIN_FUSED and
+        #: the row floor), True / False force them on or off
         self.train_fused: Optional[bool] = None
+        #: accepted for the JAX package's interface and unused: the torch
+        #: programs have no compile cache to keep
+        self.train_cache_dir: Optional[str] = None
+        #: the per-family fused-training trail of the LAST validate() call
+        #: (also on ValidationResult.train_fused)
+        self.last_train_fused: Optional[dict] = None
 
     # -- CV checkpoint ------------------------------------------------------
     def _ckpt_load(self) -> dict:
@@ -236,6 +256,95 @@ class OpValidator:
         )
         return self.evaluator.default_metric(m)
 
+    # -- fused training programs -------------------------------------------
+    def _train_fused_gate(self, n: int, mesh_present: bool) -> Optional[str]:
+        """None when a family's fused fold x grid dispatch may engage, else
+        the fallback reason recorded.  Auto mode engages only at scale
+        (``TX_TRAIN_FUSED_MIN_ROWS``, default 200 000), the JAX package's
+        rule; ``train_fused=True`` or ``TX_TRAIN_FUSED=1`` force the path
+        at any size.  ``mesh_present`` is always False here: this package
+        has no CV mesh yet (ROADMAP.md queue 1, item 10)."""
+        if self.train_fused is False:
+            return "disabled"
+        env = os.environ.get("TX_TRAIN_FUSED", "").strip().lower()
+        if env in ("0", "false", "off"):
+            return "disabled_env"
+        forced = self.train_fused is True or env in ("1", "true", "on")
+        if not forced:
+            min_rows = int(os.environ.get("TX_TRAIN_FUSED_MIN_ROWS", 200_000))
+            if n < min_rows:
+                return "below_min_rows"
+        if mesh_present:
+            return "mesh"
+        return None
+
+    def _record_train_fused(self, family: str, entry: dict) -> None:
+        rep = self.last_train_fused
+        if rep is None:
+            rep = self.last_train_fused = {
+                "backend": "existing",
+                "families": {},
+                "cache": {"hits": 0, "misses": 0, "stale": 0},
+            }
+        rep["families"][family] = entry
+        backends = {e.get("backend") for e in rep["families"].values()}
+        rep["backend"] = (
+            "fused" if backends == {"fused"}
+            else "existing" if backends == {"existing"} else "mixed"
+        )
+
+    def _try_train_fused(self, kind: str, est, mode: str, **kw):
+        """The fused dispatch of this family, or None (the reason recorded
+        in the trail) to take the kernel-at-a-time path.  A failure here
+        degrades, loudly, and never ends a selection."""
+        from ..local import fused_train as _ft
+
+        reason = self._train_fused_gate(kw.pop("n"), False)
+        if reason is not None:
+            self._record_train_fused(
+                est.model_type, {"backend": "existing", "reason": reason})
+            return None
+        try:
+            with _obs_trace.span(
+                "cv.fit_batch", family=est.model_type,
+                candidates=int(kw["candidates"]), folds=int(kw["folds"]),
+                n_rows=int(kw["n_rows"]), n_features=int(kw["n_features"]),
+                fused=1,
+            ):
+                if kind == "linear":
+                    res = _ft.run_linear(
+                        est, kw["xdev"](), kw["y"], kw["masks"], kw["w"],
+                        kw["weights_given"], kw["regs"], kw["ens"],
+                        kw["g"], self.evaluator, mode,
+                        cache_dir=self.train_cache_dir,
+                        x_source=kw["x_source"],
+                    )
+                else:
+                    res = _ft.run_tree(
+                        est, kw["X"], kw["y"], kw["masks"], kw["W"],
+                        kw["grid"], self.evaluator,
+                        cache_dir=self.train_cache_dir,
+                    )
+        except _ft.FusedTrainError as e:
+            self._record_train_fused(
+                est.model_type, {"backend": "existing", "reason": e.reason})
+            return None
+        except Exception as e:  # noqa: BLE001 - a fused-path fault must
+            # degrade to the kernel-at-a-time path, never end the selection
+            import logging
+
+            logging.getLogger("transmogrifai_tpu_torch.selector").warning(
+                "fused training dispatch for %s failed (%s: %s); falling "
+                "back to the kernel-at-a-time path",
+                est.model_type, type(e).__name__, e, exc_info=True,
+            )
+            self._record_train_fused(
+                est.model_type,
+                {"backend": "existing", "reason": f"error:{type(e).__name__}"})
+            return None
+        self._record_train_fused(est.model_type, res.report)
+        return res
+
     def _approx_rank(self, n: int, dev: torch.device) -> bool:
         """Whether LR-style grids may use the 1024-bin device rank metrics:
         only where they save host-device transfers of the per-fold
@@ -263,10 +372,8 @@ class OpValidator:
         array or a tensor; a float32 tensor on the validator's device
         (``examples.synthetic.synthetic_design_matrix_device``) is fitted
         where it lies."""
-        env = os.environ.get("TX_TRAIN_FUSED", "").strip().lower()
-        if self.train_fused or env in ("1", "true", "on"):
-            raise _not_ported("the fused training programs (train_fused)", 9)
         dev = resolve_device(self.device)
+        self.last_train_fused = None
         n = len(y)
         w = np.ones(n) if weights is None else np.asarray(weights, dtype=np.float64)
         masks = self.train_masks(y)  # [k, n] True=train
@@ -330,15 +437,40 @@ class OpValidator:
             for j, pmap in enumerate(grid):
                 if done_mask[j]:
                     metrics[j] = ckpt[_ckpt_key(est, pmap, mode)]
+            fold_batched = not batched and hasattr(est, "fit_arrays_folds")
+            if batched:
+                # the fold x grid batch's per-candidate scalars, fold-major
+                regs_g, ens_g = lr_grid_scalars(est, grid)
+                regs = np.tile(regs_g, k)
+                ens = np.tile(ens_g, k)
+            # the fused training program of the family (fit, scores and the
+            # metric matrix in one dispatch), or None: the trail says why
+            fused_res = None
+            if batched and not any(done_mask):
+                fused_res = self._try_train_fused(
+                    "linear", est, mode, n=n, xdev=xdev, x_source=X, y=y,
+                    masks=masks, w=w, weights_given=weights is not None,
+                    regs=regs, ens=ens, g=g, candidates=k * g, folds=k,
+                    n_rows=n, n_features=n_features,
+                )
+            elif (fold_batched and not any(done_mask)
+                    and hasattr(est, "fused_tree_plan")):
+                fused_res = self._try_train_fused(
+                    "tree", est, mode, n=n, X=xhost(), y=y, masks=masks,
+                    W=masks.astype(np.float64) * w[None, :], grid=grid,
+                    candidates=g * k, folds=k, n_rows=n,
+                    n_features=n_features,
+                )
             if all(done_mask):
                 pass  # every row restored from the checkpoint
+            elif fused_res is not None:
+                # the shared tail below checkpoints and reports the fused
+                # metric matrix as it does the kernel-at-a-time path's
+                metrics[:, :] = fused_res.metrics.T
             elif batched:
                 # ONE batched fit for the whole fold x grid batch: the
                 # [B, n] per-candidate weights are tiled on the device
                 # from the [k, n] fold masks, fold-major like the regs
-                regs_g, ens_g = lr_grid_scalars(est, grid)
-                regs = np.tile(regs_g, k)
-                ens = np.tile(ens_g, k)
                 Xj = xdev()
                 trainj = torch.as_tensor(masks, device=dev).to(torch.float32)
                 if weights is None:
@@ -378,7 +510,7 @@ class OpValidator:
                                 xhost()[val],
                             )
                             metrics[j, f] = self._metric_of(yv, pred, raw, prob)
-            elif hasattr(est, "fit_arrays_folds"):
+            elif fold_batched:
                 # fold-batched path (trees): grid x folds over one shared
                 # binning when the estimator batches whole grids, else one
                 # fold fan-out per grid point
@@ -465,6 +597,7 @@ class OpValidator:
             metric_name=self.evaluator.metric_name,
             larger_better=larger,
             all_results=all_results,
+            train_fused=self.last_train_fused,
         )
 
 
