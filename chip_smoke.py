@@ -31,8 +31,7 @@ two agree:
   its four default families (logistic regression and the linear SVM at 8
   grid points, the random forest with per-node feature subsets at 18, the
   GBT at 9) -> train(), score(), ``summary_pretty()``, counted, every
-  kernel call held against its plain version, one forest depth group
-  profiled;
+  kernel call held against its plain version;
 * the serving path (``[serve]``): the README model, and a 50-tree
   depth-12 forest and a 20-tree depth-12 GBT fitted on the README front at
   200k rows, each saved, loaded into its rebuilt workflow with
@@ -111,7 +110,22 @@ two agree:
   within 1e-9, the same winners, K2's launches in the fused tree plans
   counted and held against plain.  Every selector phase also logs its
   ``train_fused`` trail (at 200 000 rows and more the auto gate takes
-  the linear families through the fused programs).
+  the linear families through the fused programs);
+* multi-GPU on ``torch.distributed`` (``[mesh]``; ``--mesh-only`` runs it
+  alone): world 1 over NCCL - ``initialize()`` from the torchrun
+  variables, ``fused_moments_sharded`` on ``make_mesh(1)`` at 10M x 39
+  bit-equal to ``fused_moments`` (its K1 launch counted) and
+  ``all_reduce_stats`` at the same size, then the group destroyed; world
+  2 on the one card over gloo - two spawned ranks, both on ``cuda:0``,
+  run the SanityChecker at 1M x 39, the LR grid's CV and a forest and a
+  GBT grid at 200k rows through the product entry points with the data
+  and CV meshes active, held against this process's world-1 answers:
+  the same drops (statistics rtol 3e-5), the same winners (CV means
+  1e-5), forest heaps bit-equal, GBT predictions within 1e-4, K1 and K2
+  launched on every rank and equal to their plain versions, every
+  validator trail falling back with reason ``mesh``.  Two ranks on one
+  card prove the route and its parity, not scaling: no multi-GPU speed-up
+  is claimed.
 
 Every phase asserts; any failure exits non-zero.
 
@@ -3485,6 +3499,401 @@ def fused_train_phase(kernels, errs: list, bin_errs: list,
             "wall_s": wall}
 
 
+# -- [mesh]: multi-GPU on torch.distributed ----------------------------------
+#: the world-2 workloads' sizes: the SanityChecker at 1M x 39, the LR
+#: grid's CV at [selector]'s 200k rows, a forest and a GBT fold x grid fit
+#: at [selector]'s cut depths (6 and 3; [fused_train]'s tree families)
+MESH_SANITY_ROWS = 1_000_000
+MESH_CV_ROWS = SELECTOR_ROWS
+MESH_TEXT_DIMS = SCALE_SHAPE[1] - 7
+MESH_FOREST = dict(num_trees=8, max_depth=6)
+MESH_FOREST_GRID = [{"min_info_gain": m} for m in (0.0, 0.01)]
+MESH_GBT = dict(num_trees=10, max_depth=3)
+MESH_GBT_GRID = [{"step_size": s} for s in (0.1, 0.3)]
+MESH_GBT_SCORE_ROWS = 20_000       # GBT predictions compared on these rows
+MESH_MOMENT_RTOL = 3e-5            # world 2 against world 1: statistics
+MESH_CV_RTOL = 1e-5                # CV means and fold metrics (exact mode)
+MESH_RANK_TIMEOUT_S = 600
+
+
+def mesh_workloads(kernels, train_fused=None,
+                   time_shapes: bool = False) -> dict:
+    """The [mesh] phase's product entry points, run in one process (world
+    1, no process group) or on every rank of a world (the data and CV
+    meshes active): a SanityChecker fit at MESH_SANITY_ROWS x 39,
+    ``OpCrossValidation.validate`` of the LR grid, a forest and a GBT grid
+    at MESH_CV_ROWS (exact rank metrics; ``train_fused`` goes to each
+    validator, False for world 1 so that both worlds take the
+    kernel-at-a-time path, which a mesh keeps).  Each workload's K1 and K2
+    launches are counted; K1's block and every K2 input are held against
+    the plain versions.  With ``time_shapes`` (world 1), K1 and K2 are
+    also timed at a world-2 rank's shapes: K1 over half the rows, K2
+    binning half the CV rows, K2 on a fold's validation rows (every rank
+    scores the whole fold)."""
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+    from transmogrifai_tpu_torch.examples.synthetic import (
+        synthetic_design_matrix,
+    )
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTClassifier,
+        OpRandomForestClassifier,
+    )
+    from transmogrifai_tpu_torch.parallel.mesh import data_mesh_or_none, row_block
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.selector.factories import lr_grid
+    from transmogrifai_tpu_torch.selector.validator import OpCrossValidation
+    from transmogrifai_tpu_torch.types.columns import NumericColumn, VectorColumn
+    from transmogrifai_tpu_torch.types.dataset import Dataset
+    from transmogrifai_tpu_torch.types.feature_types import RealNN
+
+    out: dict = {"launches": {}, "walls": {}, "k2_err": 0, "k2_calls": 0}
+    X, y, meta = synthetic_design_matrix(MESH_SANITY_ROWS, seed=0,
+                                         text_dims=MESH_TEXT_DIMS)
+    n = len(y)
+    label = NumericColumn(y, np.ones(n, bool), RealNN)
+    vec = VectorColumn(X, meta)
+    ds = Dataset({"label": label, "features": vec})
+    sc = SanityChecker(device="cuda")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc.fit_model([label, vec], ds)
+    torch.cuda.synchronize()
+    out["walls"]["sanity"] = time.perf_counter() - t0
+    out["launches"]["sanity"] = {w.__name__: w.launches
+                                 for w in kernels.WRAPPERS}
+    summ = sc.metadata["sanity_checker_summary"]
+    out["sanity"] = {
+        "dropped": list(summ["dropped"]),
+        **{k: np.array([c[k] for c in summ["column_stats"]], np.float64)
+           for k in ("mean", "variance", "corr_label")}}
+    # K1 launched once on this process's rows of the design matrix
+    mesh = data_mesh_or_none()
+    lo, hi = row_block(n, mesh) if mesh is not None else (0, n)
+    from transmogrifai_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    xb = torch.from_numpy(np.ascontiguousarray(X[lo:hi], np.float32)).to(dev)
+    yb = torch.from_numpy(np.asarray(y[lo:hi], np.float32)).to(dev)
+    out["k1"] = {"rows": [lo, hi], **check_moments(kernels, xb, yb)}
+    if time_shapes:
+        half = n // 2
+        out["timings"] = [{"kernel": "fused_moments", "what": "a rank's block",
+                           **time_moments(kernels, xb[:half], yb[:half])}]
+    del xb, yb, ds, vec
+
+    Xc, yc = X[:MESH_CV_ROWS].astype(np.float64), y[:MESH_CV_ROWS]
+    del X
+    ev = OpBinaryClassificationEvaluator()
+    os.environ["TX_CV_RANK_METRICS"] = "exact"
+    try:
+        for name, est, grid in (
+                ("cv", OpLogisticRegression(device="cuda"), lr_grid()),
+                ("rf", OpRandomForestClassifier(**MESH_FOREST, device="cuda"),
+                 MESH_FOREST_GRID),
+                ("gbt", OpGBTClassifier(**MESH_GBT, device="cuda"),
+                 MESH_GBT_GRID)):
+            cv = OpCrossValidation(num_folds=3, evaluator=ev, stratify=True,
+                                   device="cuda")
+            cv.train_fused = train_fused
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with kernel_inputs(kernels) as kept, \
+                    selector_walls(True, keep_grid=True) as rec:
+                res = cv.validate([(est, grid)], Xc, yc)
+            torch.cuda.synchronize()
+            out["walls"][name] = time.perf_counter() - t0
+            out["launches"][name] = {w.__name__: w.launches
+                                     for w in kernels.WRAPPERS}
+            for xk, ek, dt in kept["bin_matrix"]:
+                out["k2_err"] = max(out["k2_err"], check_bins(kernels, xk, ek, dt))
+                out["k2_calls"] += 1
+            if time_shapes and name == "rf":
+                (xk, ek, dt), (xv, _, _) = kept["bin_matrix"][:2]
+                out["timings"] += [
+                    {"kernel": "bin_matrix", "what": "a rank's binning",
+                     **time_bins(kernels, xk[:len(xk) // 2].contiguous(),
+                                 ek, dt)},
+                    {"kernel": "bin_matrix", "what": "a fold's validation rows",
+                     **time_bins(kernels, xv, ek, dt)}]
+            assert not kept["fused_moments"], "a CV fit launched K1"
+            del kept
+            row = {"best_params": res.best_params,
+                   "best_metric": float(res.best_metric),
+                   "fold_metrics": np.array([r["fold_metrics"]
+                                             for r in res.all_results]),
+                   "trail": cv.last_train_fused}
+            if name == "rf":
+                row["heaps"] = [[p["heaps"] for p in per_fold]
+                                for per_fold in rec["rf_grid"][0]]
+            if name == "gbt":
+                fits = rec["grid"][0]
+                row["prob"] = [[est.with_params(**grid[j]).predict_arrays(
+                    p, Xc[:MESH_GBT_SCORE_ROWS])[2] for p in fits[j]]
+                    for j in range(len(grid))]
+            out[name] = row
+    finally:
+        del os.environ["TX_CV_RANK_METRICS"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def mesh_rank(rank: int, init_url: str, out_path: str) -> None:
+    """One rank of the [mesh] phase's world of 2 on the one card (``spawn``
+    target): both ranks drive ``cuda:0`` (``LOCAL_RANK=0``) and join a
+    gloo group - NCCL refuses two ranks on one GPU - whose collectives take
+    the CUDA tensors; each runs ``mesh_workloads`` through the product
+    entry points with the data and CV meshes active, counts its
+    collectives and pickles its results to ``out_path``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from transmogrifai_tpu_torch.parallel import distributed as tdist
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    os.environ["LOCAL_RANK"] = "0"
+    torch.set_num_threads(2)
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    tdist.initialize(coordinator_address=init_url, num_processes=2,
+                     process_id=rank, backend="gloo")
+    init_s = time.perf_counter() - t0
+    counts = {"all_reduce": 0, "all_gather": 0}
+    originals = {k: getattr(dist, k) for k in counts}
+
+    def counted(k):
+        def call(*a, **kw):
+            counts[k] += 1
+            return originals[k](*a, **kw)
+        return call
+
+    for k in counts:
+        setattr(dist, k, counted(k))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = mesh_workloads(kernels)
+    finally:
+        for k, fn in originals.items():
+            setattr(dist, k, fn)
+    out.update(rank=rank, init_s=init_s, collectives=counts,
+               world=dist.get_world_size(),
+               device=torch.cuda.current_device())
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    tdist.shutdown()
+
+
+def mesh_phase(kernels, errs: list, bin_errs: list) -> dict:
+    """``[mesh]``: the multi-GPU runtime on the one card.  World 1 over
+    NCCL: ``initialize()`` from the torchrun variables, then
+    ``fused_moments_sharded`` on ``make_mesh(1)`` at SCALE_SHAPE,
+    bit-equal to ``fused_moments`` on the same tensors with its one K1
+    launch counted, and ``all_reduce_stats`` at the same size; the group
+    is destroyed after.  World 2 over gloo: ``mesh_workloads`` in this
+    process (world 1) and on two spawned ranks, held against it - the
+    SanityChecker's drops equal and statistics within MESH_MOMENT_RTOL,
+    the same best params and CV means within MESH_CV_RTOL, forest heaps
+    bit-equal, GBT predictions within CMP_DEEP_TREE_ATOL, K1 and K2
+    launched on every rank as often as in world 1 and each launch equal
+    to its plain version, every family's fused-training trail falling
+    back with reason ``mesh``."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    from transmogrifai_tpu_torch.examples.synthetic import (
+        synthetic_design_matrix_device,
+    )
+    from transmogrifai_tpu_torch.parallel import distributed as tdist
+    from transmogrifai_tpu_torch.parallel.mesh import make_mesh
+
+    tag = "mesh"
+    t_phase = time.perf_counter()
+    # -- world 1 over NCCL ---------------------------------------------------
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    w1: dict = {}
+    try:
+        t0 = time.perf_counter()
+        tdist.initialize(backend="cuda:nccl")
+        w1["init_s"] = time.perf_counter() - t0
+        mesh1 = make_mesh(1)
+        x, yh, _ = synthetic_design_matrix_device(SCALE_SHAPE[0], seed=5,
+                                                  text_dims=MESH_TEXT_DIMS)
+        y = torch.from_numpy(yh.astype(np.float32)).to(x.device)
+        want = [t.clone() for t in kernels.fused_moments(x, y)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = kernels.fused_moments_sharded(x, y, mesh1)
+        torch.cuda.synchronize()
+        w1["launches"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        assert w1["launches"] == {"fused_moments": 1, "bin_matrix": 0}, w1
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            "fused_moments_sharded at world 1 is not bit-equal to fused_moments"
+        w1.update(check_moments(kernels, x, y))
+        errs.append({k: w1[k] for k in ("max_abs_err", "max_rel_err")})
+
+        def moment_sums(a):
+            return a.sum(dim=0), (a * a).sum(dim=0)
+
+        stats = tdist.all_reduce_stats(moment_sums, mesh1, x)
+        assert all(torch.equal(a, b) for a, b in zip(stats, moment_sums(x))), \
+            "all_reduce_stats at world 1 differs from the local sums"
+        w1["sharded"] = timed(lambda: kernels.fused_moments_sharded(
+            x, y, mesh1), [()])
+        w1["kernel"] = timed(kernels.fused_moments, [(x, y)])
+        w1["all_reduce_stats"] = timed(lambda: tdist.all_reduce_stats(
+            moment_sums, mesh1, x), [()])
+        w1["bound_ms"] = moments_bound_ms(*SCALE_SHAPE)
+        log(f"[{tag}] world 1 over NCCL ({torch.distributed.get_backend()}): "
+            f"initialize() "
+            f"{w1['init_s']:.2f} s; fused_moments_sharded on make_mesh(1) at "
+            f"{SCALE_SHAPE} bit-equal to fused_moments (1 K1 launch), "
+            f"{w1['sharded']['ms']:.4f} ms against the kernel's "
+            f"{w1['kernel']['ms']:.4f} ms (bound {w1['bound_ms']:.4f} ms; the "
+            f"difference is the float64 all-reduces); all_reduce_stats "
+            f"{w1['all_reduce_stats']['ms']:.4f} ms, equal to the local sums")
+        del x, y, want, got, stats
+    finally:
+        tdist.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert not torch.distributed.is_initialized()
+
+    # -- world 2 on one card over gloo ---------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    single = mesh_workloads(kernels, train_fused=False, time_shapes=True)
+    single_s = time.perf_counter() - t0
+    log(f"[{tag}] world 1 (no group): {single_s:.1f} s, walls "
+        f"{ {k: round(v, 3) for k, v in single['walls'].items()} }, launches "
+        f"{single['launches']}, peak {single['peak_gb']:.2f} GB")
+    ctx = tmp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        init_url = "file://" + os.path.join(tmpdir, "store")
+        paths = [os.path.join(tmpdir, f"rank{r}.pkl") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank, args=(r, init_url, paths[r]))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, MESH_RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        world_s = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        assert codes == [0, 0], f"[mesh] ranks exited {codes}"
+        ranks = []
+        for path in paths:
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+    for r in ranks:
+        assert r["world"] == 2, r["world"]
+        sa, sb = r["sanity"], single["sanity"]
+        assert sa["dropped"] == sb["dropped"], (sa["dropped"], sb["dropped"])
+        for k in ("mean", "variance", "corr_label"):
+            np.testing.assert_allclose(sa[k], sb[k], rtol=MESH_MOMENT_RTOL,
+                                       atol=1e-7, err_msg=k)
+        for name in ("cv", "rf", "gbt"):
+            a, b = r[name], single[name]
+            assert a["best_params"] == b["best_params"], (name, a, b)
+            np.testing.assert_allclose(a["fold_metrics"], b["fold_metrics"],
+                                       rtol=MESH_CV_RTOL, atol=1e-7,
+                                       err_msg=name)
+            fam = next(iter(a["trail"]["families"].values()))
+            assert fam == {"backend": "existing", "reason": "mesh"}, (name, fam)
+        for ga, gb in zip(r["rf"]["heaps"], single["rf"]["heaps"]):
+            for fa, fb in zip(ga, gb):
+                assert all(np.array_equal(u, v) for u, v in zip(fa, fb)), \
+                    "the sharded forest's heaps differ from world 1's"
+        gbt_diff = max(float(np.abs(np.asarray(pa) - np.asarray(pb)).max())
+                       for ga, gb in zip(r["gbt"]["prob"], single["gbt"]["prob"])
+                       for pa, pb in zip(ga, gb))
+        assert gbt_diff <= CMP_DEEP_TREE_ATOL, gbt_diff
+        r["gbt_prob_diff"] = gbt_diff
+        assert r["launches"] == single["launches"], (r["launches"],
+                                                     single["launches"])
+        assert r["launches"]["sanity"]["fused_moments"] >= 1
+        assert r["launches"]["rf"]["bin_matrix"] >= 1
+        assert r["k2_calls"] == sum(v["bin_matrix"]
+                                    for v in r["launches"].values())
+        errs.append({k: r["k1"][k] for k in ("max_abs_err", "max_rel_err")})
+        bin_errs.append(r["k2_err"])
+        log(f"[{tag}] rank {r['rank']} of 2 (gloo, cuda:{r['device']}): "
+            f"init {r['init_s']:.2f} s, walls "
+            f"{ {k: round(v, 3) for k, v in r['walls'].items()} }, launches "
+            f"{r['launches']}, collectives {r['collectives']}, peak device "
+            f"memory {r['peak_gb']:.2f} GB; K1 on rows {r['k1']['rows']} "
+            f"matches plain (max abs err {r['k1']['max_abs_err']:.3g}), "
+            f"{r['k2_calls']} K2 calls equal to plain; drops equal, CV "
+            f"winners equal, forest heaps bit-equal, GBT max |prob diff| "
+            f"{gbt_diff:.3g}")
+    wall = time.perf_counter() - t_phase
+    launches = {"mesh_world1": w1["launches"],
+                **{f"mesh_rank{r['rank']}": {
+                    k: sum(v[k] for v in r["launches"].values())
+                    for k in ("fused_moments", "bin_matrix")} for r in ranks}}
+    for t in single["timings"]:
+        where = f"a world-2 rank's {tuple(t['shape'])} ({t['what']})"
+        if t["kernel"] == "fused_moments":
+            log_moments_times(where, t)
+        else:
+            log_bins_times(where, t)
+    log(f"[{tag}] world 2 spawned and joined in {world_s:.1f} s; the "
+        f"validator trails fell back with reason mesh; phase wall {wall:.1f} s "
+        "(two ranks on one card prove the route and its parity, not scaling)")
+    return {"world1": w1, "single": single, "ranks": ranks,
+            "launches": launches, "wall_s": wall, "world_s": world_s,
+            "shapes": single["timings"]}
+
+
+def mesh_only_main() -> int:
+    """``--mesh-only``: the kernels' build and the [mesh] phase alone."""
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.set_float32_matmul_precision("highest")
+    log("[header] card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip())
+    kernels.build()
+    m = mesh_phase(kernels, [], [])
+    print(json.dumps({"launches": m["launches"], "wall_s": m["wall_s"],
+                      "world_s": m["world_s"],
+                      "world1": {k: v for k, v in m["world1"].items()},
+                      "shapes": m["shapes"],
+                      "ranks": [{k: r[k] for k in ("rank", "walls",
+                                                   "collectives", "peak_gb",
+                                                   "init_s", "gbt_prob_diff")}
+                                for r in m["ranks"]]}, default=str))
+    return 0
+
+
 def fused_train_only_main() -> int:
     """``--fused-train-only``: the kernels' build and the [fused_train]
     phase alone."""
@@ -3653,6 +4062,8 @@ def main() -> int:
         return ingest_only_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fused-train-only":
         return fused_train_only_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--mesh-only":
+        return mesh_only_main()
     if len(sys.argv) == 3 and sys.argv[1] == "--families-cpu":
         return families_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
@@ -3967,16 +4378,15 @@ def card_main(cpu_child: subprocess.Popen,
         rank_inputs.append((scores.clone(), y.clone(), vmask.clone()))
         return masked_rank_metrics(scores, y, vmask)
 
-    # one run, counted and profiled (the profiler's overhead is in its
-    # walls, as in the [default_selector] phase)
+    # one run, counted (its profiled window was cut to make room for the
+    # [mesh] phase: 25 s of the profiler's stop and read)
     validator_mod.masked_rank_metrics = keep_rank_inputs
     try:
         with kernel_inputs(kernels) as sel_inputs:
-            sp, sby_name = profile(lambda: run_selector("cuda", sdata, kernels))
+            sp = run_selector("cuda", sdata, kernels)
     finally:
         validator_mod.masked_rank_metrics = masked_rank_metrics
     log_selector("selector", sp)
-    log_profile("selector", 1e3 * (sp["train_s"] + sp["score_s"]), sby_name, 12)
     lr_modes = {c["rank_metric_mode"] for c in sp["results"]
                 if c["model_type"] == "OpLogisticRegression"}
     assert lr_modes == {"approx"}, lr_modes  # CUDA and n >= 100 000
@@ -4113,6 +4523,9 @@ def card_main(cpu_child: subprocess.Popen,
     # -- 10d. the fused training programs ----------------------------------
     fused = fused_train_phase(kernels, errs, bin_errs, timings)
 
+    # -- 10e. multi-GPU on torch.distributed: world 1 over NCCL, world 2 ----
+    mesh = mesh_phase(kernels, errs, bin_errs)
+
     # -- 11. result lines ---------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
@@ -4132,6 +4545,7 @@ def card_main(cpu_child: subprocess.Popen,
                 **families_by_path(families, k),
                 "ingest_scale": ingest["launches"][k],
                 "fused_train": fused["launches"][k],
+                **{path: v[k] for path, v in mesh["launches"].items()},
                 **serve_by_path(serve, k)}
 
     def sel_launches(k):
@@ -4186,6 +4600,12 @@ def card_main(cpu_child: subprocess.Popen,
                                              ingest["shapes"]),
         "fused_train_existing_launches": fused["existing_launches"][
             "fused_moments"],
+        "mesh_path_shapes": [
+            {"what": "world 1 over NCCL, fused_moments_sharded",
+             "shape": list(SCALE_SHAPE), "ms": mesh["world1"]["sharded"]["ms"],
+             "kernel_ms": mesh["world1"]["kernel"]["ms"],
+             "bound_ms": mesh["world1"]["bound_ms"]},
+            *[t for t in mesh["shapes"] if t["kernel"] == "fused_moments"]],
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -4229,6 +4649,8 @@ def card_main(cpu_child: subprocess.Popen,
                                                   fused["shapes"]),
         "fused_train_existing_launches": fused["existing_launches"][
             "bin_matrix"],
+        "mesh_path_shapes": [t for t in mesh["shapes"]
+                             if t["kernel"] == "bin_matrix"],
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}

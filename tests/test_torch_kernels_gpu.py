@@ -795,3 +795,25 @@ def test_fused_lr_training_on_the_card_equals_the_existing_path(cuda):
         Xd, torch.tensor(y, dtype=torch.float32, device=cuda), W, regs, ens)
     np.testing.assert_array_equal(res.betas, betas)
     np.testing.assert_array_equal(res.b0s, b0s)
+
+
+def test_fused_moments_sharded_at_world_one_over_nccl(cuda, tmp_path):
+    """``fused_moments_sharded`` on a one-rank NCCL mesh runs K1 on the
+    whole block and all-reduces its partials in float64: bit-equal to
+    ``fused_moments`` on the same tensors, one launch."""
+    from transmogrifai_tpu_torch.parallel import distributed as tdist
+    from transmogrifai_tpu_torch.parallel.mesh import make_mesh
+
+    tdist.initialize(coordinator_address="file://" + str(tmp_path / "store"),
+                     num_processes=1, process_id=0, backend="cuda:nccl")
+    try:
+        x, y = _inputs(300_001, 39, 7, cuda)
+        want = tk.fused_moments(x, y)
+        before = tk.fused_moments.launches
+        got = tk.fused_moments_sharded(x, y, make_mesh(1))
+        assert tk.fused_moments.launches == before + 1
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b)
+    finally:
+        tdist.shutdown()

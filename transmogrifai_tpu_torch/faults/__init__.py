@@ -14,11 +14,23 @@ reader.malformed_row       a reader row turns malformed/truncated mid-
                            ingest (quarantine/strict drill)
 reader.type_flip           a numeric reader cell turns to junk text
                            (type-flip quarantine drill)
+collective.delay           a mesh collective straggles ``delay`` seconds
+mesh.peer_hang             a mesh peer wedges: the collective stalls on
+                           EVERY armed call (the straggler retry stalls
+                           too, escalating to shrink-to-survivors)
+mesh.peer_die              a mesh peer dies mid-collective (classified
+                           dead immediately; no retry, straight to the
+                           survivor recompute)
+mesh.init_no_coordinator   distributed.initialize: the coordinator never
+                           answers (bootstrap-deadline drill)
 ========================== ==================================================
 
-The engine accepts every point name of the JAX package (serving, io,
-supervisor, mesh, registry, canary, continuous, drift, bulk, fleet); their
-call sites come with the subsystems that hold them (ROADMAP.md queue 1).
+The mesh points fire in ``parallel/resilience.py`` (the watchdog's
+worker, before the guarded step) and ``parallel/distributed.py``
+(``initialize``'s connect).  The engine accepts every point name of the
+JAX package (serving, io, supervisor, registry, canary, continuous,
+drift, bulk, fleet); their call sites come with the subsystems that hold
+them (ROADMAP.md queue 1).
 """
 from .injection import (
     DEFAULT_KILL_EXIT,

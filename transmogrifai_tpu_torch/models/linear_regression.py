@@ -33,10 +33,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import RowReducer
 from ..utils.device import resolve_device
 from .base import PredictorEstimator
 from .logistic_regression import _f32
-from .packed_newton import _batched_diag, pd_jitter, run_newton, solve_pos
+from .packed_newton import (
+    _batched_diag, fit_batched, pd_jitter, run_newton, solve_pos)
 
 
 def _not_ported(what: str, item) -> NotImplementedError:
@@ -94,36 +96,39 @@ def linreg_core(X, y, w, reg, elastic_net, l1_iters: int = 8):
 
 
 def linreg_fit_batched_core(X, y, W, regs, ens, l1_iters: int = 8,
-                            fixed_point: bool = False):
+                            fixed_point: bool = False, rows=None):
     """B fits over the shared X [n, d] in one loop: W [B, n] per-candidate
     sample weights, regs/ens [B].  Per candidate the math is
     :func:`linreg_core`'s; ``fixed_point`` ends the reweighting loop at
-    the bitwise fixed point (the same betas).  Returns (betas [B, d],
-    intercepts [B])."""
+    the bitwise fixed point (the same betas); ``rows``: the row reducer of
+    a mesh fit (see ``logistic_regression.lr_fit_batched_core``).  Returns
+    (betas [B, d], intercepts [B])."""
+    red = rows if rows is not None else RowReducer()
     n, d = X.shape
     B = W.shape[0]
-    wsum = W.sum(dim=1)                                 # [B]
-    m0 = X.mean(dim=0)
+    (wsum,) = red.sum(W.sum(dim=1))                     # [B]
+    m0 = red.mean_rows(X)
     X = X - m0
-    mu = (W @ X) / wsum[:, None]                        # [B, d]
-    msq = (W @ (X * X)) / wsum[:, None]
+    mu, msq, ybar = red.sum(W @ X, W @ (X * X), W @ y)
+    mu, msq = mu / wsum[:, None], msq / wsum[:, None]   # [B, d]
     var = msq - mu**2
     active = var > 1e-6 * msq + 1e-30
     activef = active.to(X.dtype)
     sd = torch.where(active, torch.sqrt(torch.clamp(var, min=1e-12)),
                      torch.ones_like(var))
-    ybar = (W @ y) / wsum
+    ybar = ybar / wsum
     lam_l2 = (regs * (1.0 - ens))[:, None]
     lam_l1 = (regs * ens)[:, None]
-    XtWX = torch.stack([X.T @ (X * W[b][:, None]) for b in range(B)])
-    a = W @ X
+    XtWX, a = red.sum(
+        torch.stack([X.T @ (X * W[b][:, None]) for b in range(B)]), W @ X)
     G = (
         XtWX - mu[:, :, None] * a[:, None, :] - a[:, :, None] * mu[:, None, :]
         + wsum[:, None, None] * mu[:, :, None] * mu[:, None, :]
     ) / (sd[:, :, None] * sd[:, None, :]) / wsum[:, None, None]
     G = G * (activef[:, :, None] * activef[:, None, :])
     r = W * (y[None, :] - ybar[:, None])                # [B, n]
-    c = ((r @ X - mu * r.sum(dim=1)[:, None]) / sd / wsum[:, None]) * activef
+    rX, rs = red.sum(r @ X, r.sum(dim=1))
+    c = ((rX - mu * rs[:, None]) / sd / wsum[:, None]) * activef
     ridge = pd_jitter(torch.diagonal(G, dim1=1, dim2=2).sum(dim=1) / d, d)
 
     def step(beta):
@@ -135,7 +140,7 @@ def linreg_fit_batched_core(X, y, W, regs, ens, l1_iters: int = 8,
 
     beta_s = run_newton(
         step, torch.zeros((B, d), dtype=X.dtype, device=X.device), l1_iters,
-        fixed_point)
+        fixed_point, red)
     beta = beta_s / sd
     intercept = ybar - ((mu + m0) * beta).sum(dim=1)
     return beta, intercept
@@ -172,14 +177,17 @@ class OpLinearRegression(PredictorEstimator):
         )
         return {"beta": beta.cpu().numpy(), "intercept": float(b0)}
 
-    def fit_arrays_batched(self, X, y, W, regs, ens):
+    def fit_arrays_batched(self, X, y, W, regs, ens, mesh=None):
         """Batched fit: W [B, n] weight masks, regs/ens [B] -> (betas
         [B, d], intercepts [B]) as numpy; host arrays or tensors go to the
-        estimator's device as float32."""
+        estimator's device as float32.  ``mesh``: the validator's CV mesh
+        (``packed_newton.fit_batched``)."""
         dev = resolve_device(self.device)
-        beta, b0 = linreg_fit_batched_core(
-            _f32(X, dev), _f32(y, dev), _f32(W, dev),
-            _f32(regs, dev), _f32(ens, dev),
+        beta, b0 = fit_batched(
+            linreg_fit_batched_core,
+            (_f32(X, dev), _f32(y, dev), _f32(W, dev),
+             _f32(regs, dev), _f32(ens, dev)),
+            mesh,
         )
         return beta.cpu().numpy(), b0.cpu().numpy()
 

@@ -28,11 +28,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import RowReducer
 from ..utils.device import resolve_device
 from .base import PredictorEstimator
 from .logistic_regression import _f32, _f64
 from .packed_newton import (
     _batched_diag,
+    fit_batched,
     guarded_step,
     pd_jitter,
     run_newton,
@@ -113,20 +115,24 @@ def svc_fit_batched_core(
     regs: torch.Tensor,
     iters: int = 20,
     fixed_point: bool = False,
+    rows=None,
 ):
     """B squared-hinge fits in one Newton loop over the shared X [n, d]:
     W [B, n] per-candidate sample weights, regs [B].  Per candidate the
     math is :func:`svc_newton_core`'s; ``fixed_point`` ends the loop at
-    the bitwise fixed point (the same betas).  Returns (betas [B, d],
-    intercepts [B]) on the raw scale."""
+    the bitwise fixed point (the same betas); ``rows``: the row reducer
+    of a mesh fit (see ``logistic_regression.lr_fit_batched_core``).
+    Returns (betas [B, d], intercepts [B]) on the raw scale."""
+    red = rows if rows is not None else RowReducer()
     n, d = X.shape
     B = W.shape[0]
     ypm = 2.0 * y - 1.0
-    wsum = torch.clamp(W.sum(dim=1), min=1e-12)[:, None]   # [B, 1]
-    m0 = X.mean(dim=0)
+    (wsum,) = red.sum(W.sum(dim=1))
+    wsum = torch.clamp(wsum, min=1e-12)[:, None]           # [B, 1]
+    m0 = red.mean_rows(X)
     X = X - m0
-    mu = (W @ X) / wsum                                    # [B, d]
-    msq = (W @ (X * X)) / wsum
+    mu, msq = red.sum(W @ X, W @ (X * X))
+    mu, msq = mu / wsum, msq / wsum                        # [B, d]
     var = msq - mu**2
     active = var > 1e-6 * msq + 1e-30
     activef = active.to(X.dtype)
@@ -146,12 +152,12 @@ def svc_fit_batched_core(
         margin = ypm[None, :] * z                          # [B, n]
         act_rows = (margin < 1.0).to(X.dtype) * W
         r = act_rows * (margin - 1.0) * ypm[None, :]
-        sr = r.sum(dim=1)
-        g = ((r @ X - mu * sr[:, None]) / sd / wsum
+        rX, sr, XtAX, a, s = red.sum(
+            r @ X, r.sum(dim=1),
+            torch.stack([X.T @ (X * act_rows[b][:, None]) for b in range(B)]),
+            act_rows @ X, act_rows.sum(dim=1))
+        g = ((rX - mu * sr[:, None]) / sd / wsum
              + 2.0 * lam * beta) * activef
-        XtAX = torch.stack([X.T @ (X * act_rows[b][:, None]) for b in range(B)])
-        a = act_rows @ X
-        s = act_rows.sum(dim=1)
         Hs = (
             XtAX - mu[:, :, None] * a[:, None, :] - a[:, :, None] * mu[:, None, :]
             + s[:, None, None] * mumu
@@ -170,10 +176,16 @@ def svc_fit_batched_core(
         step,
         (torch.zeros((B, d), dtype=X.dtype, device=X.device),
          torch.zeros((B,), dtype=X.dtype, device=X.device)),
-        iters, fixed_point,
+        iters, fixed_point, red,
     )
     beta = beta_s / sd
     return beta, b0 - ((mu + m0) * beta).sum(dim=1)
+
+
+def _svc_batched_core(X, y, W, regs, ens, **kw):
+    """:func:`svc_fit_batched_core` in the shared signature of the batched
+    linear cores (the SVM has no elastic-net term)."""
+    return svc_fit_batched_core(X, y, W, regs, **kw)
 
 
 class OpLinearSVC(PredictorEstimator):
@@ -206,18 +218,23 @@ class OpLinearSVC(PredictorEstimator):
         )
         return {"beta": beta.cpu().numpy(), "intercept": float(b0)}
 
-    def fit_arrays_batched(self, X, y, W, regs, ens):
+    def fit_arrays_batched(self, X, y, W, regs, ens, mesh=None):
         """Batched fit: W [B, n] weight masks, regs [B] -> (betas [B, d],
         intercepts [B]) as numpy; the whole CV fold x grid fan-out as one
         Newton loop (the contract of
         ``OpLogisticRegression.fit_arrays_batched``; the SVM has no
         elastic-net term, so ``ens`` is accepted and ignored).  Inputs may
         be host arrays or tensors; they go to the estimator's device as
-        float32 (a tensor already there is not copied)."""
+        float32 (a tensor already there is not copied).  ``mesh``: the
+        validator's CV mesh (``packed_newton.fit_batched``)."""
         self._check_binary_labels(y)
         dev = resolve_device(self.device)
-        beta, b0 = svc_fit_batched_core(
-            _f32(X, dev), _f32(y, dev), _f32(W, dev), _f32(regs, dev),
+        beta, b0 = fit_batched(
+            _svc_batched_core,
+            (_f32(X, dev), _f32(y, dev), _f32(W, dev), _f32(regs, dev),
+             _f32(np.zeros_like(np.asarray(regs, np.float32))
+                  if ens is None else ens, dev)),
+            mesh,
             iters=int(self.params.get("max_iter", 20)),
         )
         return beta.cpu().numpy(), b0.cpu().numpy()

@@ -57,11 +57,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import RowReducer
 from ..utils.device import resolve_device
 from .base import PredictorEstimator
 from .packed_newton import (
     _batched_diag,
     _gram_2d,
+    fit_batched,
     guarded_step,
     pd_jitter,
     run_newton,
@@ -162,20 +164,26 @@ def lr_fit_batched_core(
     ens: torch.Tensor,
     iters: int = 25,
     fixed_point: bool = False,
+    rows=None,
 ):
     """B binary fits in one Newton loop over the shared X [n, d]: W [B, n]
     per-candidate sample weights, regs/ens [B].  Per candidate the math is
     :func:`lr_newton_core`'s; see the module docstring for the batched
     layout.  ``fixed_point`` ends the loop at the bitwise fixed point
-    (``packed_newton.newton_fixed_point``): the same betas.  Returns
-    (betas [B, d], intercepts [B]) on the raw scale."""
+    (``packed_newton.newton_fixed_point``): the same betas.  ``rows``
+    (``parallel.distributed.RowReducer``) is given when X holds one
+    rank's row block of a mesh: every reduction over rows is then one
+    all-reduce over the data group (``packed_newton.fit_batched_sharded``);
+    without it they are local.  Returns (betas [B, d], intercepts [B]) on
+    the raw scale."""
+    red = rows if rows is not None else RowReducer()
     n, d = X.shape
     B = W.shape[0]
-    wsum = W.sum(dim=1)[:, None]                       # [B, 1]
-    m0 = X.mean(dim=0)
+    (wsum,) = red.sum(W.sum(dim=1)[:, None])           # [B, 1]
+    m0 = red.mean_rows(X)
     X = X - m0
-    mu = (W @ X) / wsum                                # [B, d]
-    msq = (W @ (X * X)) / wsum
+    mu, msq = red.sum(W @ X, W @ (X * X))
+    mu, msq = mu / wsum, msq / wsum                    # [B, d]
     var = msq - mu**2
     active = var > 1e-6 * msq + 1e-30
     activef = active.to(X.dtype)
@@ -197,13 +205,12 @@ def lr_fit_batched_core(
         wt = W * p * (1.0 - p) + eps
         resid = W * (p - y[None, :])
         l1_diag = lam_l1 / (beta.abs() + 1e-3)
-        Xr = resid @ X
-        sr = resid.sum(dim=1)
+        Xr, sr, XtWX, a, s = red.sum(
+            resid @ X, resid.sum(dim=1),
+            torch.stack([X.T @ (X * wt[b][:, None]) for b in range(B)]),
+            wt @ X, wt.sum(dim=1))
         g = ((Xr - mu * sr[:, None]) / sd / wsum
              + (lam_l2 + l1_diag) * beta) * activef
-        XtWX = torch.stack([X.T @ (X * wt[b][:, None]) for b in range(B)])
-        a = wt @ X
-        s = wt.sum(dim=1)
         Hs = (
             XtWX - mu[:, :, None] * a[:, None, :] - a[:, :, None] * mu[:, None, :]
             + s[:, None, None] * mumu
@@ -223,7 +230,7 @@ def lr_fit_batched_core(
         step,
         (torch.zeros((B, d), dtype=X.dtype, device=X.device),
          torch.zeros((B,), dtype=X.dtype, device=X.device)),
-        iters, fixed_point,
+        iters, fixed_point, red,
     )
     beta = beta_s / sd
     intercept = b0 - ((mu + m0) * beta).sum(dim=1)
@@ -481,16 +488,21 @@ class OpLogisticRegression(PredictorEstimator):
             _f32(X, dev), _f32(y, dev), _f32(w, dev), reg, en, iters=iters)
         return {"beta": beta.cpu().numpy(), "intercept": float(b0)}
 
-    def fit_arrays_batched(self, X, y, W, regs, ens):
+    def fit_arrays_batched(self, X, y, W, regs, ens, mesh=None):
         """Batched binary fit: W [B, n] weight masks, regs/ens [B] ->
         (betas [B, d], intercepts [B]) as numpy.  One Newton loop is the
         whole CV fold x grid fan-out.  Inputs may be host arrays or
         tensors; they go to the estimator's device as float32 (a tensor
-        already there is not copied)."""
+        already there is not copied).  With a ``mesh`` (the validator's CV
+        mesh) the inputs are the replicated ones every rank holds, and the
+        fit shards rows and candidates over it
+        (``packed_newton.fit_batched``)."""
         dev = resolve_device(self.device)
-        beta, b0 = lr_fit_batched_core(
-            _f32(X, dev), _f32(y, dev), _f32(W, dev),
-            _f32(regs, dev), _f32(ens, dev),
+        beta, b0 = fit_batched(
+            lr_fit_batched_core,
+            (_f32(X, dev), _f32(y, dev), _f32(W, dev),
+             _f32(regs, dev), _f32(ens, dev)),
+            mesh,
             iters=int(self.params.get("max_iter", 25)),
         )
         return beta.cpu().numpy(), b0.cpu().numpy()

@@ -17,6 +17,18 @@ The JAX package's MXU-packed CV Gram (``lr_fit_batched_packed*``,
 route this package mirrors.  Its bitwise fixed-point early exit,
 ``newton_fixed_point`` (``run_newton(..., fixed_point=True)``), is the
 fit loop of the fused training programs (``local/fused_train.py``).
+
+On a mesh (``parallel/mesh.py``) the batched cores take a ``rows``
+reducer (``parallel.distributed.RowReducer``): every reduction over rows
+is one all-reduce over the data group, the identity without a mesh, and
+the fixed-point exit all-reduces its "changed" flag so that every rank
+leaves the loop at the same step.  :func:`fit_batched_sharded` cuts a
+rank's rows and candidates and gathers the betas; the validator runs
+such a fit under the collective watchdog (``parallel/resilience.py``),
+which is the one guard of the route: the JAX package's second guard,
+``run_packed_guarded``, wraps its MXU-packed mesh Gram
+(``packed_weighted_gram``, ``lr_fit_batched_packed``), a TPU-only route
+that stays unported.
 """
 from __future__ import annotations
 
@@ -61,7 +73,7 @@ def _int_view(t: torch.Tensor) -> torch.Tensor:
                    8: torch.int64}[t.element_size()])
 
 
-def newton_fixed_point(step, init, length: int):
+def newton_fixed_point(step, init, length: int, rows=None):
     """Run ``carry = step(carry)`` until the carry reaches a BITWISE fixed
     point, or ``length`` iterations, whichever comes first.
 
@@ -78,7 +90,10 @@ def newton_fixed_point(step, init, length: int):
 
     Each test of the exit is a host read of one device flag: one sync
     per Newton step, as the JAX package's ``while_loop`` condition is
-    one per step.  The fixed-length loop enqueues without a sync."""
+    one per step.  The fixed-length loop enqueues without a sync.  With a
+    sharded ``rows`` reducer the "changed" flag is all-reduced (MAX) over
+    the data group, so every rank exits at the same step even if one
+    rank's carry were to differ."""
     carry = init
     for _ in range(length):
         new = step(carry)
@@ -88,20 +103,25 @@ def newton_fixed_point(step, init, length: int):
                   & (new_leaf == new_leaf)).all()
             same = eq if same is None else same & eq
         carry = new
-        if bool(same):
+        if rows is not None and rows.sharded:
+            if not rows.any(~same):
+                break
+        elif bool(same):
             break
     return carry
 
 
-def run_newton(step, init, length: int, fixed_point: bool = False):
+def run_newton(step, init, length: int, fixed_point: bool = False,
+               rows=None):
     """The one point of truth for the Newton loop: ``carry = step(carry)``
     for exactly ``length`` iterations (the JAX package's ``lax.scan`` of
     the step, as a Python loop that never reads a value back to the host,
     so on the card every iteration only enqueues work), or, with
     ``fixed_point``, :func:`newton_fixed_point`, whose carry is the same
-    with the wasted tail iterations left out."""
+    with the wasted tail iterations left out (``rows``: the fit's row
+    reducer, for the flag's all-reduce)."""
     if fixed_point:
-        return newton_fixed_point(step, init, length)
+        return newton_fixed_point(step, init, length, rows)
     carry = init
     for _ in range(length):
         carry = step(carry)
@@ -146,3 +166,37 @@ def guarded_step(delta: torch.Tensor, g: torch.Tensor, axis=None) -> torch.Tenso
 def _batched_diag(v: torch.Tensor) -> torch.Tensor:
     """[B, d] -> [B, d, d] with v on the diagonals."""
     return torch.diag_embed(v)
+
+
+def fit_batched_sharded(core, X, y, W, regs, ens, mesh, **kw):
+    """A batched linear core (``lr_fit_batched_core``,
+    ``svc_fit_batched_core``, ``linreg_fit_batched_core``) over ``mesh``
+    (``('data',)`` or ``('replica', 'data')``).  ``X`` [n, d], ``y`` [n],
+    ``W`` [B, n], ``regs``/``ens`` [B] are the replicated inputs every
+    rank holds, as tensors on the rank's device.  This rank fits its
+    ``replica`` block of the B candidates (fold-major, ``r | B``) on its
+    ``data`` block of the rows, every reduction over rows all-reduced over
+    its data group; the betas are then all-gathered over the replica
+    group in candidate order.  Returns (betas [B, d], intercepts [B]),
+    equal on every rank."""
+    from ..parallel.distributed import (
+        RowReducer, candidate_block, gather_candidates)
+    from ..parallel.mesh import row_block
+
+    lo, hi = row_block(X.shape[0], mesh)
+    c_lo, c_hi = candidate_block(W.shape[0], mesh)
+    beta, b0 = core(X[lo:hi], y[lo:hi], W[c_lo:c_hi, lo:hi],
+                    regs[c_lo:c_hi], ens[c_lo:c_hi],
+                    rows=RowReducer(mesh, n_rows=X.shape[0]), **kw)
+    return gather_candidates(beta, mesh), gather_candidates(b0, mesh)
+
+
+def fit_batched(core, args, mesh, **kw):
+    """A batched linear fit of ``core`` over ``args`` (X, y, W, regs, ens:
+    tensors on one device): the core itself without a mesh, and
+    :func:`fit_batched_sharded` with one.  The collective watchdog that
+    guards a mesh fit is the caller's (the validator's
+    ``guarded_collective("validator.fit_arrays_batched", ...)``)."""
+    if mesh is None:
+        return core(*args, **kw)
+    return fit_batched_sharded(core, *args, mesh, **kw)

@@ -54,7 +54,18 @@ the JAX package's ``_fit_forest_folds_grid_core`` and
 from, so the plans call them as they are and get the same heaps.
 ``fits_per_dispatch`` is the JAX package's routing rule for those plans
 (see its docstring; ``local/fused_train.tree_fits_cap`` applies its
-``TX_TREE_*`` knobs).  Not here: the TPU watchdog chunking of device
+``TX_TREE_*`` knobs).
+
+On a mesh every fit function takes ``rows``, the row reducer of the
+mesh's data group (``parallel.distributed.RowReducer``; None, the
+default, is a single-device fit): each rank holds its own block of the
+binned rows, and each level's histogram and each GBT fold's initial
+margin are combined over the ranks.  A histogram keeps its fixed in-rank
+order and the ranks' partials add in rank order (an all-gather, then the
+sum), so the same inputs give the same bits from run to run.  Split
+choice, the subset masks and the leaf values then come from combined
+values alone, the same on every rank; at integer weights (gini counts,
+bootstrap draws) the heaps equal a single-device fit's bit for bit.  Not here: the TPU watchdog chunking of device
 programs, the TPU-sized scatter cap and the int8 opt-out switch.
 """
 from __future__ import annotations
@@ -149,14 +160,15 @@ def _hist_chunk_rows(L: int, B: int) -> int:
     return max(_HIST_CHUNK_ROWS, L * B // _HIST_PARTIAL_RATIO)
 
 
-def _level_hist(bins, node_of_row, stats_w, L: int, B: int):
+def _level_hist(bins, node_of_row, stats_w, L: int, B: int, rows=None):
     """Per-level histogram [L, d, B, C] by one segment sum over all
     (row, feature) pairs - segment id = ((node * d) + j) * B + bin - in a
     fixed order on every device (see the module docstring): each chunk of
     ``_hist_chunk_rows(L, B)`` rows in row order, the chunk partials
     in chunk order, and the blocks that ``_HIST_BLOCK_ELEMS`` bounds in
     block order.  The card and the CPU chunk alike, so both add the same
-    partials."""
+    partials.  ``rows``: the mesh's row reducer, which adds the ranks'
+    histograms in rank order (an empty block contributes zeros)."""
     n, d = bins.shape
     C = stats_w.shape[1]
     S = L * d * B
@@ -167,12 +179,12 @@ def _level_hist(bins, node_of_row, stats_w, L: int, B: int):
     hist = None
     for i in range(0, n, block):
         nr, bb, sw = (t[i: i + block] for t in (node_of_row, bins, stats_w))
-        rows = nr.shape[0]
-        K = -(-rows // chunk)
-        chunk_base = torch.arange(rows, device=bins.device) // chunk * S
+        nrows = nr.shape[0]
+        K = -(-nrows // chunk)
+        chunk_base = torch.arange(nrows, device=bins.device) // chunk * S
         seg = (chunk_base[:, None] + (nr[:, None] * d + cols[None, :]) * B
                + bb.long()).reshape(-1)
-        flat = sw[:, None, :].expand(rows, d, C).reshape(-1, C)
+        flat = sw[:, None, :].expand(nrows, d, C).reshape(-1, C)
         part = torch.zeros((K * S, C), dtype=sw.dtype, device=sw.device)
         if sw.device.type == "cpu":
             part.index_add_(0, seg, flat)
@@ -180,6 +192,10 @@ def _level_hist(bins, node_of_row, stats_w, L: int, B: int):
             part.index_put_((seg,), flat, accumulate=True)
         part = part[:S] if K == 1 else part.view(K, S, C).sum(dim=0)
         hist = part if hist is None else hist + part
+    if hist is None:
+        hist = torch.zeros((S, C), dtype=stats_w.dtype, device=stats_w.device)
+    if rows is not None:
+        hist = rows.sum_ranked(hist)
     return hist.reshape(L, d, B, C)
 
 
@@ -211,6 +227,7 @@ def fit_tree(
     min_instances_per_node: float = 1.0,
     min_info_gain: float = 0.0,
     node_mask: torch.Tensor | None = None,  # [2^max_depth - 1, d] bool
+    rows=None,
 ):
     """Grow one tree on the bins' device; returns heap tensors there:
     feature [M] int32, thr_bin [M] int32, is_leaf [M] bool, value [M, C].
@@ -219,7 +236,8 @@ def fit_tree(
     ``node_mask`` holds the features each internal node's split search
     may use, row i for heap node i (``node_subset_masks``: the JAX
     package's ``rng_key`` and ``feature_subset_p < 1``); None lets every
-    node use ``feat_mask``."""
+    node use ``feat_mask``.  ``rows``: the mesh's row reducer when
+    ``bins`` holds one rank's rows (see the module docstring)."""
     n, d = bins.shape
     C = n_stats
     M = 2 ** (max_depth + 1) - 1
@@ -238,7 +256,7 @@ def fit_tree(
         L = 2**level
         base = L - 1  # heap offset of this level
         # ---- histograms: one segment sum over all (row, feature) pairs --
-        hist = _level_hist(bins, node_of_row, stats_w, L, B)
+        hist = _level_hist(bins, node_of_row, stats_w, L, B, rows)
 
         node_stats = hist[:, 0, :, :].sum(dim=1)  # [L, C] total per node
         node_imp, node_w = _impurity(node_stats, impurity_kind)
@@ -343,6 +361,7 @@ def fit_forest(
     min_instances_per_node: float = 1.0,
     min_info_gain: float = 0.0,
     node_masks: torch.Tensor | None = None,
+    rows=None,
 ):
     """Forest fit: trees one after another through the same level
     histograms (the JAX package's ``lax.map``); boot_w [T, n] bootstrap
@@ -358,12 +377,12 @@ def fit_forest(
     heaps = []
     for t in range(boot_w.shape[0]):
         w = w_row * boot_w[t]
-        rows = torch.nonzero(w > 0).squeeze(1)
+        keep = torch.nonzero(w > 0).squeeze(1)
         heaps.append(fit_tree(
-            bins[rows], stats_row[rows], w[rows], feat_masks[t],
+            bins[keep], stats_row[keep], w[keep], feat_masks[t],
             max_depth, max_bins, impurity_kind, n_stats,
             min_instances_per_node, min_info_gain,
-            None if node_masks is None else node_masks[t],
+            None if node_masks is None else node_masks[t], rows,
         ))
     return _stack_heaps(heaps)
 
@@ -375,6 +394,7 @@ def fit_forest_folds(
     min_instances_per_node: float = 1.0,
     min_info_gain: float = 0.0,
     node_masks: torch.Tensor | None = None,
+    rows=None,
 ):
     """Forest CV fan-out: the folds ride the weight axis over one shared
     binning, bootstrap and set of subset masks, one fold after another
@@ -383,7 +403,7 @@ def fit_forest_folds(
     return _stack_heaps([
         fit_forest(bins, stats_row, w_rows[f], boot_w, feat_masks,
                    max_depth, max_bins, impurity_kind, n_stats,
-                   min_instances_per_node, min_info_gain, node_masks)
+                   min_instances_per_node, min_info_gain, node_masks, rows)
         for f in range(w_rows.shape[0])
     ])
 
@@ -393,6 +413,7 @@ def fit_forest_folds_grid(
     min_instances_g, min_info_gain_g,  # [G] per-grid-point scalars
     max_depth: int, max_bins: int, impurity_kind: str, n_stats: int,
     node_masks: torch.Tensor | None = None,
+    rows=None,
 ):
     """Grid x fold forest fan-out: grid points sharing the static shapes
     (depth, bins, trees, subset strategy, seed, subsampling rate) differ
@@ -404,15 +425,19 @@ def fit_forest_folds_grid(
     return _stack_heaps([
         fit_forest_folds(bins, stats_row, w_rows, boot_w, feat_masks,
                          max_depth, max_bins, impurity_kind, n_stats,
-                         float(mi), float(mg), node_masks)
+                         float(mi), float(mg), node_masks, rows)
         for mi, mg in zip(min_instances_g, min_info_gain_g)
     ])
 
 
-def _gbt_f0(y, w_rows, is_classification: bool):
-    """Per-fold initial margin [F] (weighted base rate / mean)."""
-    wsum = torch.clamp(w_rows.sum(dim=1), min=1e-12)
-    ybar = (w_rows * y[None, :]).sum(dim=1) / wsum
+def _gbt_f0(y, w_rows, is_classification: bool, rows=None):
+    """Per-fold initial margin [F] (weighted base rate / mean), its sums
+    combined over the mesh's ranks when ``rows`` is given."""
+    wsum, wy = w_rows.sum(dim=1), (w_rows * y[None, :]).sum(dim=1)
+    if rows is not None:
+        wsum, wy = rows.sum(wsum, wy)
+    wsum = torch.clamp(wsum, min=1e-12)
+    ybar = wy / wsum
     if is_classification:
         pbar = torch.clamp(ybar, 1e-6, 1 - 1e-6)
         return torch.log(pbar / (1.0 - pbar))
@@ -422,14 +447,14 @@ def _gbt_f0(y, w_rows, is_classification: bool):
 def _gbt_boost(
     bins, y, w, num_trees: int, max_depth: int, max_bins: int,
     is_classification: bool, step_size: float,
-    min_instances_per_node: float, min_info_gain: float,
+    min_instances_per_node: float, min_info_gain: float, rows=None,
 ):
     """One fold's boosting: a Python loop over trees carrying the margin
     on the device.  Its initial margin comes from its own [1, n] weight
     row, so a fold of a fan-out computes exactly what a one-fold fit
     does.  Returns (f0 [1], heaps with leading [T])."""
     n, d = bins.shape
-    f0 = _gbt_f0(y, w[None, :], is_classification)
+    f0 = _gbt_f0(y, w[None, :], is_classification, rows)
     feat_mask = torch.ones((d,), dtype=torch.bool, device=bins.device)
     F = f0[0].expand(n)
     heaps = []
@@ -445,7 +470,7 @@ def _gbt_boost(
         heap = fit_tree(
             bins, stats, w, feat_mask,
             max_depth, max_bins, "variance", 4,
-            min_instances_per_node, min_info_gain,
+            min_instances_per_node, min_info_gain, rows=rows,
         )
         out = predict_tree(bins, *heap, max_depth)
         leaf_val = out[:, 1] / torch.clamp(out[:, 3], min=1e-12)
@@ -458,6 +483,7 @@ def fit_gbt_folds(
     bins, y, w_rows,           # w_rows [F, n]: one weight vector per fold
     num_trees: int, max_depth: int, max_bins: int, is_classification: bool,
     step_size: float, min_instances_per_node: float, min_info_gain: float,
+    rows=None,
 ):
     """GBT CV fan-out with [w, wg, wgg, wh] stat channels (Friedman
     variance impurity, Newton leaf sum(wg)/sum(wh)): the folds ride the
@@ -467,7 +493,7 @@ def fit_gbt_folds(
     fits = [
         _gbt_boost(bins, y, w_rows[f], num_trees, max_depth, max_bins,
                    is_classification, step_size, min_instances_per_node,
-                   min_info_gain)
+                   min_info_gain, rows)
         for f in range(w_rows.shape[0])
     ]
     f0s = torch.cat([f0 for f0, _ in fits])
@@ -478,6 +504,7 @@ def fit_gbt_folds_grid(
     bins, y, w_rows,
     step_g, min_instances_g, min_info_gain_g,  # [G] per-grid-point scalars
     num_trees: int, max_depth: int, max_bins: int, is_classification: bool,
+    rows=None,
 ):
     """Grid x fold GBT fan-out: grid points sharing the static shapes
     (trees, depth, bins) differ only in step size, min instances and min
@@ -489,7 +516,8 @@ def fit_gbt_folds_grid(
     with leading [G, F, T])."""
     fits = [
         fit_gbt_folds(bins, y, w_rows, num_trees, max_depth, max_bins,
-                      is_classification, float(ss), float(mi), float(mg))
+                      is_classification, float(ss), float(mi), float(mg),
+                      rows)
         for ss, mi, mg in zip(step_g, min_instances_g, min_info_gain_g)
     ]
     f0s = torch.stack([f0 for f0, _ in fits])

@@ -40,6 +40,15 @@ head arithmetic.
 host bins, as the JAX package's native backend does, one fold at a time;
 its models score like any other (K2 on the device).
 
+With a product ``data`` mesh (``parallel.mesh.data_mesh_or_none``: a
+process group of two or more ranks) the torch learner's fold and grid
+fits shard their rows (``_tree_cv_mesh``, ``_shard_fold_inputs``): the
+edges, the Poisson bootstrap and the subset masks are drawn over the
+global rows as a single process draws them, then each rank bins its own
+row block with K2 and fits on it, every level's histogram combined over
+the ranks (``tree_kernel``'s ``rows`` reducer).  Every rank gets the
+same heaps.
+
 ``fused_tree_plan`` is the fused training programs' seam
 (``local/fused_train.py``): the host prep of ``fit_arrays_folds_grid``
 (the edges, the Poisson bootstrap, the per-tree seeds and their subset
@@ -53,7 +62,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..parallel.distributed import RowReducer
 from ..parallel.kernels import bin_matrix
+from ..parallel.mesh import data_mesh_or_none, row_block
 from ..utils.device import resolve_device
 from . import native_trees
 from .base import PredictorEstimator
@@ -116,6 +127,34 @@ def _bin_for_backend(X: torch.Tensor, edges: np.ndarray, max_bins: int):
     e = torch.as_tensor(np.ascontiguousarray(edges, np.float32),
                         device=X.device)
     return bin_matrix(X, e, bins_device_dtype(max_bins))
+
+
+def _bin_block(X: torch.Tensor, edges: np.ndarray, max_bins: int):
+    """:func:`_bin_for_backend` of one rank's row block; a rank with no
+    rows gets an empty bins tensor (the kernel takes n >= 1)."""
+    if X.shape[0] == 0:
+        return torch.empty(tuple(X.shape), dtype=bins_device_dtype(max_bins),
+                           device=X.device)
+    return _bin_for_backend(X, edges, max_bins)
+
+
+def _tree_cv_mesh():
+    """The product ``data`` mesh of the tree fold fits, or None."""
+    return data_mesh_or_none()
+
+
+def _shard_fold_inputs(mesh, n: int, row_major=(), fold_major=()):
+    """This rank's rows of the fold-fit inputs: ``row_major`` arrays ([n,
+    ...]: X, y, stat channels) cut on their first axis, ``fold_major``
+    ones ([F, n]: fold weights, bootstrap) on their second, with the row
+    reducer of the mesh.  Without a mesh they pass through whole with no
+    reducer.  The inputs are the replicated host arrays every rank holds,
+    drawn over the global rows."""
+    if mesh is None:
+        return list(row_major), list(fold_major), None
+    lo, hi = row_block(n, mesh)
+    return ([a[lo:hi] for a in row_major], [a[:, lo:hi] for a in fold_major],
+            RowReducer(mesh, n_rows=n))
 
 
 def _f32(a, device: torch.device) -> torch.Tensor:
@@ -374,14 +413,19 @@ class _RandomForest(_TreeEnsembleBase):
         for j, cand in enumerate(cands):
             groups.setdefault(cand._forest_key(n, d, n_stats), []).append(j)
         dev = resolve_device(self.device)
-        # one upload of X and the fold weights for every group
-        X_d, W_d = _f32(X, dev), _f32(W, dev)
+        mesh = _tree_cv_mesh()
+        # one upload of X and the fold weights for every group (this
+        # rank's rows of them on a mesh)
+        (X_r,), (W_r,), rows = _shard_fold_inputs(mesh, n, (X,), (W,))
+        X_d, W_d = _f32(X_r, dev), _f32(W_r, dev)
         results: list = [None] * len(grid)
         for key, js in groups.items():
             rep = cands[js[0]]
             (edges, stats, C, imp, classes, boot, feat_masks, node_masks,
              depth) = rep._forest_inputs(X, y)
-            bins = _bin_for_backend(X_d, edges, key[1])
+            (stats,), (boot,), _ = _shard_fold_inputs(
+                mesh, n, (stats,), (boot,))
+            bins = _bin_block(X_d, edges, key[1])
             heaps = fit_forest_folds_grid(
                 bins, _f32(stats, dev), W_d, _f32(boot, dev),
                 torch.as_tensor(feat_masks, device=dev),
@@ -391,6 +435,7 @@ class _RandomForest(_TreeEnsembleBase):
                 n_stats=C,
                 node_masks=(None if node_masks is None
                             else torch.as_tensor(node_masks, device=dev)),
+                rows=rows,
             )
             heaps = _heaps_np(heaps)  # [G', F, T, ...]
             for gi, j in enumerate(js):
@@ -650,9 +695,12 @@ class _GBT(_TreeEnsembleBase):
                    int(p["num_trees"]), int(p["seed"]))
             groups.setdefault(key, []).append(j)
         dev = resolve_device(self.device)
-        # one upload of X, y and the fold weights for every group; only the
-        # bins differ between groups, through the edges
-        X_d, y_d, W_d = _f32(X, dev), _f32(y, dev), _f32(W, dev)
+        mesh = _tree_cv_mesh()
+        # one upload of X, y and the fold weights for every group (this
+        # rank's rows of them on a mesh); only the bins differ between
+        # groups, through the edges
+        (X_r, y_r), (W_r,), rows = _shard_fold_inputs(mesh, n, (X, y), (W,))
+        X_d, y_d, W_d = _f32(X_r, dev), _f32(y_r, dev), _f32(W_r, dev)
         edges_cache: dict[tuple, np.ndarray] = {}
         results: list = [None] * len(grid)
         for (depth, max_bins, num_trees, seed), js in groups.items():
@@ -660,14 +708,14 @@ class _GBT(_TreeEnsembleBase):
                 edges_cache[max_bins, seed] = _sampled_bin_edges(
                     X, max_bins, seed)
             edges = edges_cache[max_bins, seed]
-            bins = _bin_for_backend(X_d, edges, max_bins)
+            bins = _bin_block(X_d, edges, max_bins)
             f0s, heaps = fit_gbt_folds_grid(
                 bins, y_d, W_d,
                 [float(cands[j].params["step_size"]) for j in js],
                 [float(cands[j].params["min_instances_per_node"]) for j in js],
                 [float(cands[j].params["min_info_gain"]) for j in js],
                 num_trees=num_trees, max_depth=depth, max_bins=max_bins,
-                is_classification=self.is_classification,
+                is_classification=self.is_classification, rows=rows,
             )
             f0s, heaps = f0s.cpu().numpy(), _heaps_np(heaps)  # [G', F], ...
             for gi, j in enumerate(js):

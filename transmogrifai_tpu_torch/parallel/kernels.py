@@ -17,6 +17,8 @@ Kernels:
 
 * ``fused_moments`` (``csrc/fused_moments.cu``) - the SanityChecker's
   one-sweep column moments; replaces ``pallas_kernels._moments_pallas``.
+  ``fused_moments_sharded`` runs it on each rank's row block of a mesh and
+  all-reduces the partials (the JAX package's ``fused_moments_sharded``).
 * ``bin_matrix`` (``csrc/bin_matrix.cu``) - the tree learner's quantile
   binning of the design matrix, written in the learner's device dtype;
   replaces ``pallas_kernels._bin_pallas``.  It is also the first step of
@@ -44,6 +46,7 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -285,6 +288,62 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
 
 
 fused_moments.launches = 0
+
+
+def fused_moments_sharded(x, y, mesh, device=None):
+    """:func:`fused_moments` with the row axis split over ``mesh``'s
+    ``data`` group: each rank runs the kernel (K1 on a CUDA device) on its
+    own row block, then the ranks all-reduce the five sums in float64
+    (SUM) and the extremes (MIN of ``[x_min, -x_max]``).  An empty block
+    contributes 0, +inf and -inf.  Returns the seven float32 results on
+    the rank's device, equal on every rank.
+
+    ``x`` and ``y`` are either the replicated inputs every rank holds (a
+    host array or a tensor; the rank takes its ``np.array_split`` block,
+    ``mesh.row_block``) or each rank's own rows as
+    ``distributed.host_local_to_global`` gives them.  A replicated host
+    input is only valid when it is the same on every rank: the ranks
+    compare a fingerprint of it first and raise ``ValueError`` otherwise,
+    as the JAX package raises for a host input on a multi-process
+    runtime.  No masked variant is needed: unequal blocks need no padding
+    rows.  ``device`` (default: the input tensor's, else ``"cuda"``) is
+    where the kernel runs for a host input."""
+    from ..utils.device import resolve_device
+    from .distributed import RowShard, check_replicated
+    from .mesh import row_block
+
+    group = mesh.get_group("data")
+    if isinstance(x, RowShard) or isinstance(y, RowShard):
+        if not (isinstance(x, RowShard) and isinstance(y, RowShard)):
+            raise ValueError(
+                "fused_moments_sharded takes x and y both replicated or both "
+                "as host_local_to_global row shards")
+        xb, yb = x.local, y.local
+    else:
+        check_replicated("fused_moments_sharded", group, x, y)
+        lo, hi = row_block(x.shape[0], mesh)
+        xb, yb = x[lo:hi], y[lo:hi]
+    if device is None:
+        device = xb.device if isinstance(xb, torch.Tensor) else "cuda"
+    dev = resolve_device(device)
+    d = int(xb.shape[1])
+    if xb.shape[0]:
+        xt = torch.as_tensor(xb).to(device=dev, dtype=torch.float32).contiguous()
+        yt = torch.as_tensor(yb).to(device=dev, dtype=torch.float32).contiguous()
+        x_sum, x_sq, xy, y_sum, y_sq, x_min, x_max = fused_moments(xt, yt)
+        sums = torch.cat([x_sum, x_sq, xy, y_sum.reshape(1),
+                          y_sq.reshape(1)]).to(torch.float64)
+        ext = torch.cat([x_min, -x_max]).to(torch.float64)
+    else:
+        sums = torch.zeros(3 * d + 2, dtype=torch.float64, device=dev)
+        ext = torch.full((2 * d,), float("inf"), dtype=torch.float64,
+                         device=dev)
+    if group is not None:
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(ext, op=dist.ReduceOp.MIN, group=group)
+    sums, ext = sums.to(torch.float32), ext.to(torch.float32)
+    return (sums[:d], sums[d:2 * d], sums[2 * d:3 * d], sums[3 * d],
+            sums[3 * d + 1], ext[:d], -ext[d:])
 
 
 # ---------------------------------------------------------------------------

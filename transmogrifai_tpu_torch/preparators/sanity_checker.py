@@ -19,10 +19,12 @@ OpStatistics, utils/.../stats/OpStatistics.scala:384).  A binary estimator
 4. emits a SanityCheckerSummary into stage metadata, and the fitted model
    slices kept indices at transform time (reference: SanityChecker.scala:694-709).
 
-The path is single-device: the JAX package's sharded moment route
-(``fused_moments_sharded`` over a data mesh) comes with the multi-GPU slice
-(ROADMAP.md queue 1, item 10).  The fitted model's column gather lowers
-to numpy (``lower``) and to torch (``lower_torch``).
+With a ``data`` mesh (``parallel.mesh.data_mesh_or_none``: a process
+group of two or more ranks) every moment pass takes the sharded route,
+``fused_moments_sharded``: each rank sweeps its own row block of the
+replicated host matrix with K1 and the ranks all-reduce the partials, so
+every rank reaches the same drops.  The fitted model's column gather
+lowers to numpy (``lower``) and to torch (``lower_torch``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..parallel.kernels import fused_moments
+from ..parallel.kernels import fused_moments, fused_moments_sharded
+from ..parallel.mesh import data_mesh_or_none
 from ..stages.base import Estimator, Lowering, TorchLowering, Transformer
 from ..types.columns import Column, NumericColumn, VectorColumn
 from ..types.dataset import Dataset
@@ -188,10 +191,20 @@ class SanityChecker(Estimator):
             x, y = x[idx], y[idx]
             n = len(y)
 
+        # with more than one rank the row axis splits over the 'data'
+        # mesh and the partial moments all-reduce (the treeAggregate
+        # analog, SanityChecker.scala:575)
+        mesh = data_mesh_or_none()
+
         def moments_f64(a, b):
-            """Every moment pass of this fit: one fused_moments sweep of
-            float32 copies on the stage's device; f64 on the way out."""
-            mom = fused_moments(_f32(a, dev), _f32(b, dev))
+            """One dispatch policy for every moment pass of this fit:
+            sharded over the data mesh when there is one, else one
+            fused_moments sweep of float32 copies on the stage's device;
+            f64 on the way out."""
+            if mesh is not None:
+                mom = fused_moments_sharded(a, b, mesh, device=dev)
+            else:
+                mom = fused_moments(_f32(a, dev), _f32(b, dev))
             return tuple(v.cpu().numpy().astype(np.float64) for v in mom)
 
         xs, xss, xys, ys, yss, xmin, xmax = moments_f64(x, y)

@@ -43,10 +43,22 @@ legacy keys read as exact), so each package restores the other's file.
 The fits are traced as the JAX package's ``cv.fit_batch``, ``cv.fit_folds``
 and ``cv.fit`` spans (``obs/trace.py``).
 
+With a process group of two or more ranks (``parallel/mesh.py``) the
+batched linear route takes the CV mesh, ``cv_mesh_or_none(k * g)``: the
+fold x grid candidates split over its ``replica`` axis and the rows of
+the replicated host matrix over its ``data`` axis
+(``packed_newton.fit_batched_sharded``), the fit runs under the
+collective watchdog (``guarded_collective("validator.fit_arrays_batched",
+...)``, whose shrink refits on this rank's host copies alone), and every
+rank scores the gathered betas over the whole matrix, so the validation
+metrics and the selection are the same on every rank.  The tree fold fits
+shard their rows over the ``data`` mesh themselves (``models/trees.py``).
+A mesh keeps the fused training programs off, with reason ``mesh``, as
+in the JAX package.  Only rank 0 writes the CV checkpoint.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
 queue 1 item when asked for: successive-halving ``autotune`` (item 12)
-and ``validate_stream`` (item 12).  The CV mesh and its guarded
-collectives are item 10: this package fits on one device.
+and ``validate_stream`` (item 12).
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ from ..evaluators.base import OpEvaluatorBase
 from ..evaluators.binary import masked_rank_metrics
 from ..models.base import PredictorEstimator
 from ..obs import trace as _obs_trace
+from ..parallel.mesh import cv_mesh_or_none, data_mesh_or_none, is_writer
 from ..types.columns import PredictionColumn
 from ..utils.device import resolve_device
 
@@ -225,7 +238,7 @@ class OpValidator:
         }
 
     def _ckpt_save(self, done: dict) -> None:
-        if not self.checkpoint_path:
+        if not self.checkpoint_path or not is_writer():
             return
         tmp = self.checkpoint_path + ".tmp"
         os.makedirs(os.path.dirname(self.checkpoint_path) or ".", exist_ok=True)
@@ -262,8 +275,9 @@ class OpValidator:
         the fallback reason recorded.  Auto mode engages only at scale
         (``TX_TRAIN_FUSED_MIN_ROWS``, default 200 000), the JAX package's
         rule; ``train_fused=True`` or ``TX_TRAIN_FUSED=1`` force the path
-        at any size.  ``mesh_present`` is always False here: this package
-        has no CV mesh yet (ROADMAP.md queue 1, item 10)."""
+        at any size.  A mesh (``mesh_present``: the CV mesh of a linear
+        family, the data mesh of a tree family) always falls back, with
+        reason ``mesh``: the guarded mesh route owns multi-rank fits."""
         if self.train_fused is False:
             return "disabled"
         env = os.environ.get("TX_TRAIN_FUSED", "").strip().lower()
@@ -299,7 +313,7 @@ class OpValidator:
         degrades, loudly, and never ends a selection."""
         from ..local import fused_train as _ft
 
-        reason = self._train_fused_gate(kw.pop("n"), False)
+        reason = self._train_fused_gate(kw.pop("n"), kw.pop("mesh_present"))
         if reason is not None:
             self._record_train_fused(
                 est.model_type, {"backend": "existing", "reason": reason})
@@ -344,6 +358,32 @@ class OpValidator:
             return None
         self._record_train_fused(est.model_type, res.report)
         return res
+
+    @staticmethod
+    def _fit_batched_on_mesh(est, mesh, Xj, y_fit, Wj, regs, ens, dev,
+                             xhost, y, masks, w, weighted: bool, g: int):
+        """The fold x grid fit over the CV mesh - THE mesh collective of
+        the batched route - under the collective watchdog, so a hung or
+        dead peer degrades (straggler retry, then a survivor recompute)
+        instead of wedging the selection.  The shrink refits every
+        candidate from this rank's host copies with no mesh, on a fresh
+        CUDA stream."""
+        from ..parallel import resilience
+
+        def shrink():
+            train = masks.astype(np.float32)
+            if weighted:
+                train = train * np.asarray(w, np.float32)[None, :]
+            with resilience.survivor_stream(dev):
+                return est.fit_arrays_batched(
+                    xhost(), y, np.repeat(train, g, axis=0), regs, ens)
+
+        return resilience.guarded_collective(
+            "validator.fit_arrays_batched",
+            lambda: est.fit_arrays_batched(Xj, y_fit, Wj, regs, ens,
+                                           mesh=mesh),
+            shrink_fn=shrink,
+        )
 
     def _approx_rank(self, n: int, dev: torch.device) -> bool:
         """Whether LR-style grids may use the 1024-bin device rank metrics:
@@ -438,17 +478,20 @@ class OpValidator:
                 if done_mask[j]:
                     metrics[j] = ckpt[_ckpt_key(est, pmap, mode)]
             fold_batched = not batched and hasattr(est, "fit_arrays_folds")
+            mesh = None
             if batched:
                 # the fold x grid batch's per-candidate scalars, fold-major
                 regs_g, ens_g = lr_grid_scalars(est, grid)
                 regs = np.tile(regs_g, k)
                 ens = np.tile(ens_g, k)
+                mesh = cv_mesh_or_none(k * g)
             # the fused training program of the family (fit, scores and the
             # metric matrix in one dispatch), or None: the trail says why
             fused_res = None
             if batched and not any(done_mask):
                 fused_res = self._try_train_fused(
-                    "linear", est, mode, n=n, xdev=xdev, x_source=X, y=y,
+                    "linear", est, mode, n=n, mesh_present=mesh is not None,
+                    xdev=xdev, x_source=X, y=y,
                     masks=masks, w=w, weights_given=weights is not None,
                     regs=regs, ens=ens, g=g, candidates=k * g, folds=k,
                     n_rows=n, n_features=n_features,
@@ -456,7 +499,9 @@ class OpValidator:
             elif (fold_batched and not any(done_mask)
                     and hasattr(est, "fused_tree_plan")):
                 fused_res = self._try_train_fused(
-                    "tree", est, mode, n=n, X=xhost(), y=y, masks=masks,
+                    "tree", est, mode, n=n,
+                    mesh_present=data_mesh_or_none() is not None,
+                    X=xhost(), y=y, masks=masks,
                     W=masks.astype(np.float64) * w[None, :], grid=grid,
                     candidates=g * k, folds=k, n_rows=n,
                     n_features=n_features,
@@ -486,8 +531,13 @@ class OpValidator:
                     candidates=int(k * g), folds=int(k), n_rows=int(n),
                     n_features=n_features,
                 ):
-                    betas, b0s = est.fit_arrays_batched(Xj, y_fit, Wj,
-                                                        regs, ens)
+                    if mesh is None:
+                        betas, b0s = est.fit_arrays_batched(Xj, y_fit, Wj,
+                                                            regs, ens)
+                    else:
+                        betas, b0s = self._fit_batched_on_mesh(
+                            est, mesh, Xj, y_fit, Wj, regs, ens, dev,
+                            xhost, y, masks, w, weights is not None, g)
                 if mode == "approx":
                     # rank metrics on the device against the resident X: no
                     # per-fold validation slice leaves the card

@@ -10,10 +10,12 @@ also opens a ``stage.<phase>`` trace span (``obs/trace.py``), and each
 metrics.py``).  ``profile_to`` wraps a block in a ``torch.profiler``
 trace written as a Chrome trace file.
 
-The JAX package adds mesh-resilience events (collective stalls, retries,
-shrink-to-survivors) to its stage metrics; they come with the multi-GPU
-slice (ROADMAP.md queue 1, item 10), and this package's single-device
-runs have none.
+Mesh-resilience events (collective stalls, straggler retries,
+shrink-to-survivors recomputes, bootstrap timeouts) ride the stage
+metrics as ``mesh_resilience_events``, scoped to the run's window:
+``parallel/resilience.py`` registers its telemetry's event feed here
+(:func:`register_mesh_events_source`), so this module imports nothing of
+the distributed tier.
 """
 from __future__ import annotations
 
@@ -32,6 +34,41 @@ LOG_PREFIX = "op_stage_metrics"
 
 #: the one quantile implementation lives in obs/metrics.py
 percentiles = _obs_metrics.percentiles
+
+# -- mesh resilience surfacing ----------------------------------------------
+_mesh_events_source = None
+
+
+def register_mesh_events_source(fn) -> None:
+    """``fn(since_epoch=None) -> list[dict]`` of mesh resilience events;
+    ``since_epoch`` scopes the feed to one run's window."""
+    global _mesh_events_source
+    _mesh_events_source = fn
+
+
+def mesh_events_dropped() -> int:
+    """How many times the mesh event feed failed to deliver (the
+    ``obs.events_dropped`` self-metric): a broken feed must be visible in
+    snapshots, not a hole in the degradation report."""
+    return int(
+        _obs_metrics.metrics_registry().counter("obs.events_dropped").value
+    )
+
+
+def mesh_events(since_epoch=None) -> list:
+    if _mesh_events_source is None:
+        return []
+    try:
+        return list(_mesh_events_source(since_epoch))
+    except Exception as e:  # telemetry must never break metrics reporting
+        _obs_metrics.metrics_registry().counter(
+            "obs.events_dropped",
+            help="telemetry event-feed failures (a broken feed, not an "
+                 "empty one)",
+        ).inc()
+        log.warning("mesh event source failed (drop counted in "
+                    "obs.events_dropped): %s", e)
+        return []
 
 
 @dataclass
@@ -115,11 +152,20 @@ class AppMetrics:
         return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
     def to_json(self) -> dict:
-        return {
+        out = {
             "total_wall_s": self.total_wall_s,
             "stages": [m.to_json() for m in self.stages],
             "by_operation": self.by_operation(),
         }
+        # degraded-mode events belong next to the stage walls they
+        # inflated, scoped to this run's window
+        ev = mesh_events(since_epoch=self.start_time)
+        if ev:
+            out["mesh_resilience_events"] = ev
+        dropped = mesh_events_dropped()
+        if dropped:
+            out["obs_events_dropped"] = dropped
+        return out
 
     def snapshot(self) -> dict:
         """The metrics-registry view contract."""

@@ -344,7 +344,16 @@ class OpWorkflow:
     def train(self) -> "OpWorkflowModel":
         """(reference: OpWorkflow.train:332-357).  The run is one
         ``workflow.train`` trace span (obs/), with the reader's ingest
-        inside a ``workflow.ingest`` span."""
+        inside a ``workflow.ingest`` span.
+
+        It first brings up the process group from the environment
+        (``parallel.distributed.initialize``: a no-op for one process), so
+        that under ``torchrun`` every rank joins before any stage touches
+        a device and the stages' meshes span the ranks (the Spark
+        executor bootstrap analog, SURVEY §5.8)."""
+        from ..parallel.distributed import initialize
+
+        initialize()
         resolve_device(self.device)
         with _obs_trace.span("workflow.train") as train_span:
             return self._train_traced(train_span)
@@ -559,6 +568,16 @@ class OpWorkflowModel:
         }
         if self.app_metrics is not None:
             out["stageMetrics"] = self.app_metrics.to_json()
+            from ..parallel.resilience import mesh_telemetry
+
+            # degraded-mode training during this run (collective stalls,
+            # straggler retries, shrink-to-survivors), scoped to this
+            # model's training window
+            events = mesh_telemetry().events_json(
+                since_epoch=self.app_metrics.start_time)
+            if events:
+                out["meshResilience"] = dict(mesh_telemetry().snapshot(),
+                                             events=events)
         return out
 
     def compute_data_up_to(self, feature: Feature, data: Any = None,
@@ -624,9 +643,14 @@ class OpWorkflowModel:
         return ModelInsights.from_model(self, feature)
 
     def save(self, path: str) -> None:
-        """Crash-consistent save (serialization/model_io.py)."""
+        """Crash-consistent save (serialization/model_io.py).  In a
+        process group only rank 0 writes: every rank trained the same
+        model, and their writes would race on one path."""
+        from ..parallel.mesh import is_writer
         from ..serialization.model_io import save_model
 
+        if not is_writer():
+            return
         with _obs_trace.span("model.save", path=path):
             save_model(self, path)
 
