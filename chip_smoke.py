@@ -40,7 +40,18 @@ two agree:
   with ``bin_matrix`` - over 50k held-out CSV records at batches of 1,
   64, 1 024 and 16 384, row for row against the numpy-fused scorer,
   counted, every kernel call held against its plain version, ``bin_matrix``
-  timed at the serving shapes (``--serve-only`` runs this phase alone);
+  timed at the serving shapes; then ``[deploy]`` in the same temporary
+  directory: the saved forest and GBT published as v1 and v2 into a
+  ``ModelRegistry``, ``OpWorkflowRunner.run("serve")`` of v1 through the
+  ``MicroBatchScheduler`` and ``run("deploy")`` of v1 with v2 as a 20%
+  canary over the 50k records (every row against its arm's
+  ``score_function()`` rows, the canary's rows the host ``route_key``
+  split's), the ``canary.regression`` rollback drill, four hot swaps from
+  the registry under a scoring thread (the p99 inside the swap windows
+  beside outside them, the device memory after each swap), every
+  generation torch-fused and warm, every ``bin_matrix`` launch counted by
+  step and arm and held against its plain version (``--serve-only`` runs
+  both alone);
 * the same four families on the passenger data's front
   (transmogrify(label=...) -> SanityChecker), their forest and GBT grids
   cut to depths 3 and 6, at 200k rows on the card, counted; and under
@@ -139,6 +150,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -1538,7 +1550,582 @@ def serve_one(kernels, tag: str, model, rebuild, records: list, data,
         f"{pdiff:.3g} of the loaded model's score() (tolerance "
         f"{SERVE_SCORE_ATOL:g})")
     out["score_pdiff"] = pdiff
-    del out["rows"]
+    return out
+
+
+# -- the deployment path: registry, runner serve and deploy, hot swap -----------
+
+#: the serving knobs of [deploy]'s serve run and generations
+DEPLOY_BUCKETS = (1, 8, 32, 128)
+DEPLOY_MAX_WAIT_US, DEPLOY_WINDOW = 2000, 256
+DEPLOY_CANARY_FRACTION, DEPLOY_BATCH_ROWS = 0.2, 128
+#: the hot-swap drill's versions, in swap order, and the quiet scoring
+#: before the first swap and after the last
+DEPLOY_SWAPS = ("v1", "v2", "v1", "v2")
+DEPLOY_SWAP_GAP_S = 0.5
+#: device memory after the 4th swap against after the 1st: within this
+#: share of the 1st (v1's 50 trees and v2's 20 hold different heaps; the
+#: pairs with the same version live are held to one generation's heaps)
+DEPLOY_MEM_RTOL = 0.10
+
+
+class ArmTags:
+    """Within the block, every K2 call made through a module of the package
+    is kept (its arguments cloned, as ``kernel_inputs`` does) under a tag:
+    ``warm`` while ``DeploymentController`` builds a generation, ``stable``
+    or ``canary`` while it scores an arm, else the thread's ``default``.
+    ``calls`` is the list of (tag, args); ``counts()`` the launches by
+    tag; ``generations``, with ``keep_generations``, every generation built
+    within the block (held alive until it is cleared)."""
+
+    def __init__(self, kernels, default: str, keep_generations=False):
+        import threading
+
+        from transmogrifai_tpu_torch.registry import deployment
+
+        self.kernels, self.deployment = kernels, deployment
+        self.local = threading.local()
+        self.default = default
+        self.calls: list = []
+        self.keep_generations = keep_generations
+        self.generations: list = []
+        #: launches by tag, and by row count, of the calls already held
+        #: and dropped
+        self.held: dict = {}
+        self.by_rows: dict = {}
+        self.lock = threading.Lock()
+
+    def tag(self) -> str:
+        return getattr(self.local, "tag", None) or self.default
+
+    def counts(self) -> dict:
+        """Launches by tag, held or still kept."""
+        out = dict(self.held)
+        with self.lock:
+            for t, _ in self.calls:
+                out[t] = out.get(t, 0) + 1
+        return out
+
+    def __enter__(self):
+        ctl = self.deployment.DeploymentController
+        self.saved = (ctl._score_arm, ctl._build_generation)
+        score_arm, build = self.saved
+        me = self
+
+        def tagged(tag, fn):
+            def run(*a, **k):
+                prev = getattr(me.local, "tag", None)
+                me.local.tag = tag(a, k)
+                try:
+                    return fn(*a, **k)
+                finally:
+                    me.local.tag = prev
+            return run
+
+        ctl._score_arm = tagged(
+            lambda a, k: "canary" if k.get("is_canary") else "stable",
+            score_arm)
+        def build_kept(*a, **k):
+            gen, warm_s = build(*a, **k)
+            if me.keep_generations:
+                me.generations.append(gen)
+            return gen, warm_s
+
+        ctl._build_generation = tagged(lambda a, k: "warm", build_kept)
+        self.patched = []
+        w = self.kernels.bin_matrix
+        for mod in list(sys.modules.values()):
+            if (mod is not self.kernels and getattr(mod, "__name__", "")
+                    .startswith("transmogrifai_tpu_torch.")
+                    and getattr(mod, w.__name__, None) is w):
+                def shim(*args, _w=w):
+                    kept = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                 else a for a in args)
+                    with me.lock:
+                        me.calls.append((me.tag(), kept))
+                    return _w(*args)
+                setattr(mod, w.__name__, shim)
+                self.patched.append(mod)
+        return self
+
+    def __exit__(self, *exc):
+        ctl = self.deployment.DeploymentController
+        ctl._score_arm, ctl._build_generation = self.saved
+        for mod in self.patched:
+            setattr(mod, self.kernels.bin_matrix.__name__,
+                    self.kernels.bin_matrix)
+
+    def hold(self, bin_errs: list, samples=None) -> int:
+        """Hold every kept call against the plain version (``check_bins``),
+        then drop the copies, keeping the first call of each row count in
+        ``samples`` when it is given; returns how many were held."""
+        with self.lock:
+            calls, self.calls = self.calls, []
+        for t, args in calls:
+            self.held[t] = self.held.get(t, 0) + 1
+            m = int(args[0].shape[0])
+            self.by_rows[m] = self.by_rows.get(m, 0) + 1
+            assert args[0].is_cuda
+            bin_errs.append(check_bins(self.kernels, *args))
+            if samples is not None:
+                samples.setdefault(m, args)
+        return len(calls)
+
+
+def split_assigns(records: list, fraction: float, seed: int = 42) -> np.ndarray:
+    """The canary split computed here, from ``route_key`` and the port's
+    murmur3: True where a record goes to the canary arm."""
+    from transmogrifai_tpu_torch.registry import route_key
+    from transmogrifai_tpu_torch.utils.hashing import murmur3_32
+
+    cut = int(fraction * 10000)
+    return np.array([murmur3_32(route_key(r).encode("utf-8"), seed) % 10000
+                     < cut for r in records])
+
+
+def hold_rows(tag: str, got: np.ndarray, want: np.ndarray, fam: str) -> float:
+    """Served rows against the arm's ``score_function()`` rows: equal
+    predictions, floats within the family's SERVE_ULP_BUDGETS; returns the
+    largest distance in ULPs."""
+    assert got.shape == want.shape, (tag, got.shape, want.shape)
+    assert np.array_equal(got[:, 0], want[:, 0]), f"[deploy] {tag}: predictions differ"
+    ulps = max_ulps(got[:, 1:], want[:, 1:])
+    assert ulps <= SERVE_ULP_BUDGETS[fam], (
+        f"[deploy] {tag}: {ulps:g} ULP from score_function() (budget "
+        f"{SERVE_ULP_BUDGETS[fam]})")
+    return ulps
+
+
+def device_heap_bytes(model) -> int:
+    """Bytes of the tensors that the device-fused program holds on the card
+    for ``model``'s tree head (``trees._walk_params``: packed heaps, leaf
+    stats, edges): the least one generation of the model keeps there."""
+    from transmogrifai_tpu_torch.models.trees import _walk_params
+
+    wp = _walk_params(model.stages[-1].model_params, torch.device("cpu"))
+    ts = [v for v in wp.values() if isinstance(v, torch.Tensor)]
+    ts += list(wp.get("heaps", ()))
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def read_scores(path: str) -> list:
+    with open(os.path.join(path, "scores.json")) as f:
+        rows = json.load(f)
+    bad = [r for r in rows if "error" in r]
+    assert not bad, f"[deploy] {len(bad)} rows failed: {bad[:2]}"
+    return rows
+
+
+def deploy_step(kernels, tmp: str, serve_csv: str, want: dict,
+                bin_errs: list) -> dict:
+    """``[deploy]``, in [serve]'s temporary directory ``tmp``: [serve]'s
+    saved forest and GBT published as v1 and v2 into a ``ModelRegistry``;
+    ``OpWorkflowRunner.run("serve")`` of v1 through the
+    ``MicroBatchScheduler``; ``run("deploy")`` of v1 with v2 as a canary on
+    a 20% split; the ``canary.regression`` rollback drill; four hot swaps
+    under a scoring thread, with the device memory after each.  ``want``
+    maps v1 and v2 to their loaded model's ``score_function()`` rows over
+    the held-out records ([serve]'s 16 384-record batches).  Every K2
+    launch is kept under its step and arm and held against its plain
+    version.  Returns the result lines' pieces."""
+    import gc
+    import threading
+
+    from transmogrifai_tpu_torch.faults import injection as faults
+    from transmogrifai_tpu_torch.models.trees import (
+        OpGBTClassifier,
+        OpRandomForestClassifier,
+    )
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.registry import (
+        DeploymentController,
+        ModelRegistry,
+    )
+    from transmogrifai_tpu_torch.serving import (
+        RowScoringError,
+        records_from_dataset,
+    )
+    from transmogrifai_tpu_torch.workflow.params import OpParams
+    from transmogrifai_tpu_torch.workflow.runner import OpWorkflowRunner
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    t_step = time.perf_counter()
+    heads = {"v1": lambda: OpRandomForestClassifier(**SERVE_FOREST),
+             "v2": lambda: OpGBTClassifier(**SERVE_GBT)}
+    fams = {"v1": "rf", "v2": "gbt"}
+
+    def workflow(v):
+        return serve_front(serve_csv, heads[v]())
+
+    out: dict = {"launches": {}, "walls": {}, "heap_bytes": {}}
+    reg = ModelRegistry(os.path.join(tmp, "registry"))
+    t0 = time.perf_counter()
+    for v, tag in (("v1", "forest"), ("v2", "gbt")):
+        model = OpWorkflowModel.load(os.path.join(tmp, tag), workflow(v))
+        out["heap_bytes"][v] = device_heap_bytes(model)
+        entry = reg.publish(model, metrics={"model": tag})
+        assert entry.version == v, entry.version
+        del model
+    reg.promote("v1", to="stable")
+    out["walls"]["publish"] = time.perf_counter() - t0
+    log(f"[deploy] published [serve]'s forest as v1 and GBT as v2 in "
+        f"{out['walls']['publish']:.3f} s; registry {reg.describe()['stable']}"
+        f" stable, verify ok {reg.verify()['ok']}")
+
+    # -- the serve run type ---------------------------------------------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ArmTags(kernels, "serve") as tags:
+        res = OpWorkflowRunner(workflow("v1")).run("serve", OpParams(
+            model_location=reg.artifact_path("v1"),
+            metrics_location=os.path.join(tmp, "serve_metrics"),
+            write_location=os.path.join(tmp, "serve_scores"),
+            custom_params={"serving_buckets": list(DEPLOY_BUCKETS),
+                           "serving_max_wait_us": DEPLOY_MAX_WAIT_US,
+                           "serving_window": DEPLOY_WINDOW}))
+        assert kernels.bin_matrix.launches == len(tags.calls)
+        assert kernels.fused_moments.launches == 0
+        out["launches"]["serve"] = tags.counts()
+        out["walls"]["serve"] = time.perf_counter() - t0
+        held = tags.hold(bin_errs)
+    out["k2_launches_by_rows"] = {"serve": tags.by_rows}
+    with open(os.path.join(tmp, "serve_metrics", "serving_metrics.json")) as f:
+        sm = json.load(f)
+    got = serve_rows(read_scores(os.path.join(tmp, "serve_scores")))
+    n = len(got)
+    assert sm["rows_scored"] == n and sm["rows_failed"] == 0, sm
+    assert sm["fused"]["backend"] == "torch", sm["fused"]
+    assert sorted(map(int, sm["fused"]["bucket_timings"])) == list(
+        DEPLOY_BUCKETS), sm["fused"]["bucket_timings"]
+    ulps = hold_rows("serve run", got, want["v1"], "rf")
+    # the batcher's compiled batches and one warm-up batch per bucket
+    assert held == sm["batches"] + len(DEPLOY_BUCKETS), (held, sm["batches"])
+    out["serve"] = {k: sm[k] for k in ("latency_ms", "rows_per_s",
+                                       "batches", "mean_batch_size",
+                                       "batch_rows_per_s", "queue_depth")}
+    out["serve"]["bucket_timings"] = sm["fused"]["bucket_timings"]
+    lat = sm["latency_ms"]
+    log(f"[deploy] serve run: {n} records through the MicroBatchScheduler "
+        f"(max_wait_us {DEPLOY_MAX_WAIT_US}, window {DEPLOY_WINDOW}, buckets "
+        f"{DEPLOY_BUCKETS}) in {out['walls']['serve']:.3f} s: p50 "
+        f"{lat['p50']} ms, p95 {lat['p95']} ms, p99 {lat['p99']} ms, "
+        f"{sm['rows_per_s']} rows/s ({sm['batches']} batches, mean "
+        f"{sm['mean_batch_size']} rows, batch path {sm['batch_rows_per_s']} "
+        f"rows/s); backend torch, warmed buckets "
+        f"{sorted(map(int, sm['fused']['bucket_timings']))}; rows within "
+        f"{ulps:g} ULP of score_function(); K2 {out['launches']['serve']}, "
+        f"{held} held against plain")
+
+    # -- the deploy run type: v1 stable, v2 canary on a 20% split -------------
+    order = iter(("v1", "v2"))  # the runner loads the stable, then the canary
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ArmTags(kernels, "deploy", keep_generations=True) as tags:
+        res = OpWorkflowRunner(
+            workflow("v1"), workflow_factory=lambda: workflow(next(order)),
+        ).run("deploy", OpParams(
+            metrics_location=os.path.join(tmp, "deploy_metrics"),
+            write_location=os.path.join(tmp, "deploy_scores"),
+            custom_params={
+                "registry_root": reg.root, "deploy_version": "v1",
+                "canary_version": "v2",
+                "canary_fraction": DEPLOY_CANARY_FRACTION,
+                "deploy_batch_rows": DEPLOY_BATCH_ROWS,
+                "serving_buckets": list(DEPLOY_BUCKETS)}))
+        assert kernels.bin_matrix.launches == len(tags.calls)
+        assert kernels.fused_moments.launches == 0
+        out["launches"]["deploy"] = tags.counts()
+        out["walls"]["deploy"] = time.perf_counter() - t0
+        out["k2_inputs"] = {}
+        held = tags.hold(bin_errs, out["k2_inputs"])
+    out["k2_launches_by_rows"]["deploy"] = tags.by_rows
+    m = res.metrics
+    assert m["rows_failed"] == 0, m["rows_failed"]
+    raw = workflow("v1").raw_features
+    records = records_from_dataset(CSVReader(serve_csv).generate_dataset(raw),
+                                   raw)
+    assigned = split_assigns(records, DEPLOY_CANARY_FRACTION)
+    # the run keeps the controller's default cadence, a canary check every
+    # ``check_every`` batches; a check that rolls the canary back mid-run
+    # sends every later row to stable, so the rows' arms follow the split
+    # up to that check's batch, found from the canary rows it cites
+    check_every = inspect.signature(DeploymentController).parameters[
+        "check_every_batches"].default
+    rollbacks = [e for e in m["events"] if e["event"] == "rollback"]
+    cut_rows, mid_run = len(records), None
+    if rollbacks:
+        cited = rollbacks[0]["evidence"]["canary"]["rows_scored"]
+        ks = [k for k in range(check_every, -(-len(records)
+                                             // DEPLOY_BATCH_ROWS) + 1,
+                               check_every)
+              if int(assigned[:k * DEPLOY_BATCH_ROWS].sum()) == cited]
+        assert ks, f"[deploy] no check's batch holds {cited} canary rows"
+        k = ks[0]
+        cut_rows = k * DEPLOY_BATCH_ROWS
+        mid_run = {"after_batches": k, "canary_rows": cited,
+                   "reasons": rollbacks[0]["reasons"]}
+    on_canary = assigned & (np.arange(len(records)) < cut_rows)
+    got = serve_rows(read_scores(os.path.join(tmp, "deploy_scores")))
+    assert len(got) == len(records) == m["rows_submitted"]
+    ulps = {"stable": hold_rows("deploy run, stable arm", got[~on_canary],
+                                want["v1"][~on_canary], "rf"),
+            "canary": hold_rows("deploy run, canary arm", got[on_canary],
+                                want["v2"][on_canary], "gbt")}
+    assert [(g.version, g.endpoint.fused_backend, g.endpoint.warm_error)
+            for g in tags.generations] == [("v1", "torch", None),
+                                           ("v2", "torch", None)], [
+        (g.version, g.endpoint.fused_reason, g.endpoint.warm_error)
+        for g in tags.generations]
+    arms = {}
+    for arm, gen in zip(("stable", "canary"), tags.generations):
+        snap = gen.endpoint.telemetry.snapshot()
+        assert sorted(map(int, snap["fused"]["bucket_timings"])) == list(
+            DEPLOY_BUCKETS), (arm, snap["fused"]["bucket_timings"])
+        want_rows = int(on_canary.sum()) if arm == "canary" else int(
+            (~on_canary).sum())
+        assert snap["rows_scored"] == want_rows, (arm, snap["rows_scored"])
+        # one K2 launch per compiled batch of the arm (one tree head)
+        assert out["launches"]["deploy"].get(arm, 0) == snap["batches"], (
+            arm, out["launches"]["deploy"], snap["batches"])
+        arms[arm] = {"rows": want_rows, "batches": snap["batches"],
+                     "latency_ms": snap["latency_ms"],
+                     "rows_per_s": snap["rows_per_s"],
+                     "batch_rows_per_s": snap["batch_rows_per_s"],
+                     "ulps": ulps[arm]}
+    assert out["launches"]["deploy"].get("warm") == 2 * len(DEPLOY_BUCKETS)
+    assert reg.canary is None
+    assert (m["canary_released"] is None) == bool(rollbacks), (
+        m["canary_released"], rollbacks)
+    tags.generations.clear()
+    out["deploy"] = {"arms": arms, "final_decision": m["final_decision"],
+                     "check_every_batches": check_every,
+                     "rollback_mid_run": mid_run}
+    if mid_run is None:
+        ending = (f"no check of the default cadence rolled the canary back; "
+                  f"final check rollback "
+                  f"{(m['final_decision'] or {}).get('rollback')}, canary "
+                  "released undecided")
+    else:
+        ending = (f"FINDING: a check of the default cadence rolled the "
+                  f"healthy canary back after {mid_run['after_batches']} "
+                  f"batches ({mid_run['canary_rows']} canary rows) on "
+                  + ", ".join(f"{r['signal']}={r['value']} (limit "
+                              f"{r['threshold']})" for r in mid_run["reasons"])
+                  + "; every later row served on v1")
+    log(f"[deploy] deploy run: {len(records)} records in batches of "
+        f"{DEPLOY_BATCH_ROWS} in {out['walls']['deploy']:.3f} s, v1 stable "
+        f"and v2 canary at {DEPLOY_CANARY_FRACTION}, checked every "
+        f"{check_every} batches: no failed row; the canary's "
+        f"{arms['canary']['rows']} rows are exactly the host route_key "
+        f"split's up to the last batch it served; stable rows within "
+        f"{ulps['stable']:g} ULP of v1's score_function(), canary rows within "
+        f"{ulps['canary']:g} of v2's; both generations torch-fused and warmed"
+        f" on {DEPLOY_BUCKETS}; p50/p99 ms stable "
+        f"{arms['stable']['latency_ms']['p50']}/"
+        f"{arms['stable']['latency_ms']['p99']}, canary "
+        f"{arms['canary']['latency_ms']['p50']}/"
+        f"{arms['canary']['latency_ms']['p99']}; {ending}; K2 "
+        f"{out['launches']['deploy']}, {held} held against plain")
+
+    # -- the rollback drill -----------------------------------------------------
+    models = {v: reg.load(v, workflow(v)) for v in ("v1", "v2")}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ArmTags(kernels, "rollback") as tags:
+        ctl = DeploymentController(canary_fraction=DEPLOY_CANARY_FRACTION,
+                                   check_every_batches=1,
+                                   batch_buckets=DEPLOY_BUCKETS)
+        ctl.deploy(models["v1"], version="v1")
+        canary = ctl.start_canary(models["v2"], version="v2")
+        gens = [ctl.stable_generation, canary]
+        faults.configure("canary.regression:every=1")
+        batches = 0
+        try:
+            for lo in range(0, 8 * DEPLOY_BATCH_ROWS, DEPLOY_BATCH_ROWS):
+                batch = records[lo:lo + DEPLOY_BATCH_ROWS]
+                rows = ctl.score_batch(batch)
+                batches += 1
+                arm = assigned[lo:lo + DEPLOY_BATCH_ROWS]
+                assert not any(isinstance(r, RowScoringError)
+                               for r, a in zip(rows, arm) if not a), \
+                    "[deploy] a stable row failed in the rollback drill"
+                hold_rows("rollback drill, stable arm", serve_rows(
+                    [r for r, a in zip(rows, arm) if not a]),
+                    want["v1"][lo:lo + DEPLOY_BATCH_ROWS][~arm], "rf")
+                if ctl.canary_generation is None:
+                    break
+        finally:
+            faults.reset()
+        assert ctl.canary_generation is None, "the canary was not rolled back"
+        (event,) = [e for e in ctl.events() if e["event"] == "rollback"]
+        signals = sorted(r["signal"] for r in event["reasons"])
+        assert "nonfinite_rows" in signals, signals
+        after = ctl.score_batch(records[:DEPLOY_BATCH_ROWS])
+        hold_rows("after the rollback", serve_rows(after),
+                  want["v1"][:DEPLOY_BATCH_ROWS], "rf")
+        assert kernels.bin_matrix.launches == len(tags.calls)
+        assert kernels.fused_moments.launches == 0
+        out["launches"]["rollback"] = tags.counts()
+        out["walls"]["rollback"] = time.perf_counter() - t0
+        held = tags.hold(bin_errs)
+    out["k2_launches_by_rows"]["rollback"] = tags.by_rows
+    for g in gens:
+        assert g.endpoint.fused_backend == "torch", g.endpoint.fused_reason
+        assert g.endpoint.warm_error is None, g.endpoint.warm_error
+    nonfinite = event["evidence"]["canary"]["breaker"]["rows_nonfinite"]
+    out["rollback"] = {"batches": batches, "signals": signals,
+                       "canary_rows_nonfinite": nonfinite}
+    log(f"[deploy] rollback drill (canary.regression:every=1, checked every "
+        f"batch): the canary rolled back automatically after {batches} "
+        f"batch(es) on {signals} ({nonfinite} non-finite canary rows "
+        f"refused); every stable row clean and within budget of v1's "
+        f"score_function(), and the next batch all on v1; K2 "
+        f"{out['launches']['rollback']}, {held} held against plain")
+    del ctl, canary, gens, models
+
+    # -- the hot-swap drill -------------------------------------------------------
+    ctl = DeploymentController(registry=reg, track_registry=False,
+                               batch_buckets=DEPLOY_BUCKETS)
+    ctl.deploy_version("v1", workflow("v1"))
+    # the main thread takes the gate between two batches to hold the kept
+    # K2 calls and read the device memory with no batch in flight; the
+    # scoring thread yields while ``want`` is set
+    gate, want_gate = threading.Lock(), threading.Event()
+    stop = threading.Event()
+    failures: list = []
+    served: list = []         # (start, end, version, lo, rows)
+    streams: dict = {"live": [], "warm": []}
+
+    def pump():
+        streams["live"].append(torch.cuda.current_stream().cuda_stream)
+        lo = 0
+        while not stop.is_set():
+            batch = records[lo:lo + DEPLOY_BATCH_ROWS]
+            while want_gate.is_set():
+                time.sleep(1e-3)
+            with gate:
+                t_a = time.perf_counter()
+                try:
+                    rows, info = ctl.score_batch_with_info(batch)
+                except Exception as e:  # noqa: BLE001 - the drill's verdict
+                    failures.append(f"{type(e).__name__}: {e}")
+                    return
+                t_b = time.perf_counter()
+            if len(rows) != len(batch) or any(
+                    isinstance(r, RowScoringError) for r in rows):
+                failures.append(f"batch at {lo}: {len(rows)} rows for "
+                                f"{len(batch)}, or a failed row")
+                return
+            served.append((t_a, t_b, info["stable_version"], lo,
+                           serve_rows(rows)))
+            lo = (lo + DEPLOY_BATCH_ROWS) % (len(records) - DEPLOY_BATCH_ROWS)
+
+    kernels.reset_launches()
+    held = counted = 0
+    windows, mem = [], []
+    t0 = time.perf_counter()
+    with ArmTags(kernels, "hot_swap") as tags:
+        thread = threading.Thread(target=pump, name="deploy-pump")
+        thread.start()
+        try:
+            for v in DEPLOY_SWAPS:
+                time.sleep(DEPLOY_SWAP_GAP_S)
+                streams["warm"].append(torch.cuda.current_stream().cuda_stream)
+                t_a = time.perf_counter()
+                gen = ctl.deploy_version(v, workflow(v))
+                windows.append((t_a, time.perf_counter()))
+                assert gen.endpoint.fused_backend == "torch"
+                assert gen.endpoint.warm_error is None, gen.endpoint.warm_error
+                del gen
+                want_gate.set()
+                with gate:
+                    # the launches so far, before check_bins adds its own
+                    counted += kernels.bin_matrix.launches
+                    assert kernels.fused_moments.launches == 0
+                    held += tags.hold(bin_errs)
+                    kernels.reset_launches()
+                    torch.cuda.synchronize()
+                    gc.collect()
+                    mem.append(int(torch.cuda.memory_allocated()))
+                want_gate.clear()
+            time.sleep(DEPLOY_SWAP_GAP_S)
+        finally:
+            stop.set()
+            thread.join(60)
+        assert not thread.is_alive(), "the scoring thread did not stop"
+        counted += kernels.bin_matrix.launches
+        assert kernels.fused_moments.launches == 0
+        held += tags.hold(bin_errs)
+        out["launches"]["hot_swap"] = tags.counts()
+    out["walls"]["hot_swap"] = time.perf_counter() - t0
+    out["k2_launches_by_rows"]["hot_swap"] = tags.by_rows
+    assert not failures, failures[:3]
+    assert counted == held, (counted, held)
+    assert out["launches"]["hot_swap"]["warm"] == len(DEPLOY_SWAPS) * len(
+        DEPLOY_BUCKETS), out["launches"]["hot_swap"]
+    assert out["launches"]["hot_swap"]["stable"] == len(served)
+    swaps = [e for e in ctl.events() if e["event"] == "swap"]
+    assert [e["version"] for e in swaps] == ["v1", *DEPLOY_SWAPS], swaps
+    # every row of every batch equals its generation's score_function() rows
+    inside, outside = [], []
+    for t_a, t_b, v, lo, rows in served:
+        hold_rows(f"hot swap, batch at {lo} on {v}", rows,
+                  want[v][lo:lo + DEPLOY_BATCH_ROWS], fams[v])
+        wall_ms = 1e3 * (t_b - t_a)
+        (inside if any(t_a < w1 and t_b > w0 for w0, w1 in windows)
+         else outside).append(wall_ms)
+    n_rows = sum(len(s[4]) for s in served)
+    assert inside and outside, (len(inside), len(outside))
+    p99_in, p99_out = (float(np.percentile(inside, 99)),
+                       float(np.percentile(outside, 99)))
+    # the same version is live after swaps 1 and 3 (v1) and 2 and 4 (v2):
+    # a retired generation that lived on would add at least the smaller
+    # generation's heaps to the later reading; half of them splits that
+    # from the readings' own spread, which may fall on either side
+    leak_bytes = min(out["heap_bytes"].values()) // 2
+    for later, first in ((3, 1), (4, 2)):
+        assert abs(mem[later - 1] - mem[first - 1]) < leak_bytes, (
+            f"[deploy] device memory after swap {later} {mem[later - 1]} B "
+            f"against {mem[first - 1]} B after swap {first}, the same version"
+            f" live: more than half a generation's heaps ({leak_bytes} B) "
+            "apart, a retired generation lives on")
+    # and after swap 4 (v2 live) against after swap 1 (v1 live)
+    assert abs(mem[3] - mem[0]) <= DEPLOY_MEM_RTOL * mem[0], (
+        f"[deploy] device memory after swap 4 {mem[3]} B against {mem[0]} B "
+        "after swap 1")
+    out["hot_swap"] = {
+        "batches": len(served), "rows": n_rows,
+        "batches_in_swap_windows": len(inside),
+        "p99_ms_in_swap_windows": p99_in, "p99_ms_outside": p99_out,
+        "p50_ms_in_swap_windows": float(np.percentile(inside, 50)),
+        "p50_ms_outside": float(np.percentile(outside, 50)),
+        "swap_walls_s": [w1 - w0 for w0, w1 in windows],
+        "warm_s": [e["warm_s"] for e in swaps[1:]],
+        "flip_us": [e["flip_us"] for e in swaps[1:]],
+        "memory_after_swap_bytes": mem,
+        "warm_stream": streams["warm"], "live_stream": streams["live"],
+    }
+    hs = out["hot_swap"]
+    log(f"[deploy] hot swap: a scoring thread served {hs['batches']} batches "
+        f"({n_rows} rows, none dropped, every row equal within budget to its "
+        f"generation's score_function()) while the main thread hot-swapped "
+        f"{DEPLOY_SWAPS} from the registry (each load + build + warm "
+        f"{', '.join(f'{s:.3f}' for s in hs['swap_walls_s'])} s, warm "
+        f"{hs['warm_s']} s, pointer flip {hs['flip_us']} us); batch p99 "
+        f"{p99_in:.3f} ms inside the swap windows ({len(inside)} batches) "
+        f"against {p99_out:.3f} ms outside ({len(outside)}), p50 "
+        f"{hs['p50_ms_in_swap_windows']:.3f} / {hs['p50_ms_outside']:.3f} ms;"
+        f" the new generation warms on CUDA stream {streams['warm']} and live"
+        f" traffic scores on {streams['live']} (the same stream: recorded, "
+        f"not fixed); device memory after each swap {mem} B (after swap 4 "
+        f"within {100 * DEPLOY_MEM_RTOL:.0f}% of after swap 1, and with the "
+        f"same version live after swaps 1 and 3, 2 and 4, within "
+        f"{leak_bytes} B, half the smaller generation's heaps "
+        f"{out['heap_bytes']}: retired generations freed); K2 "
+        f"{out['launches']['hot_swap']}, {held} held against plain")
+    del ctl
+    out["wall_s"] = time.perf_counter() - t_step
+    log(f"[deploy] step wall {out['wall_s']:.1f} s")
     return out
 
 
@@ -1551,6 +2138,8 @@ def serve_phase(kernels, readme_model, bin_errs: list,
     CSV records at every SERVE_BATCHES size, torch-fused against
     numpy-fused; K2 is launched once per tree-head batch and each launch
     is held against its plain version; K2 is timed at the serving shapes.
+    Then ``[deploy]`` (``deploy_step``) in the same temporary directory,
+    over the saved forest and GBT artifacts.
     ``readme_build(csv path)`` rebuilds the README model's workflow for the
     load (``readme_example``'s by default).  Returns the result lines'
     pieces."""
@@ -1598,6 +2187,11 @@ def serve_phase(kernels, readme_model, bin_errs: list,
                 records, data, tmp, bin_errs)
             out[tag]["fit_s"], out[tag]["fit_launches"] = fit_s, fit
             del model
+        deploy = deploy_step(kernels, tmp, serve_csv,
+                             {"v1": out["forest"]["rows"],
+                              "v2": out["gbt"]["rows"]}, bin_errs)
+    for v in out.values():
+        del v["rows"]
     # K2 at the serving shapes: the served forest's own inputs
     shapes = []
     for m in SERVE_BATCHES:
@@ -1611,6 +2205,19 @@ def serve_phase(kernels, readme_model, bin_errs: list,
     for v in out.values():
         v.pop("k2_inputs", None)
     out["k2_shapes"] = shapes
+    # and at [deploy]'s shapes, its buckets (the deploy run's own inputs)
+    kept = deploy.pop("k2_inputs")
+    deploy["k2_shapes"] = []
+    for m in sorted(kept):
+        x, edges, dtype = kept[m]
+        b = time_bins(kernels, x, edges, dtype)
+        b["deploy_launches"] = sum(v.get(m, 0) for v in
+                                   deploy["k2_launches_by_rows"].values())
+        deploy["k2_shapes"].append(b)
+        log_bins_times(f"[deploy] {tuple(x.shape)} x {edges.shape[1]} edges "
+                       f"-> {dtype} ({b['deploy_launches']} launches)", b)
+    del kept
+    out["deploy"] = deploy
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[serve] phase wall {out['wall_s']:.1f} s")
     return out
@@ -3993,12 +4600,17 @@ def serve_by_path(serve: dict, k: str) -> dict:
            for tag in ("readme", "forest", "gbt")}
     out.update({f"serve_{tag}_fit": serve[tag]["fit_launches"][k]
                 for tag in ("forest", "gbt")})
+    # [deploy]: each step's launches by arm (``warm``: a generation's
+    # warm-up, one batch per bucket); K1 is not on the serving path
+    out.update({f"deploy_{step}_{arm}": n if k == "bin_matrix" else 0
+                for step, arms in serve["deploy"]["launches"].items()
+                for arm, n in arms.items()})
     return out
 
 
 def serve_only_main() -> int:
-    """``--serve-only``: the kernels' build and the [serve] phase alone,
-    with a logistic regression on the README front in the README model's
+    """``--serve-only``: the kernels' build and the [serve] phase (with its
+    [deploy] step) alone, with a logistic regression on the README front in the README model's
     place: a quick check of the serving path while it changes.  Without
     arguments the script runs every phase."""
     import tempfile
@@ -4213,9 +4825,6 @@ def card_main(cpu_child: subprocess.Popen,
     log(f"[slice] cuda, second run: train {warm['train_s']:.3f} s "
         f"({SLICE_ROWS / warm['train_s']:.0f} rows/s), score "
         f"{warm['score_s']:.3f} s ({SLICE_ROWS / warm['score_s']:.0f} rows/s)")
-    traced, by_name = profile(lambda: run_slice("cuda", data))
-    log_profile("slice", 1e3 * (traced["train_s"] + traced["score_s"]),
-                by_name, 6)
     for s in stage_walls(build_slice, "cuda", data):
         log(f"[slice] cuda stage {s['stage']}: fit {s['fit_ms']:.1f} ms, "
             f"transform {s['transform_ms']:.1f} ms")
@@ -4281,9 +4890,6 @@ def card_main(cpu_child: subprocess.Popen,
         f"({SLICE_ROWS / tg2['train_s']:.0f} rows/s), score "
         f"{tg2['score_s']:.3f} s ({SLICE_ROWS / tg2['score_s']:.0f} rows/s); "
         "heaps bit-identical to the first run")
-    ttraced, tby_name = profile(lambda: run_tree_slice("cuda", data, kernels))
-    log_profile("trees", 1e3 * (ttraced["train_s"] + ttraced["score_s"]),
-                tby_name, 14)
     for s in stage_walls(build_tree_slice, "cuda", data):
         log(f"[trees] cuda stage {s['stage']}: fit {s['fit_ms']:.1f} ms, "
             f"transform {s['transform_ms']:.1f} ms")
@@ -4645,6 +5251,7 @@ def card_main(cpu_child: subprocess.Popen,
         "families_path_shapes": sel_shape_rows("bin_matrix",
                                                families["shapes"]),
         "serve_path_shapes": serve["k2_shapes"],
+        "deploy_path_shapes": serve["deploy"]["k2_shapes"],
         "fused_train_path_shapes": sel_shape_rows("bin_matrix",
                                                   fused["shapes"]),
         "fused_train_existing_launches": fused["existing_launches"][

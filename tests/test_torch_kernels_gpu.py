@@ -263,7 +263,7 @@ def test_bin_matrix_kernel_plans_its_grid(cuda):
                        tk.bin_matrix_plain(x, edges, torch.int32))
     x, edges = _bin_inputs(10, 3, 20000, 5, cuda)
     before = tk.bin_matrix.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(tk.KernelError, match="shared memory"):
         tk.bin_matrix(x, edges, torch.int32)
     assert tk.bin_matrix.launches == before
 
@@ -817,3 +817,157 @@ def test_fused_moments_sharded_at_world_one_over_nccl(cuda, tmp_path):
             assert torch.equal(a, b)
     finally:
         tdist.shutdown()
+
+
+# -- serving and the model registry ----------------------------------------------
+
+def _card_forest(tmp_path, num_trees, max_depth, name):
+    """A forest on the README front trained on the card over a 3 000-row
+    CSV and saved under ``name``; returns (rebuild, path, records)."""
+    import transmogrifai_tpu_torch.dsl  # noqa: F401  feature operators
+    from transmogrifai_tpu_torch import FeatureBuilder, OpWorkflow
+    from transmogrifai_tpu_torch.examples.synthetic import write_readme_csv
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.types import feature_types as ft
+
+    path = str(tmp_path / "t.csv")
+    if not (tmp_path / "t.csv").exists():
+        write_readme_csv(path, 3000)
+
+    def build():
+        survived = FeatureBuilder(ft.RealNN, "survived").as_response()
+        sex = FeatureBuilder(ft.PickList, "sex").as_predictor()
+        age = FeatureBuilder(ft.Real, "age").as_predictor()
+        fare = FeatureBuilder(ft.Real, "fare").as_predictor()
+        vec = transmogrify([sex, age, fare,
+                            age.fill_missing_with_mean().z_normalize()])
+        checked = survived.sanity_check(vec, remove_bad_features=True)
+        pred = OpRandomForestClassifier(num_trees=num_trees,
+                                        max_depth=max_depth) \
+            .set_input(survived, checked).get_output()
+        return OpWorkflow().set_result_features(pred) \
+            .set_reader(CSVReader(path))
+
+    wf = build()
+    wf.train().save(str(tmp_path / name))
+    data = CSVReader(path).generate_dataset(wf.raw_features)
+    names = [f.name for f in wf.raw_features if not f.is_response]
+    records = [dict(zip(names, row))
+               for row in zip(*(data[n].to_list() for n in names))]
+    return build, str(tmp_path / name), records
+
+
+def test_cuda_endpoint_warms_every_bucket_through_k2(cuda, tmp_path):
+    """A CUDA model's endpoint warms every bucket of DEFAULT_BUCKETS
+    through the torch-fused program on the card, one K2 launch a bucket,
+    each launch equal to plain; its batches launch K2 once each and score
+    as the model's own score_function() does, bit for bit."""
+    from transmogrifai_tpu_torch.serving import (
+        CompiledEndpoint,
+        MicroBatchScheduler,
+        RowScoringError,
+        compile_endpoint,
+    )
+    from transmogrifai_tpu_torch.serving.endpoint import DEFAULT_BUCKETS
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    build, path, records = _card_forest(tmp_path, 10, 6, "m")
+    model = OpWorkflowModel.load(path, build())
+    kept = []
+    bin_matrix = tk.bin_matrix
+
+    def shim(*args):
+        kept.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args))
+        return bin_matrix(*args)
+
+    from transmogrifai_tpu_torch.models import trees
+
+    tk.reset_launches()
+    trees_bin = trees.bin_matrix
+    trees.bin_matrix = shim
+    try:
+        endpoint = compile_endpoint(model)
+        assert isinstance(endpoint, CompiledEndpoint)
+        assert endpoint.fused_backend == "torch", endpoint.fused_reason
+        assert endpoint.warm_error is None
+        assert endpoint.warmed_buckets == DEFAULT_BUCKETS
+        assert tk.bin_matrix.launches == len(DEFAULT_BUCKETS)
+        snap = endpoint.telemetry.snapshot()["fused"]
+        assert snap["backend"] == "torch"
+        assert sorted(map(int, snap["bucket_timings"])) == list(
+            DEFAULT_BUCKETS)
+        got = endpoint.score_batch(records[:300])
+        assert tk.bin_matrix.launches == len(DEFAULT_BUCKETS) + 3
+        with MicroBatchScheduler(endpoint, max_wait_us=500) as sched:
+            streamed = list(sched.score_stream(records[:64], window=16))
+    finally:
+        trees.bin_matrix = trees_bin
+    assert len(kept) == tk.bin_matrix.launches
+    assert sorted({int(a[0].shape[0]) for a in kept[:4]}) == list(
+        DEFAULT_BUCKETS)
+    for x, edges, dtype in kept:
+        assert x.is_cuda
+        assert torch.equal(tk.bin_matrix(x, edges, dtype),
+                           tk.bin_matrix_plain(x, edges, dtype))
+    want = model.score_function(drift_policy=None).score_batch(records[:300])
+    assert not any(isinstance(r, RowScoringError) for r in got)
+    assert got == want
+    assert streamed == want[:64]
+
+
+def test_hot_swap_on_the_card_frees_the_retired_generation(cuda, tmp_path):
+    """Hot swaps between two registry versions on the card: after each
+    swap the device memory holds one generation of the live version - the
+    same bytes after swaps 1 and 3 (v1) and 2 and 4 (v2), within half
+    the smaller generation's heaps, which a retired generation that lived
+    on would add in full - so a retired generation is freed; every batch
+    scores on exactly one generation, K2 launched."""
+    import gc
+
+    from transmogrifai_tpu_torch.models.trees import _walk_params
+    from transmogrifai_tpu_torch.registry import (
+        DeploymentController,
+        ModelRegistry,
+    )
+    from transmogrifai_tpu_torch.serving import RowScoringError
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    build1, path1, records = _card_forest(tmp_path, 30, 8, "v1")
+    build2, path2, _ = _card_forest(tmp_path, 10, 8, "v2")
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    heap_bytes = []
+    for path, build in ((path1, build1), (path2, build2)):
+        model = OpWorkflowModel.load(path, build())
+        wp = _walk_params(model.stages[-1].model_params, torch.device("cpu"))
+        heap_bytes.append(sum(
+            t.numel() * t.element_size()
+            for t in [*wp.get("heaps", ()),
+                      *(v for v in wp.values() if torch.is_tensor(v))]))
+        reg.publish(model)
+        del model
+    builds = {"v1": build1, "v2": build2}
+    ctl = DeploymentController(registry=reg, track_registry=False,
+                               batch_buckets=(1, 8, 32, 128))
+    ctl.deploy_version("v1", build1())
+    mem = []
+    for v in ("v1", "v2", "v1", "v2"):
+        gen = ctl.deploy_version(v, builds[v]())
+        assert gen.endpoint.fused_backend == "torch"
+        assert gen.endpoint.warm_error is None
+        tk.reset_launches()
+        rows, info = ctl.score_batch_with_info(records[:100])
+        assert info["stable_version"] == v
+        assert tk.bin_matrix.launches == 1
+        assert not any(isinstance(r, RowScoringError) for r in rows)
+        del gen, rows
+        torch.cuda.synchronize()
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated())
+    assert abs(mem[2] - mem[0]) < min(heap_bytes) // 2, (mem, heap_bytes)
+    assert abs(mem[3] - mem[1]) < min(heap_bytes) // 2, (mem, heap_bytes)
+    # the two versions hold different heaps (30 trees against 10): a
+    # retired generation that lived on would show as their sum
+    assert mem[0] != mem[1], mem

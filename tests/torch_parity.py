@@ -470,6 +470,59 @@ def assert_rows_close(got_rows, want_rows, ulps: int, atol: float = 0.0,
 
 
 
+# -- serving and the model registry ---------------------------------------------
+
+def tiny_pipeline(pkg: str, n: int = 120, seed: int = 0):
+    """The JAX package's ``testkit.drills.tiny_drill_pipeline`` in
+    ``pkg`` (y response, a numeric, c a three-value picklist,
+    transmogrify, a logistic regression at reg 0.01): (workflow, data,
+    records, prediction name); the torch package's workflow runs on the
+    CPU."""
+    mod(pkg, "dsl")
+    fb = mod(pkg, "features.feature_builder").FeatureBuilder
+    ft = mod(pkg, "types.feature_types")
+    rng = np.random.RandomState(seed)
+    data = {
+        "y": (rng.rand(n) > 0.5).astype(float).tolist(),
+        "a": rng.randn(n).tolist(),
+        "c": [("u", "v", "w")[i % 3] for i in range(n)],
+    }
+    y = fb(ft.RealNN, "y").as_response()
+    a = fb(ft.Real, "a").as_predictor()
+    c = fb(ft.PickList, "c").as_predictor()
+    vec = mod(pkg, "ops.transmogrifier").transmogrify([a, c])
+    pred = mod(pkg, "models.logistic_regression").OpLogisticRegression(
+        reg_param=0.01).set_input(y, vec).get_output()
+    records = [{"a": data["a"][i], "c": data["c"][i]} for i in range(n)]
+    return workflow(pkg, pred, data), data, records, pred.name
+
+
+def reference_pair(pkg_builder, path: str):
+    """Train ``pkg_builder(REF)``'s workflow in the JAX package, save it at
+    ``path`` and load the artifact into ``pkg_builder(PORT)``'s workflow:
+    (reference model, torch model with the same weights).  Each side's uid
+    counters are reset before its build, so feature names agree."""
+    from transmogrifai_tpu_torch.interop import load_reference_artifact
+
+    reset_uids(REF)
+    ref_model = pkg_builder(REF).train()
+    ref_model.save(path)
+    reset_uids(PORT)
+    return ref_model, load_reference_artifact(path, pkg_builder(PORT))
+
+
+def strip_volatile(doc, keys):
+    """``doc`` without the entries named in ``keys``, at any depth (the
+    timestamps, content hashes and paths two packages' registry documents
+    may differ in)."""
+    if isinstance(doc, dict):
+        return {k: strip_volatile(v, keys) for k, v in doc.items()
+                if k not in keys}
+    if isinstance(doc, list):
+        return [strip_volatile(v, keys) for v in doc]
+    return doc
+
+
 # -- the vectorizer slice: every transmogrify group ----------------------------
 
 #: a pinned "now" for the date vectorizers (``reference_date_ms=None``

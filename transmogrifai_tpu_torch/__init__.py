@@ -19,7 +19,11 @@ README.md's example: ``CSVReader`` (the C++ CSV scanner, built by
 scalers -> the model selectors -> ``summary_pretty()``; and serving:
 ``model.save()``, ``OpWorkflowModel.load()`` and ``score_function()``, whose
 local scorer runs one torch program on the card per batch
-(``local/fused_torch.py``).  ROADMAP.md lists what is still to come.
+(``local/fused_torch.py``), behind the bucketed serving endpoint and
+micro-batching scheduler (``serving/``), the versioned model registry
+with hot swap, canary and rollback (``registry/``) and the runner's
+``serve`` and ``deploy`` run types (``workflow/runner.py``).  ROADMAP.md
+lists what is still to come.
 """
 from .features.feature import Feature
 from .features.feature_builder import FeatureBuilder, from_dataframe, from_schema

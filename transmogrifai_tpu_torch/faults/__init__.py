@@ -23,14 +23,32 @@ mesh.peer_die              a mesh peer dies mid-collective (classified
                            survivor recompute)
 mesh.init_no_coordinator   distributed.initialize: the coordinator never
                            answers (bootstrap-deadline drill)
+serving.batch              InjectedFault inside the compiled batch path
+serving.nan_scores         batch outputs poisoned to NaN (guard drill)
+serving.slow_batch         the batch path sleeps ``delay`` seconds
+serving.schema_drift       the endpoint sees a synthetic schema-contract
+                           violation (drift_policy drill)
+registry.publish_crash     hard kill between the artifact publish and
+                           the registry-index commit (the registry must
+                           stay loadable at the prior version)
+registry.swap_crash        InjectedFault in the deploy swap window (new
+                           endpoint built, pointer not yet flipped - the
+                           old generation must keep serving)
+canary.regression          live canary outputs poisoned to NaN through
+                           the guard + breaker accounting (auto-rollback
+                           drill)
+canary.latency             the canary arm sleeps ``delay`` seconds
+                           inside its timed window (latency-SLO drill)
+supervisor.child_kill      the supervisor kills its child (preemption)
 ========================== ==================================================
 
 The mesh points fire in ``parallel/resilience.py`` (the watchdog's
 worker, before the guarded step) and ``parallel/distributed.py``
-(``initialize``'s connect).  The engine accepts every point name of the
-JAX package (serving, io, supervisor, registry, canary, continuous,
-drift, bulk, fleet); their call sites come with the subsystems that hold
-them (ROADMAP.md queue 1).
+(``initialize``'s connect); the serving points in ``serving/endpoint.py``,
+the registry and canary points in ``registry/``.  The engine accepts
+every point name of the JAX package (continuous, drift, bulk and fleet
+too); their call sites come with the subsystems that hold
+them (ROADMAP.md queue 1, item 12).
 """
 from .injection import (
     DEFAULT_KILL_EXIT,

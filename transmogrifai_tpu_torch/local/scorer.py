@@ -36,6 +36,7 @@ from typing import Any, Iterable, Mapping, Optional, Sequence
 
 from ..models.base import PredictorModel
 from ..obs import trace as _obs_trace
+from ..parallel.kernels import is_device_fault
 # module-level: the row path validates EVERY scored batch - importing
 # inside _validate put one import-machinery hit on every call
 from ..schema.contract import apply_drift_policy, collect_violations
@@ -138,9 +139,11 @@ class LocalScorer:
         # the model's device when requested/auto-selected, else the
         # numpy-fused program.  Every degradation is per-PIPELINE, never
         # per-batch: torch falls back to numpy-fused, numpy-fused to
-        # interpreted, each step recorded in fused_reason.  A failure
-        # INSIDE the device program (a kernel that does not build or
-        # launch) is not a degradation: it raises out of score_batch.
+        # interpreted, each step recorded in fused_reason.  A device
+        # fault (a kernel that does not build or launch, a CUDA error)
+        # is never a degradation: it raises out of the lowering here and
+        # out of score_batch, so a CUDA model is never served from the
+        # host after one.
         backend = (
             fused_backend
             or os.environ.get("TX_FUSED_BACKEND", "").strip()
@@ -177,6 +180,8 @@ class LocalScorer:
                     " %s", e,
                 )
             except Exception as e:  # noqa: BLE001 - degrade, don't die
+                if is_device_fault(e):
+                    raise
                 reasons.append(
                     f"torch lowering raised {type(e).__name__}: {e}"
                 )

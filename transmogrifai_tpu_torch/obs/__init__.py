@@ -1,25 +1,30 @@
 """transmogrifai_tpu_torch.obs: the observability plane's host half.
 
-Host copies of the JAX package's ``obs/trace.py``, ``obs/metrics.py``
-and ``obs/profiler.py``:
+Host copies of the JAX package's ``obs/trace.py``, ``obs/metrics.py``,
+``obs/profiler.py`` and ``obs/slo.py``, and its ``export_obs``:
 
 * :mod:`~transmogrifai_tpu_torch.obs.trace` - run-scoped trace spans
   (contextvar-propagated, ``perf_counter_ns``-timed, bounded ring
-  buffer, JSONL export): the workflow's ``workflow.train`` and
-  ``workflow.ingest`` spans and the reader's ``ingest.read`` span.
+  buffer, JSONL export): one trace id follows a run through ingest,
+  fit, save, publish, swap and the serving batches.
 * :mod:`~transmogrifai_tpu_torch.obs.metrics` - one metrics registry
   (counters, gauges, fixed-bucket histograms, the shared percentile
   implementation) into which telemetry classes register their
-  snapshots as views; exported as JSON.
+  snapshots as views; exported as JSON and Prometheus text.
 * :mod:`~transmogrifai_tpu_torch.obs.profiler` - per-span EWMA +
   histogram with a p99 tail sampler.
+* :mod:`~transmogrifai_tpu_torch.obs.slo` - declarative SLOs with
+  multi-window burn-rate alerting, read by the runner's ``slo_path``
+  knob and ``RollbackPolicy.slo_engine``.
 
-The cross-process shipping (``obs/fleet.py``), the SLO engine
-(``obs/slo.py``), cross-process trace contexts and the Prometheus
-exporter come with the host-side operations subsystems (ROADMAP.md
+The cross-process shipping (``obs/fleet.py``) and cross-process trace
+contexts come with the host-side operations subsystems (ROADMAP.md
 queue 1, item 12).  The package is stdlib-only.
 """
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 from .metrics import (
     Counter,
@@ -28,10 +33,21 @@ from .metrics import (
     MetricsRegistry,
     metrics_registry,
     percentiles,
+    process_instance,
+    prometheus_text_from_json,
     reset_metrics_registry,
+    sanitize_metric_name,
+    set_process_instance,
     write_json_artifact,
 )
 from .profiler import SpanProfiler
+from .slo import (
+    SLOEngine,
+    SLObjective,
+    default_objectives,
+    load_slo_config,
+    resolve_metric,
+)
 from .trace import (
     Span,
     Tracer,
@@ -47,16 +63,47 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "SLOEngine",
+    "SLObjective",
     "Span",
     "SpanProfiler",
     "Tracer",
     "build_trees",
+    "default_objectives",
+    "export_obs",
+    "load_slo_config",
     "metrics_registry",
     "percentiles",
+    "process_instance",
+    "prometheus_text_from_json",
     "reset_metrics_registry",
     "reset_tracer",
+    "resolve_metric",
+    "sanitize_metric_name",
     "set_enabled",
+    "set_process_instance",
     "span",
     "tracer",
     "write_json_artifact",
 ]
+
+
+def export_obs(path: str, extra: Optional[dict] = None) -> dict:
+    """Export the whole observability plane into directory ``path``:
+    ``metrics.json`` (the registry document - native series + every
+    registered telemetry view), ``metrics.prom`` (the same document as
+    Prometheus text exposition), and ``spans.jsonl`` (the tracer's
+    retained spans).  The runner's ``metrics_path`` knob and callers
+    who want a one-call dump share this.  Returns the JSON document."""
+    os.makedirs(path, exist_ok=True)
+    reg = metrics_registry()
+    # stamped with the writing process's identity: the saved artifact
+    # renders under the instance that produced it, not whoever reads it
+    doc = dict(reg.to_json(), instance=process_instance())
+    if extra:
+        doc = dict(doc, **extra)
+    write_json_artifact(os.path.join(path, "metrics.json"), doc)
+    with open(os.path.join(path, "metrics.prom"), "w") as f:
+        f.write(prometheus_text_from_json(doc))
+    tracer().export_jsonl(os.path.join(path, "spans.jsonl"))
+    return doc

@@ -1,5 +1,5 @@
 """Unified metrics plane: one registry, one percentile implementation,
-one JSON exposition.
+one exposition pipeline (JSON + Prometheus text).
 
 Host copy of ``transmogrifai_tpu/obs/metrics.py``.
 
@@ -9,14 +9,17 @@ Host copy of ``transmogrifai_tpu/obs/metrics.py``.
   series.  Histograms use FIXED bucket boundaries so merging and
   exposition never resample.
 * :class:`MetricsRegistry` - get-or-create series registry plus
-  weakref-registered *snapshot views*: telemetry classes (the reader's
-  ``DataTelemetry``) register their live ``snapshot()`` callables and
-  keep their own shapes, and :meth:`MetricsRegistry.to_json` reports
-  them beside the native series in one document.
-
-The Prometheus exporter and the per-process ``instance`` identity come
-with their callers, the fleet and SLO planes (ROADMAP.md queue 1, item
-12).
+  weakref-registered *snapshot views*: telemetry classes (the serving
+  endpoint's ``ServingTelemetry``, the reader's ``DataTelemetry``, the
+  SLO engine) register their live ``snapshot()`` callables and keep
+  their own shapes; exposition flattens every finite numeric leaf into
+  a series, so one scrape reports the whole process.
+* :func:`prometheus_text_from_json` - renders the registry's JSON
+  document as Prometheus text exposition (``# HELP``/``# TYPE`` +
+  samples); the registry's own ``prometheus_text()`` and a saved JSON
+  artifact share this one renderer.
+* :func:`process_instance` - the ``instance`` label: ``<pid>-<nonce>``,
+  or ``TX_OBS_INSTANCE`` / :func:`set_process_instance`.
 
 Stdlib only: the metrics plane does not depend on the stack it
 measures.
@@ -26,9 +29,11 @@ from __future__ import annotations
 import bisect
 import json
 import logging
+import os
+import re
 import threading
 import weakref
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterator, Optional
 
 log = logging.getLogger("transmogrifai_tpu_torch.obs")
 
@@ -39,9 +44,57 @@ __all__ = [
     "MetricsRegistry",
     "metrics_registry",
     "percentiles",
+    "process_instance",
+    "prometheus_text_from_json",
     "reset_metrics_registry",
+    "set_process_instance",
     "write_json_artifact",
 ]
+
+
+# ---------------------------------------------------------------------------
+# process identity (the exposition `instance` label)
+# ---------------------------------------------------------------------------
+#: pid + an 8-hex start nonce: stable for the life of the process,
+#: distinct across processes even when the kernel recycles pids (the
+#: trace-prefix reasoning in trace.py, applied to metric identity)
+_instance_lock = threading.Lock()
+_instance: Optional[str] = None
+
+#: instance identities are interpolated into Prometheus label VALUES
+#: and shard FILENAMES: a quote/backslash/newline would corrupt every
+#: consumer's scrape, and a path separator would write outside the
+#: aggregation dir - sanitize at the trust boundary, not per use
+_INSTANCE_BAD = re.compile(r"[^A-Za-z0-9._:-]")
+
+
+def _sanitize_instance(name: str) -> str:
+    return _INSTANCE_BAD.sub("_", str(name))[:128] or "unnamed"
+
+
+def process_instance() -> str:
+    """This process's stable exposition identity:
+    ``<pid>-<start-nonce>`` by default, overridable by
+    :func:`set_process_instance` or the ``TX_OBS_INSTANCE`` env var
+    (fleet replicas get operator-readable names that way); always
+    label- and filename-safe."""
+    global _instance
+    with _instance_lock:
+        if _instance is None:
+            named = os.environ.get("TX_OBS_INSTANCE", "").strip()
+            _instance = (
+                _sanitize_instance(named) if named
+                else f"{os.getpid()}-{os.urandom(4).hex()}"
+            )
+        return _instance
+
+
+def set_process_instance(name: Optional[str]) -> None:
+    """Override (or with ``None`` re-derive) the exposition identity -
+    a serving replica names itself ``replica-3`` instead of a pid."""
+    global _instance
+    with _instance_lock:
+        _instance = _sanitize_instance(name) if name else None
 
 
 def percentiles(
@@ -254,12 +307,39 @@ class Histogram:
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
+_NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def sanitize_metric_name(name: str) -> str:
+    """Prometheus-legal metric name ([a-zA-Z_:][a-zA-Z0-9_:]*), prefixed
+    ``tx_`` so every series from this system namespaces together."""
+    n = _NAME_BAD.sub("_", str(name))
+    if not n.startswith("tx_"):
+        n = "tx_" + n
+    return n
+
+
+def _numeric_leaves(doc: Any, path: tuple = ()) -> Iterator[tuple]:
+    """Yield (path, value) for every finite int/float leaf reachable
+    through nested dicts.  Bools, strings, lists, and None/NaN leaves
+    are not series (lists hold event detail, not scrapeable scalars)."""
+    if isinstance(doc, dict):
+        for k, v in doc.items():
+            yield from _numeric_leaves(v, path + (str(k),))
+        return
+    if isinstance(doc, bool) or not isinstance(doc, (int, float)):
+        return
+    if doc != doc or doc in (float("inf"), float("-inf")):
+        return
+    yield path, doc
+
+
 class MetricsRegistry:
     """One process-wide registry for native series + snapshot views.
 
     *Native series* (``counter``/``gauge``/``histogram``) are
     get-or-create by name.  *Views* are weakly-referenced telemetry
-    objects whose ``snapshot()`` is read at exposition time - the
+    objects whose ``snapshot()`` is flattened at scrape time - the
     legacy accumulators keep owning their state and their snapshot
     shapes; the registry only READS them, so registration can never
     change behavior or pin an endpoint's telemetry alive."""
@@ -301,8 +381,8 @@ class MetricsRegistry:
         """Register a telemetry object exposing ``snapshot() -> dict``
         under ``kind`` (serving/mesh/data/stage).  Weakly referenced:
         a garbage-collected endpoint's telemetry silently leaves the
-        scrape.  Returns the view's index within its kind (starting
-        at 0)."""
+        scrape.  Returns the instance index used as the ``instance``
+        label (per kind, starting at 0)."""
         with self._lock:
             idx = self._view_counts.get(kind, 0)
             self._view_counts[kind] = idx + 1
@@ -331,7 +411,7 @@ class MetricsRegistry:
     def to_json(self) -> dict:
         """The whole plane as one JSON document: native series keyed by
         name, views keyed ``<kind>/<instance>`` with their UNCHANGED
-        snapshot shapes."""
+        snapshot shapes; ``prometheus_text`` flattens it."""
         with self._lock:
             series = dict(self._series)
         out: dict = {"series": {}, "views": {}}
@@ -360,6 +440,78 @@ class MetricsRegistry:
             out["views"][f"{kind}/{idx}"] = snap
         return out
 
+    def prometheus_text(self) -> str:
+        return prometheus_text_from_json(self.to_json())
+
+
+def _fmt_value(v: float) -> str:
+    f = float(v)
+    return repr(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+def prometheus_text_from_json(doc: dict,
+                              instance: Optional[str] = None) -> str:
+    """Render a :meth:`MetricsRegistry.to_json` document as Prometheus
+    text exposition.  ONE renderer for live scrapes and saved JSON
+    artifacts, so the two can never drift.  Every sample carries an ``instance`` label
+    naming the PROCESS it came from: ``instance`` argument wins,
+    then the document's own ``instance`` stamp (saved artifacts render
+    as the process that wrote them, not the process reading them), then
+    this process's :func:`process_instance`.  View snapshots flatten
+    every finite numeric leaf into a gauge named ``tx_<kind>_<path...>``
+    with the per-kind index as a ``view`` label; native histograms emit
+    the canonical ``_bucket``/``_sum``/``_count`` triplet."""
+    inst = instance if instance is not None else doc.get("instance")
+    # re-sanitized here too: a hand-edited/foreign document's stamp (or
+    # a caller-supplied replica name) must not inject label syntax
+    inst = _sanitize_instance(inst) if inst is not None \
+        else process_instance()
+    ilabel = f'instance="{inst}"'
+    lines: list[str] = []
+    for name, s in sorted(doc.get("series", {}).items()):
+        pname = sanitize_metric_name(name)
+        stype = s.get("type", "gauge")
+        if s.get("help"):
+            lines.append(f"# HELP {pname} {s['help']}")
+        if stype == "histogram":
+            lines.append(f"# TYPE {pname} histogram")
+            acc = 0
+            buckets = s.get("buckets", {})
+            # sort edges NUMERICALLY: a saved metrics.json artifact has
+            # its keys lexicographically reordered by sort_keys=True
+            # ("10" < "3"), and cumulative _bucket values rendered in
+            # that order would be non-monotonic garbage
+            for edge in sorted((e for e in buckets if e != "+Inf"),
+                               key=float):
+                acc += int(buckets[edge])
+                lines.append(
+                    f'{pname}_bucket{{{ilabel},le="{edge}"}} {acc}')
+            acc += int(buckets.get("+Inf", 0))
+            lines.append(f'{pname}_bucket{{{ilabel},le="+Inf"}} {acc}')
+            lines.append(
+                f"{pname}_sum{{{ilabel}}} {_fmt_value(s.get('sum', 0.0))}")
+            lines.append(f"{pname}_count{{{ilabel}}} {int(s.get('count', 0))}")
+            continue
+        lines.append(f"# TYPE {pname} {stype}")
+        lines.append(f"{pname}{{{ilabel}}} {_fmt_value(s.get('value', 0.0))}")
+    for key, snap in sorted(doc.get("views", {}).items()):
+        kind, _, idx = key.partition("/")
+        labels = f'{ilabel},view="{idx}"'
+        # multi-model serving: a view that names the hosted
+        # model it serves gets a model_id label on every sample, so one
+        # scrape separates tx_serving_*{model_id="a"} from model "b"
+        # on the same replica (sanitized like instance - a foreign
+        # document must not inject label syntax)
+        model_id = snap.get("model_id") if isinstance(snap, dict) else None
+        if isinstance(model_id, str) and model_id:
+            labels += f',model_id="{_sanitize_instance(model_id)}"'
+        for path, value in sorted(_numeric_leaves(snap)):
+            pname = sanitize_metric_name(kind + "_" + "_".join(path))
+            lines.append(
+                f'{pname}{{{labels}}} {_fmt_value(value)}')
+    return "\n".join(lines) + "\n"
+
+
 # ---------------------------------------------------------------------------
 # module-level plumbing (the mesh_telemetry()/data_telemetry() pattern)
 # ---------------------------------------------------------------------------
@@ -369,7 +521,7 @@ _registry_lock = threading.Lock()
 
 def metrics_registry() -> MetricsRegistry:
     """The process-wide registry every telemetry class registers into
-    and ``tx obs`` / the ``metrics_path`` runner knob export from."""
+    and the ``metrics_path`` runner knob exports from."""
     global _registry
     with _registry_lock:
         if _registry is None:

@@ -12,6 +12,10 @@ A wrapper takes a tensor's device as the whole dispatch rule: for a CPU
 tensor it runs the kernel's plain torch version (what the CPU tests
 exercise); for a CUDA tensor it launches the kernel or raises - it never
 falls back.  Each wrapper counts its launches in ``<wrapper>.launches``.
+A kernel that does not build or launch raises :class:`KernelError`, and
+:func:`is_device_fault` is the one rule by which the serving and
+registry layers tell such a fault (or a ``torch.AcceleratorError``) from
+an error they may degrade around: a device fault is never degraded away.
 
 Kernels:
 
@@ -70,6 +74,24 @@ KERNELS = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build (``nvcc`` missing or failing),
+    to load, or to launch (a CUDA error, or the kernel refusing a shape)."""
+
+
+#: the errors that mean the card or one of its kernels failed
+DEVICE_FAULTS = (KernelError,) + tuple(
+    e for e in (getattr(torch, "AcceleratorError", None),) if e is not None)
+
+
+def is_device_fault(e: BaseException) -> bool:
+    """True for a :class:`KernelError` or a ``torch.AcceleratorError``:
+    errors that a serving or registry catch-all re-raises unchanged
+    instead of degrading (re-scoring row by row, serving cold, re-scoring
+    a canary's rows on stable)."""
+    return isinstance(e, DEVICE_FAULTS)
 #: kernel name -> nvcc's output (ptxas' registers, shared memory and
 #: spills of each kernel) for the libraries this process compiled
 BUILD_LOG: dict[str, str] = {}
@@ -108,14 +130,19 @@ def _lib_path(name: str) -> Path:
 def build(names=None) -> dict[str, Path]:
     """Compile the named kernels (all by default) that are not built yet,
     one ``nvcc`` per source, all started together.  Returns name -> path
-    of the shared library.  Raises ``RuntimeError`` naming the source and
-    nvcc's output when a compile fails."""
+    of the shared library.  Raises :class:`KernelError` when nvcc is
+    missing, and naming the source and nvcc's output when a compile
+    fails."""
     names = list(KERNELS) if names is None else list(names)
     paths = {n: _lib_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
+        if not (os.path.isfile(nvcc) and os.access(nvcc, os.X_OK)):
+            raise KernelError(
+                f"nvcc not found: {nvcc} is not an executable (set CUDA_HOME "
+                "or put nvcc on PATH)")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for n, p in todo.items():
             tmp = p.with_suffix(f".{os.getpid()}.tmp")
@@ -134,7 +161,7 @@ def build(names=None) -> dict[str, Path]:
                 os.replace(tmp, todo[n])  # atomic: a reader never sees half
                 BUILD_LOG[n] = out.decode(errors="replace")
         if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            raise KernelError("nvcc failed for " + "\n".join(failed))
     return paths
 
 
@@ -143,9 +170,13 @@ def _load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             path = build([name])[name]
-            lib = ctypes.CDLL(str(path))
             _, entry, argtypes = KERNELS[name]
-            fn = getattr(lib, entry)
+            try:
+                lib = ctypes.CDLL(str(path))
+                fn = getattr(lib, entry)
+            except (OSError, AttributeError) as e:
+                raise KernelError(
+                    f"cannot load {entry} from {path}: {e}") from e
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _libs[name] = lib
@@ -280,7 +311,7 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
             partial.numel(), counter.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_moments kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"fused_moments kernel launch failed: CUDA error {rc}")
     fused_moments.launches += 1
     x_sum, x_sq, xy, x_min, x_max = out[: 5 * d].view(5, d).unbind(0)
     y_sum, y_sq = out[5 * d:].unbind(0)
@@ -434,14 +465,14 @@ def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
             int(out_dtype == torch.int8), out.data_ptr(), stream,
         )
     if rc == _BIN_ERR_EDGES:
-        raise ValueError(
+        raise KernelError(
             f"bin_matrix: {n_edges} edges per column exceed the kernel's "
             "shared memory"
         )
     if rc == _BIN_ERR_GRID:
-        raise ValueError(f"bin_matrix: {n} x {d} exceeds the kernel's grid")
+        raise KernelError(f"bin_matrix: {n} x {d} exceeds the kernel's grid")
     if rc != 0:
-        raise RuntimeError(f"bin_matrix kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"bin_matrix kernel launch failed: CUDA error {rc}")
     bin_matrix.launches += 1
     return out
 
