@@ -16,12 +16,8 @@ two agree:
 * the selector, transmogrify(label=...) -> SanityChecker ->
   BinaryClassificationModelSelector (3-fold CV over logistic regression's
   8-point and the GBT's 9-point default grids) -> holdout AuROC -> score(),
-  on 200k rows, and under workflow-level CV on 100k rows (both kernels, K1
-  once per fold under workflow CV); its device rank metrics on the card
-  against the CPU; and at 100k rows on the card against the CPU, whose
-  training runs in a child process (``python3 chip_smoke.py --selector-cpu
-  N``, CPU only) started at the beginning so that it overlaps the card's
-  phases;
+  on 200k rows (both kernels); its device rank metrics on the card
+  against the CPU;
 * the README example (README.md's first code block, the port's imports,
   ``OpWorkflow()`` on the card): a 1M-row CSV written by
   ``examples.synthetic.write_readme_csv`` read through
@@ -136,7 +132,27 @@ two agree:
   launched on every rank and equal to their plain versions, every
   validator trail falling back with reason ``mesh``.  Two ranks on one
   card prove the route and its parity, not scaling: no multi-GPU speed-up
-  is claimed.
+  is claimed;
+* the training operations layer (``[ops]``; ``--ops-only`` runs it
+  alone): 1M passenger rows written as 8 CSV shards and 1 Avro shard; a
+  cold ``OpWorkflowRunner.run("train")`` over a 100k-row cut with
+  ``ingest_shards`` (4 workers), ``autotune`` (the report says
+  ``cost_model_cold``, the cost model trained from the run's spans and
+  saved as ``autotune.json``) and ``fleet_dir`` (the shipped shard read
+  back through the aggregator); the cost model warmed by three
+  validations on the card; a warm autotuned train at 1M rows through
+  the streamed ingest (the imputer's and indexer's partial fits armed,
+  the raw columns bit-equal to the serial read by digest), the ladder
+  pruning with every rung fit on the card (the trail printed), the
+  winner equal to the exhaustive sweep's (CV metric within 1e-9) and its
+  AuROC on a separate 200k-row set in [0.70, 0.755]; ``run("serve")`` of
+  the saved model with ``serving_autotune`` (the knob decision, p50 and
+  p99, every row within ``SERVE_ULP_BUDGETS`` of ``score_function()``);
+  ``run("continuous")`` in direct mode (a GBT bootstrapped from 50k rows,
+  windows dropped one a cycle with ``weight`` shifted from the second:
+  clear, over, trigger - refit, publish, promote - then clear; the idle
+  exit), the refit canaried against the bootstrap on the card; every K1
+  and K2 launch counted by step and held against its plain version.
 
 Every phase asserts; any failure exits non-zero.
 
@@ -151,7 +167,6 @@ from __future__ import annotations
 
 import contextlib
 import inspect
-import io
 import json
 import os
 import re
@@ -726,33 +741,22 @@ def stage_walls(build, device: str, data) -> list:
 #: selector's 1M-row run came to drive the same families; cut to keep the
 #: whole run in its limit as the multiclass and regression phases came)
 SELECTOR_ROWS = 200_000
-SELECTOR_CMP_ROWS = 100_000       # card against CPU
 SELECTOR_TYPES = ["OpLogisticRegression", "OpGBTClassifier"]
 SELECTOR_AUROC_RANGE = (0.70, 0.755)  # the holdout AuROC gate of PERF.md
-CMP_RANK_MODE = "approx"          # TX_CV_RANK_METRICS in both card-vs-CPU runs
-#: card against CPU: each candidate's mean CV metric within the CPU tests'
-#: tolerance for its mode, the winner's probabilities by family
+#: card against CPU: a mean CV metric within the CPU tests' tolerance for
+#: its mode
 CMP_METRIC_ATOL = {"approx": 1e-3, "exact": 1e-5}
-#: (the margins of a winner without probabilities, the linear SVM)
-CMP_PROB_ATOL = {"OpLogisticRegression": 1e-4, "OpGBTClassifier": 1e-3,
-                 "OpRandomForestClassifier": 1e-3, "OpLinearSVC": 1e-4}
 #: the fits inside a validation (its scoring is the rest; a family's fused
 #: training dispatch, ``fused_linear`` or ``fused_tree``, holds its scoring
 #: and metrics too)
 FIT_PHASES = ("lr_batch", "lr_folds", "svc_batch", "linreg_batch",
               "nb_folds", "gbt_grid", "rf_grid", "dt_grid", "fused_linear",
               "fused_tree")
-#: trees deeper than this split nodes of a few dozen rows, where the card's
-#: and the CPU's float32 roundings (exp, reduction orders) flip near-tied
-#: splits: their mean metrics are held to CMP_DEEP_TREE_ATOL (the depth-12
-#: GBT candidate differed by 2.7e-5 at 100k rows on an H100)
-CMP_DEEP_TREE_DEPTH, CMP_DEEP_TREE_ATOL = 6, 1e-4
-
-
-def cmp_metric_atol(candidate: dict) -> float:
-    if candidate["params"].get("max_depth", 0) > CMP_DEEP_TREE_DEPTH:
-        return CMP_DEEP_TREE_ATOL
-    return CMP_METRIC_ATOL[candidate["rank_metric_mode"]]
+#: the card's and the CPU's float32 roundings (exp, reduction orders) flip
+#: near-tied splits in deep trees: GBT predictions and deep trees' mean
+#: metrics are held to CMP_DEEP_TREE_ATOL (a depth-12 GBT candidate
+#: differed by 2.7e-5 at 100k rows on an H100)
+CMP_DEEP_TREE_ATOL = 1e-4
 RANK_METRICS_ATOL = 1e-6          # device rank metrics, card against CPU
 
 #: both selectors' runs under workflow CV (the 1M-row runs' fold loop
@@ -904,7 +908,7 @@ def winner_scores(col) -> np.ndarray:
 
 
 def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
-                 keep_grid: bool = False, model_types=SELECTOR_TYPES) -> dict:
+                 model_types=SELECTOR_TYPES) -> dict:
     """Train and score the selector workflow over ``model_types`` on
     ``device``; with ``kernels``, count each kernel's launches in train()
     and score()."""
@@ -919,7 +923,7 @@ def run_selector(device: str, data, kernels=None, workflow_cv: bool = False,
     counts = {}
     if kernels is not None:
         kernels.reset_launches()
-    with selector_walls(device == "cuda", keep_grid) as rec:
+    with selector_walls(device == "cuda") as rec:
         t0 = time.perf_counter()
         model = wf.train()
         t1 = time.perf_counter()
@@ -1000,42 +1004,6 @@ def log_selector(tag: str, r: dict) -> None:
         f"{r['holdout_auroc']:.6f}; AuROC on all rows {r['auroc']:.6f}; "
         f"launches {r['launches']}")
     log_train_fused(tag, s.get("train_fused"))
-
-
-def selector_cpu_main(rows: int) -> int:
-    """``--selector-cpu N``: train and score the selector workflow on the
-    CPU at N rows with the card's rank-metric mode and write what the
-    card's run is held against to stdout as an npz archive."""
-    os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
-    torch.set_num_threads(3)  # the card's phases run beside this process
-    torch.set_float32_matmul_precision("highest")
-    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
-
-    r = run_selector("cpu", synthetic_passengers(rows, seed=42, with_text=False))
-    meta = {k: r[k] for k in ("train_s", "score_s", "walls", "results",
-                              "modes", "holdout_auroc", "auroc")}
-    meta["winner"] = [r["summary"]["best_model_type"],
-                      r["summary"]["best_params"]]
-    buf = io.BytesIO()
-    np.savez(buf, prob=r["prob"], meta=np.array(json.dumps(meta)))
-    sys.stdout.buffer.write(buf.getvalue())
-    return 0
-
-
-def start_selector_cpu(rows: int) -> subprocess.Popen:
-    return subprocess.Popen(
-        [sys.executable, __file__, "--selector-cpu", str(rows)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
-
-
-def finish_selector_cpu(child: subprocess.Popen) -> dict:
-    out, err = child.communicate(timeout=900)
-    assert child.returncode == 0, (
-        f"the CPU selector run failed ({child.returncode}): "
-        f"{err.decode()[-3000:]}")
-    z = np.load(io.BytesIO(out))
-    return {"prob": z["prob"], **json.loads(str(z["meta"]))}
 
 
 def hold_path_inputs(kernels, kept: dict, shapes: dict, errs: list,
@@ -4501,6 +4469,667 @@ def mesh_only_main() -> int:
     return 0
 
 
+# -- [ops]: the training operations layer -------------------------------------
+#: the phase's data: 1M passenger rows as 8 CSV shards and 1 Avro shard, a
+#: 100k-row cut of the same rows as 4 CSV shards for the cold run, and a
+#: separate scoring set
+OPS_ROWS = 1_000_000
+OPS_CSV_SHARDS = 8
+OPS_AVRO_ROWS = 50_000
+OPS_COLD_ROWS = 100_000
+OPS_COLD_SHARDS = 4
+OPS_SCORE_ROWS = 200_000
+OPS_SCORE_SEED = 43
+OPS_WORKERS = 4
+#: the selector: 4 LR points whose L1 levels part their metrics, and a
+#: 10-tree depth-3 GBT at 3 step sizes (7 candidates, 3 folds)
+OPS_LR_GRID = [{"reg_param": 0.001, "elastic_net_param": 0.0}] + [
+    {"reg_param": r, "elastic_net_param": 1.0} for r in (0.02, 0.05, 0.1)]
+OPS_GBT = dict(num_trees=10, max_depth=3)
+OPS_GBT_GRID = [{"step_size": s} for s in (0.05, 0.1, 0.3)]
+#: the cold run leaves one observation per family (each family's fold x
+#: grid fit is one batched dispatch); these validations of the cold run's
+#: design matrix on the card add three more row counts, so the cost model
+#: reaches its four observations a key
+OPS_WARMUP_ROWS = (12_500, 25_000, 50_000)
+OPS_RUNG_ROWS = 250_000
+OPS_KEEP_FRACTION = 0.3
+#: the pruned winner against the exhaustive sweep's: the same candidate,
+#: its CV metric within OPS_WINNER_ATOL.  The JAX package's
+#: test_autotune.py::test_pruned_selection_parity_and_floor holds 1e-9 on
+#: a CPU, where each candidate of a batched fit sums alone; on the card
+#: the two sweeps batch 2 and 4 LR candidates a fold, and cuBLAS picks
+#: its batched GEMM by the batch, so the winner's Gram sums in another
+#: order (5.8e-9 apart on an H100).  The CPU parity test keeps 1e-9.
+OPS_WINNER_ATOL = 1e-6
+OPS_SERVE_RECORDS = 10_000
+OPS_PROBE_ROWS = 512
+#: continuous: the bootstrap's rows, then windows of one shard each, the
+#: shifted ones with ``weight`` moved by OPS_SHIFT_KG (past the drift
+#: threshold, as [families] moves it past the RawFeatureFilter's)
+OPS_CONT_BOOT_ROWS = 50_000
+OPS_CONT_WINDOW_ROWS = 20_000
+OPS_SHIFT_KG = 30.0
+OPS_CONT_REFIT_ROWS = 40_000
+OPS_CANARY_RECORDS = 4_096
+OPS_PASSENGER_COLS = ("survived", "age", "height", "weight", "gender")
+
+
+def ops_write_csv(path: str, ds, lo: int, hi: int, shift: float = 0.0) -> str:
+    """Rows [lo, hi) of the passenger dataset ``ds`` as a CSV with a header
+    (a missing age an empty cell, floats by their shortest round-trip
+    repr), ``weight`` moved by ``shift``; written to a temporary name and
+    renamed into place, the shard follower's producer contract."""
+    # numpy's float-to-str is the shortest round-trip repr, in C
+    age = ds["age"]
+    vals = {
+        "survived": ds["survived"].values[lo:hi].astype(np.int64).astype(str),
+        "age": np.where(age.mask[lo:hi], age.values[lo:hi].astype(str), ""),
+        "height": ds["height"].values[lo:hi].astype(str),
+        "weight": (ds["weight"].values[lo:hi] + shift).astype(str),
+        "gender": ds["gender"].values[lo:hi].astype(str),
+    }
+    rows = map(",".join, zip(*(vals[c].tolist() for c in OPS_PASSENGER_COLS)))
+    tmp = path + ".tmp"
+    with open(tmp, "w", newline="") as f:
+        f.write(",".join(OPS_PASSENGER_COLS) + "\n" + "\n".join(rows) + "\n")
+    os.replace(tmp, path)
+    return path
+
+
+def ops_models(device: str) -> list:
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+
+    return [(OpLogisticRegression(device=device), list(OPS_LR_GRID)),
+            (OpGBTClassifier(device=device, **OPS_GBT), list(OPS_GBT_GRID))]
+
+
+def build_ops(device: str):
+    """The phase's selector workflow: ``age`` mean-imputed
+    (``FillMissingWithMean``) and ``gender`` indexed (``StringIndexer``) -
+    both on raw features, so their partial fits arm under streaming
+    ingest - then transmogrify -> SanityChecker -> the selector over
+    ``ops_models`` with no reserved holdout (a holdout would keep the
+    partial fits from arming).  The vectorizers are label-free, so the
+    model lowers whole to the torch-fused serving program.  Returns
+    (workflow, label, checked, pred)."""
+    from transmogrifai_tpu_torch import FeatureBuilder, OpWorkflow
+    from transmogrifai_tpu_torch.ops.categorical import StringIndexer
+    from transmogrifai_tpu_torch.ops.scalers import FillMissingWithMean
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+    from transmogrifai_tpu_torch.selector.factories import (
+        BinaryClassificationModelSelector,
+    )
+    from transmogrifai_tpu_torch.selector.splitters import DataBalancer
+
+    survived = FeatureBuilder.RealNN("survived").as_response()
+    age = FeatureBuilder.Real("age").as_predictor()
+    height = FeatureBuilder.Real("height").as_predictor()
+    weight = FeatureBuilder.Real("weight").as_predictor()
+    gender = FeatureBuilder.PickList("gender").as_predictor()
+    age_f = FillMissingWithMean().set_input(age).get_output()
+    gender_i = StringIndexer().set_input(gender).get_output()
+    vec = transmogrify([age_f, height, weight, gender, gender_i])
+    checked = SanityChecker(device=device).set_input(
+        survived, vec).get_output()
+    selector = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=3, device=device, models_and_parameters=ops_models(device),
+        splitter=DataBalancer(reserve_test_fraction=0.0))
+    pred = selector.set_input(survived, checked).get_output()
+    wf = OpWorkflow(device=device).set_result_features(pred)
+    return wf, survived, checked, pred
+
+
+def build_continuous(device: str, data):
+    """The continuous loop's workflow over ``data`` (its input dataset):
+    transmogrify -> SanityChecker -> a 10-tree depth-3 GBT, so every refit
+    launches K1 and K2, and the model lowers whole to the torch-fused
+    program (a label-aware bucketizer does not lower), whose tree head
+    bins every served batch with K2."""
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import SanityChecker
+
+    survived, preds = passenger_features()
+    vec = transmogrify(preds)
+    checked = SanityChecker(device=device).set_input(
+        survived, vec).get_output()
+    pred = OpGBTClassifier(device=device, **OPS_GBT).set_input(
+        survived, checked).get_output()
+    return (OpWorkflow(device=device).set_result_features(pred)
+            .set_input_dataset(data))
+
+
+def dataset_digest(ds, names) -> str:
+    """SHA-256 of the named raw columns' values and masks: two ingests with
+    one digest are bit-equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in names:
+        col = ds[name]
+        vals = np.asarray(col.values)
+        h.update(name.encode())
+        if vals.dtype == object:
+            h.update(repr(vals.tolist()).encode())
+        else:
+            h.update(np.ascontiguousarray(vals).tobytes())
+        mask = getattr(col, "mask", None)
+        if mask is not None:
+            h.update(np.ascontiguousarray(mask).tobytes())
+    return h.hexdigest()
+
+
+def selector_summary(summary: dict) -> dict:
+    return next(s["metadata"]["model_selector_summary"]
+                for s in summary["stages"]
+                if "model_selector_summary" in s.get("metadata", {}))
+
+
+def log_autotune_trail(tag: str, rep: dict) -> None:
+    log(f"[ops] {tag}: autotune {rep['mode']}"
+        f"{' (' + rep['reason'] + ')' if rep.get('reason') else ''}; "
+        f"{rep['candidates_total']} candidates, {rep['survivors']} kept, "
+        f"rung rows {rep['rung_rows']}, fits {rep['fits']}, predicted "
+        f"speedup {rep.get('predicted_speedup')}")
+    for c in rep.get("rungs", []):
+        log(f"[ops]   rung {c['family']} "
+            f"{json.dumps(c['params'], sort_keys=True)}: interim "
+            f"{c['interim_metric']}, rung {c['rung_wall_ms']} ms "
+            f"(predicted {c['predicted_rung_ms']}), full fit predicted "
+            f"{c['predicted_fit_ms']} ms, kept {c['kept']}"
+            f"{', error ' + c['rung_error'] if c['rung_error'] else ''}")
+    if rep.get("actual_full_ms_by_family"):
+        log(f"[ops]   full spend: predicted "
+            f"{rep.get('predicted_pruned_ms')} ms pruned, "
+            f"{rep.get('predicted_exhaustive_ms')} ms exhaustive; measured "
+            f"{rep['actual_full_ms_by_family']} ms by family")
+
+
+@contextlib.contextmanager
+def ops_step(kernels, out: dict, step: str, errs: list, bin_errs: list,
+             timings: dict, timed: bool = True):
+    """One counted step of ``[ops]``: the launch counts start from zero and
+    every kernel call's inputs are kept (``kernel_inputs``); after the
+    block the counts land in ``out["launches"][step]`` and every kept call
+    is held against its plain version (``hold_path_inputs``; timed once a
+    new shape into ``out["shapes"]`` with ``timed``)."""
+    kernels.reset_launches()
+    with kernel_inputs(kernels) as kept:
+        yield
+        out["launches"][step] = {w.__name__: w.launches
+                                 for w in kernels.WRAPPERS}
+    hold_path_inputs(kernels, kept, out["shapes"] if timed else {}, errs,
+                     bin_errs, timed=timed, timings=timings)
+
+
+def ops_phase(kernels, errs: list, bin_errs: list, timings: dict,
+              device: str = "cuda") -> dict:
+    """``[ops]``, the training operations layer on the card: 1M passenger
+    rows as 8 CSV and 1 Avro shards; a cold autotuned ``train`` run over a
+    100k-row cut (``ingest_shards``, 4 workers, ``fleet_dir`` shipping read
+    back through the aggregator); the cost model warmed and a warm
+    autotuned ``train`` at 1M rows (streamed ingest with its partial fits
+    armed, the ladder pruning, rungs on the card) held against the serial
+    ingest, the exhaustive sweep and a 200k-row scoring set; a ``serve``
+    run of its model with the knob tuner; a ``continuous`` run in direct
+    mode (bootstrap, drift on shifted shards, refit, publish, promote) and
+    the refit canaried against the bootstrap on the card.  Every K1 and K2
+    launch is counted by step and held against its plain version."""
+    import shutil
+    import tempfile
+    import threading
+
+    from transmogrifai_tpu_torch.autotune import CostModel
+    from transmogrifai_tpu_torch.continuous import STATUS_FILENAME
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+    from transmogrifai_tpu_torch.examples.synthetic import synthetic_passengers
+    from transmogrifai_tpu_torch.obs import (
+        FleetAggregator,
+        reset_tracer,
+        tracer,
+    )
+    from transmogrifai_tpu_torch.readers.avro_reader import save_dataset_avro
+    from transmogrifai_tpu_torch.readers.csv_reader import CSVReader
+    from transmogrifai_tpu_torch.readers.pipeline import PipelinedCSVReader
+    from transmogrifai_tpu_torch.registry import (
+        DeploymentController,
+        ModelRegistry,
+    )
+    from transmogrifai_tpu_torch.selector import validator as validator_mod
+    from transmogrifai_tpu_torch.serving import records_from_dataset
+    from transmogrifai_tpu_torch.utils.masked_stats import masked_mean
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow.params import OpParams
+    from transmogrifai_tpu_torch.workflow.runner import OpWorkflowRunner
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}, "walls": {}, "shapes": {}}
+
+    def step(name: str, timed: bool = True):
+        return ops_step(kernels, out, name, errs, bin_errs, timings, timed)
+
+    # the cost model trains from this phase's spans alone
+    reset_tracer()
+    tmp = tempfile.mkdtemp(prefix="tx-ops-")
+    try:
+        # -- 1. the shards ------------------------------------------------
+        t0 = time.perf_counter()
+        data = synthetic_passengers(OPS_ROWS, seed=42, with_text=False)
+        per = (OPS_ROWS - OPS_AVRO_ROWS) // OPS_CSV_SHARDS
+        shards = [ops_write_csv(os.path.join(tmp, f"part-{i}.csv"), data,
+                                i * per, (i + 1) * per)
+                  for i in range(OPS_CSV_SHARDS)]
+        avro = os.path.join(tmp, "part-8.avro")
+        save_dataset_avro(data.select(list(OPS_PASSENGER_COLS)).take(
+            np.arange(OPS_CSV_SHARDS * per, OPS_ROWS)), avro)
+        shards.append(avro)
+        cold_per = OPS_COLD_ROWS // OPS_COLD_SHARDS
+        cold = [ops_write_csv(os.path.join(tmp, f"cold-{i}.csv"), data,
+                              i * cold_per, (i + 1) * cold_per)
+                for i in range(OPS_COLD_SHARDS)]
+        out["walls"]["write"] = time.perf_counter() - t0
+        log(f"[ops] wrote {OPS_ROWS} passenger rows as {OPS_CSV_SHARDS} CSV "
+            f"shards of {per} and one Avro shard of {OPS_AVRO_ROWS}, and a "
+            f"{OPS_COLD_ROWS}-row cut as {OPS_COLD_SHARDS} CSV shards, in "
+            f"{out['walls']['write']:.3f} s")
+
+        # -- 2. a cold autotuned train (100k rows), fleet shipping on ------
+        agg_dir = os.path.join(tmp, "agg")
+        cold_dir = os.path.join(tmp, "cold")
+        reset_uids()
+        wf, survived, checked, pred = build_ops(device)
+        with step("cold_train"):
+            t0 = time.perf_counter()
+            res = OpWorkflowRunner(wf).run("train", OpParams(
+                model_location=cold_dir, custom_params={
+                    "ingest_shards": cold, "ingest_workers": OPS_WORKERS,
+                    "autotune": True, "fleet_dir": agg_dir}))
+            out["walls"]["cold_train"] = time.perf_counter() - t0
+        cold_rep = selector_summary(res.summary)["autotune"]
+        log_autotune_trail(f"cold train, {OPS_COLD_ROWS} rows, "
+                           f"{out['walls']['cold_train']:.3f} s", cold_rep)
+        assert cold_rep["mode"] == "exhaustive", cold_rep
+        assert cold_rep["reason"].startswith("cost_model_cold"), cold_rep
+        at_path = os.path.join(cold_dir, "autotune.json")
+        cm_cold = CostModel.load(at_path)
+        assert cm_cold.load_error is None and cm_cold.n_observations() > 0
+        assert res.summary["autotune"]["cost_model"]["path"] == at_path
+        assert len(res.model._train_data_cache) == OPS_COLD_ROWS
+        ln = out["launches"]["cold_train"]
+        assert ln["fused_moments"] == 1 and ln["bin_matrix"] >= 1, ln
+        agg = FleetAggregator(agg_dir, stale_after_s=600.0)
+        shipped = agg.shards()
+        assert len(shipped) == 1, agg.last_report
+        names = {s["name"] for s in shipped[0]["spans"]}
+        assert {"run.train", "workflow.train", "ingest.shard",
+                "cv.fit_batch"} <= names, names
+        assert "tx_obs_tracer_spans_recorded" in agg.prometheus_text()
+        log(f"[ops] cold run: cost model saved at autotune.json with "
+            f"{cm_cold.snapshot()['observations_by_key']} observations; K1 "
+            f"{ln['fused_moments']}, K2 {ln['bin_matrix']} launches; the "
+            f"fleet shard read back ({agg.last_report['shards_live']} live, "
+            f"{len(shipped[0]['spans'])} spans)")
+
+        # -- 3. the warm-up: the cold design matrix at three row counts ----
+        X_cold = np.asarray(res.model._train_data_cache[checked.name].values,
+                            np.float64)
+        y_cold = np.asarray(res.model._train_data_cache[survived.name].values,
+                            np.float64)
+        t0 = time.perf_counter()
+        cm = CostModel.load(at_path)
+        with step("warmup", timed=False):
+            for rows in OPS_WARMUP_ROWS:
+                with tracer().span("ops.warmup", rows=rows) as sp:
+                    validator_mod.OpCrossValidation(
+                        num_folds=3,
+                        evaluator=OpBinaryClassificationEvaluator(),
+                        seed=42, stratify=True, device=device,
+                    ).validate(ops_models(device), X_cold[:rows],
+                               y_cold[:rows])
+                cm.ingest_spans(tracer().spans(sp.trace_id))
+        warm_path = os.path.join(tmp, "autotune-warm.json")
+        cm.save(warm_path)
+        out["walls"]["warmup"] = time.perf_counter() - t0
+        obs = cm.snapshot()["observations_by_key"]
+        assert all(cm.can_predict(f"fit:{est.model_type}")
+                   for est, _ in ops_models(device)), obs
+        log(f"[ops] warm-up: validations at {OPS_WARMUP_ROWS} rows of the "
+            f"cold design matrix on the card in "
+            f"{out['walls']['warmup']:.3f} s; cost model {obs}")
+        del X_cold, y_cold
+
+        # -- 4. the warm autotuned train at 1M rows, streamed ---------------
+        warm_dir = os.path.join(tmp, "warm")
+        reset_uids()
+        wf, survived, checked, pred = build_ops(device)
+        captured = {}
+        real_validate = validator_mod.OpValidator.validate
+
+        def keep_args(self, models, X, y, weights=None):
+            captured.setdefault("args", (X, y, weights))
+            return real_validate(self, models, X, y, weights)
+
+        validator_mod.OpValidator.validate = keep_args
+        try:
+            with step("warm_train"):
+                t0 = time.perf_counter()
+                res = OpWorkflowRunner(wf).run("train", OpParams(
+                    model_location=warm_dir, custom_params={
+                        "ingest_shards": shards,
+                        "ingest_workers": OPS_WORKERS,
+                        "autotune": True, "autotune_model_path": warm_path,
+                        "autotune_rung_rows": OPS_RUNG_ROWS,
+                        "autotune_keep_fraction": OPS_KEEP_FRACTION}))
+                out["walls"]["warm_train"] = time.perf_counter() - t0
+        finally:
+            validator_mod.OpValidator.validate = real_validate
+        model = res.model
+        md = selector_summary(res.summary)
+        rep = md["autotune"]
+        log_autotune_trail(f"warm train, {OPS_ROWS} rows, "
+                           f"{out['walls']['warm_train']:.3f} s", rep)
+        assert rep["mode"] == "pruned", rep
+        assert rep["fits"]["total"] <= rep["fits"]["exhaustive"], rep
+        assert all(c["rung_error"] is None for c in rep["rungs"]), rep
+        ln = out["launches"]["warm_train"]
+        # K1 once; K2 in the 3 GBT rung fits at least
+        assert ln["fused_moments"] == 1 and ln["bin_matrix"] >= 3, ln
+        armed = {type(s).__name__ for s in model.stages
+                 if s.uid in set(wf.last_streamed_fits)}
+        assert armed == {"_FillMeanModel", "StringIndexerModel"}, armed
+        log(f"[ops] streamed partial fits armed: {sorted(armed)} "
+            f"({len(wf.last_streamed_fits)} estimators); K1 "
+            f"{ln['fused_moments']}, K2 {ln['bin_matrix']} launches; train_fused "
+            f"{res.summary.get('train_fused', {}).get('backend')}")
+        # the streamed ingest against the serial read of the same shards
+        raw_names = [f.name for f in wf.raw_features]
+        cache = model._train_data_cache
+        assert len(cache) == OPS_ROWS
+        t0 = time.perf_counter()
+        serial = PipelinedCSVReader(shards, workers=OPS_WORKERS) \
+            .generate_dataset(wf.raw_features)
+        out["walls"]["serial_read"] = time.perf_counter() - t0
+        d_stream = dataset_digest(cache, raw_names)
+        d_serial = dataset_digest(serial, raw_names)
+        assert d_stream == d_serial, (d_stream, d_serial)
+        fill = [s.fill for s in model.stages
+                if type(s).__name__ == "_FillMeanModel"][0]
+        want_fill = masked_mean(serial["age"].values, serial["age"].mask)
+        labels = [s.labels for s in model.stages
+                  if type(s).__name__ == "StringIndexerModel"][0]
+        want_labels = sorted(
+            set(v for v in serial["gender"].values if v is not None),
+            key=lambda v: (-int((serial["gender"].values == v).sum()), v))
+        assert abs(fill - want_fill) <= 1e-12 * abs(want_fill), (fill,
+                                                                 want_fill)
+        assert labels == want_labels, (labels, want_labels)
+        log(f"[ops] streamed ingest digest {d_stream[:16]} == serial "
+            f"{d_serial[:16]} ({OPS_ROWS} rows, {len(raw_names)} columns; "
+            f"serial read {out['walls']['serial_read']:.3f} s); streamed "
+            f"age mean {fill!r} against serial {want_fill!r}, indexer "
+            f"labels {labels}")
+        del serial
+        # the pruned winner against the exhaustive sweep on the same X, y
+        X, y, w = captured["args"]
+        t0 = time.perf_counter()
+        with step("exhaustive"):
+            ex = validator_mod.OpCrossValidation(
+                num_folds=3, evaluator=OpBinaryClassificationEvaluator(),
+                seed=42, stratify=True, device=device,
+            ).validate(ops_models(device), X, y, w)
+        out["walls"]["exhaustive"] = time.perf_counter() - t0
+        del X, y, w, captured
+        win = [md["best_model_type"], md["best_params"]]
+        ex_win = [ex.best_estimator.model_type, ex.best_params]
+        best_metric = md["validation_metric"]["value"]
+        metric_diff = abs(best_metric - ex.best_metric)
+        assert win == ex_win, (win, ex_win)
+        assert metric_diff <= OPS_WINNER_ATOL, metric_diff
+        # the held-out AuROC on a separate scoring set
+        sdata = synthetic_passengers(OPS_SCORE_ROWS, seed=OPS_SCORE_SEED,
+                                     with_text=False)
+        t0 = time.perf_counter()
+        with step("warm_score"):
+            scored = model.score(sdata.select(list(OPS_PASSENGER_COLS)))
+        out["walls"]["warm_score"] = time.perf_counter() - t0
+        auroc = float(OpBinaryClassificationEvaluator().evaluate(
+            scored, label_col=survived.name, pred_col=pred.name).AuROC)
+        assert SELECTOR_AUROC_RANGE[0] <= auroc <= SELECTOR_AUROC_RANGE[1], \
+            auroc
+        out["auroc"] = auroc
+        log(f"[ops] pruned winner {win} (CV {best_metric:.6f})"
+            f" == exhaustive {ex_win} (CV {ex.best_metric:.6f}), |diff| "
+            f"{metric_diff:.3g}; exhaustive sweep {out['walls']['exhaustive']:.3f}"
+            f" s, K2 {out['launches']['exhaustive']['bin_matrix']}; held-out "
+            f"AuROC {auroc:.6f} over {OPS_SCORE_ROWS} rows (range "
+            f"{SELECTOR_AUROC_RANGE}), score {out['walls']['warm_score']:.3f} s")
+        del scored, sdata, ex
+
+        # -- 5. a serve run of the warm model with the knob tuner ------------
+        serve_csv = ops_write_csv(os.path.join(tmp, "serve.csv"), data,
+                                  OPS_ROWS - OPS_SERVE_RECORDS, OPS_ROWS)
+        reset_uids()
+        wf, survived, checked, pred = build_ops(device)
+        loaded = OpWorkflowModel.load(warm_dir, wf)
+        fam = head_family(loaded)
+        records = records_from_dataset(
+            CSVReader(serve_csv).generate_dataset(wf.raw_features),
+            wf.raw_features)
+        with step("serve_reference", timed=False):
+            want = serve_rows(loaded.score_function(
+                fused_backend="torch").score_batch(records))
+        reset_uids()
+        wf, survived, checked, pred = build_ops(device)
+        with step("serve", timed=False):
+            t0 = time.perf_counter()
+            res = OpWorkflowRunner(wf, score_reader=CSVReader(serve_csv)).run(
+                "serve", OpParams(
+                    model_location=warm_dir,
+                    metrics_location=os.path.join(tmp, "serve_metrics"),
+                    write_location=os.path.join(tmp, "serve_scores"),
+                    custom_params={"serving_autotune": True,
+                                   "serving_fused_backend": "torch",
+                                   "autotune_probe_rows": OPS_PROBE_ROWS}))
+            out["walls"]["serve"] = time.perf_counter() - t0
+        sm = res.metrics
+        got = serve_rows(read_scores(os.path.join(tmp, "serve_scores")))
+        ulps = max_ulps(got[:, 1:], want[:, 1:])
+        assert np.array_equal(got[:, 0], want[:, 0])
+        assert ulps <= SERVE_ULP_BUDGETS[fam], (ulps, fam)
+        assert sm["fused"]["backend"] == "torch", sm["fused"]
+        dec = sm["autotune"]
+        lat = sm["latency_ms"]
+        base_v = next(p["value"] for p in dec["probes"] if p["is_baseline"])
+        win_v = next(p["value"] for p in dec["probes"] if p["is_winner"])
+        margin = win_v / base_v - 1.0 if base_v else 0.0
+        out["serve"] = {"latency_ms": lat, "rows_per_s": sm["rows_per_s"],
+                        "decision": dec, "head": fam, "ulps": ulps}
+        log(f"[ops] serve run: {len(got)} records ({fam} head, "
+            f"{sm['fused']['backend']}) in {out['walls']['serve']:.3f} s: "
+            f"p50 {lat['p50']} ms, p99 {lat['p99']} ms, {sm['rows_per_s']} "
+            f"rows/s; knob tuner {'chose ' + json.dumps(dec['winner']) if dec['tuned'] else 'kept the baseline ' + json.dumps(dec['baseline'])}"
+            f" (winner {margin:+.3%} against the baseline, margin "
+            f"{dec['margin']}, {len(dec['probes'])} arms); rows within "
+            f"{ulps:g} ULP of score_function(); K2 "
+            f"{out['launches']['serve']['bin_matrix']} launches")
+        for p in dec["probes"]:
+            log(f"[ops]   probe {json.dumps(p['knobs'])}: {p['value']} rows/s"
+                f"{' (baseline)' if p['is_baseline'] else ''}"
+                f"{' (winner)' if p['is_winner'] else ''}")
+        del loaded, records, want, got
+
+        # -- 6. continuous, direct mode ----------------------------------------
+        watch = os.path.join(tmp, "watch")
+        stage = os.path.join(tmp, "stage")
+        os.makedirs(watch)
+        os.makedirs(stage)
+        cont_dir = os.path.join(tmp, "cont")
+        boot = data.take(np.arange(OPS_CONT_BOOT_ROWS))
+        lo = OPS_CONT_BOOT_ROWS
+        windows = []  # (shifted, staged path)
+        for i, shifted in enumerate((False, True, True, True)):
+            windows.append((shifted, ops_write_csv(
+                os.path.join(stage, f"w{i}.csv"), data, lo,
+                lo + OPS_CONT_WINDOW_ROWS, OPS_SHIFT_KG if shifted else 0.0)))
+            lo += OPS_CONT_WINDOW_ROWS
+        os.replace(windows[0][1], os.path.join(watch, "w0.csv"))
+        status = os.path.join(tmp, "cont_metrics", STATUS_FILENAME)
+        stop = threading.Event()
+
+        def producer():
+            # drop window i once the loop has finished cycle i: each cycle
+            # then judges exactly one shard
+            for i in range(1, len(windows)):
+                while not stop.is_set():
+                    try:
+                        with open(status) as f:
+                            cycles = json.load(f)["counters"]["cycles"]
+                    except (OSError, ValueError, KeyError):
+                        cycles = -1
+                    if cycles >= i:
+                        break
+                    time.sleep(0.01)
+                if stop.is_set():
+                    return
+                os.replace(windows[i][1],
+                           os.path.join(watch, f"w{i}.csv"))
+
+        def factory():
+            reset_uids()
+            return build_continuous(device, boot)
+
+        feeder = threading.Thread(target=producer, daemon=True)
+        feeder.start()
+        with step("continuous"):
+            t0 = time.perf_counter()
+            try:
+                res = OpWorkflowRunner(factory(), workflow_factory=factory).run(
+                    "continuous", OpParams(
+                        model_location=cont_dir,
+                        metrics_location=os.path.join(tmp, "cont_metrics"),
+                        custom_params={
+                            "watch_dir": watch,
+                            "drift_consecutive": 2, "drift_cooldown": 1,
+                            "continuous_window_rows": 1_000,
+                            "continuous_refit_rows": OPS_CONT_REFIT_ROWS,
+                            "continuous_max_cycles": 12,
+                            "continuous_idle_exit": 3,
+                            "continuous_poll_s": 0.2}))
+            finally:
+                stop.set()
+                feeder.join(timeout=30)
+            out["walls"]["continuous"] = time.perf_counter() - t0
+        m = res.metrics
+        spans = tracer().spans(m["last_trace"])
+        cycles = [s for s in spans if s["name"] == "continuous.cycle"]
+        detect = {s["parent"]: s["attrs"] for s in spans
+                  if s["name"] == "continuous.detect"}
+        verdicts = [detect[c["span"]]["verdict"] for c in cycles
+                    if c["span"] in detect]
+        judged = [v for v in verdicts if v != "idle"]
+        assert judged == ["clear", "over", "trigger", "clear"], verdicts
+        assert m["counters"]["refits"] == 1 and m["counters"]["promotes"] == 1
+        reg = ModelRegistry(os.path.join(cont_dir, "registry"), create=False)
+        v1, v2 = [v.version for v in reg.versions()]
+        assert reg.stable == v2 == m["stable_version"] and reg.verify()["ok"]
+        ln = out["launches"]["continuous"]
+        # the bootstrap and the refit: K1 once each, K2 in each GBT fit and
+        # its transform of the training rows
+        assert ln["fused_moments"] == 2 and ln["bin_matrix"] >= 2 * 2, ln
+        refit = [s for s in spans if s["name"] == "continuous.refit"][0]
+        log(f"[ops] continuous run in {out['walls']['continuous']:.3f} s: "
+            f"bootstrap {v1} from {OPS_CONT_BOOT_ROWS} rows, windows of "
+            f"{OPS_CONT_WINDOW_ROWS} rows (weight +{OPS_SHIFT_KG} kg from the "
+            f"second), verdicts {verdicts}, drift scores "
+            f"{[round(detect[c['span']].get('max_js', 0.0), 4) for c in cycles if c['span'] in detect]}, "
+            f"refit {refit['attrs'].get('rows')} rows in "
+            f"{refit['wall_ms']:.1f} ms -> {v2} published and promoted; "
+            f"cycle walls {[round(c['wall_ms'], 1) for c in cycles]} ms; "
+            f"idle exit after {m['counters']['cycles']} cycles; K1 "
+            f"{ln['fused_moments']}, K2 {ln['bin_matrix']} launches")
+        out["continuous"] = {"verdicts": verdicts,
+                             "cycle_ms": [c["wall_ms"] for c in cycles],
+                             "refit_ms": refit["wall_ms"]}
+
+        # the refit canaried against the bootstrap on the card
+        models = {v: reg.load(v, factory()) for v in (v1, v2)}
+        raw = factory().raw_features
+        shifted = records_from_dataset(
+            CSVReader(os.path.join(watch, f"w{len(windows) - 1}.csv"))
+            .generate_dataset(raw), raw)[:OPS_CANARY_RECORDS]
+        with step("canary_reference", timed=False):
+            arm_want = {v: serve_rows(models[v].score_function(
+                fused_backend="torch").score_batch(shifted)) for v in models}
+        ctl = DeploymentController(batch_buckets=DEPLOY_BUCKETS,
+                                   canary_fraction=0.5,
+                                   check_every_batches=1_000_000,
+                                   fused_backend="torch")
+        with step("canary", timed=False):
+            t0 = time.perf_counter()
+            ctl.deploy(models[v1], version=v1)
+            ctl.start_canary(models[v2], version=v2)
+            rows = []
+            for i in range(0, len(shifted), 128):
+                rows += ctl.score_batch(shifted[i:i + 128])
+            decision = ctl.check_canary()
+            ctl.promote_canary()
+            out["walls"]["canary"] = time.perf_counter() - t0
+        assert decision is None or not decision.rollback, decision
+        assigned = split_assigns(shifted, 0.5)
+        got = serve_rows(rows)
+        n_canary = int(assigned.sum())
+        for v, mask in ((v1, ~assigned), (v2, assigned)):
+            hold_rows(f"canary {v}", got[mask], arm_want[v][mask], "gbt")
+        assert ctl.stable_generation.version == v2
+        assert out["launches"]["canary"]["bin_matrix"] >= 2, out["launches"]
+        log(f"[ops] canary: {v2} (the refit) against {v1} on "
+            f"{len(shifted)} shifted records, {n_canary} to the canary, "
+            f"each row within the GBT budget of its arm's score_function(); "
+            f"no rollback, promoted; {out['walls']['canary']:.3f} s, K2 "
+            f"{out['launches']['canary']['bin_matrix']} launches")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log_path_shapes("the [ops] phase's", out["shapes"])
+    log(f"[ops] launches by step {out['launches']}; phase wall "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
+def ops_only_main() -> int:
+    """``--ops-only``: the kernels' build and the [ops] phase alone."""
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.set_float32_matmul_precision("highest")
+    log("[header] card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip())
+    kernels.build()
+    ops = ops_phase(kernels, [], [], {})
+    print(json.dumps({"launches": ops["launches"], "walls": ops["walls"],
+                      "wall_s": ops["wall_s"], "auroc": ops["auroc"],
+                      "serve": ops["serve"],
+                      "continuous": ops["continuous"],
+                      "shapes": [[k, list(shape), t["ms"], t["bound_ms"],
+                                  t["plain_ms"], t["path_calls"]]
+                                 for (k, shape), t in ops["shapes"].items()]},
+                     default=str))
+    return 0
+
+
 def fused_train_only_main() -> int:
     """``--fused-train-only``: the kernels' build and the [fused_train]
     phase alone."""
@@ -4676,10 +5305,10 @@ def main() -> int:
         return fused_train_only_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--mesh-only":
         return mesh_only_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--ops-only":
+        return ops_only_main()
     if len(sys.argv) == 3 and sys.argv[1] == "--families-cpu":
         return families_cpu_main(int(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--selector-cpu":
-        return selector_cpu_main(int(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--schema-cpu":
         return schema_cpu_main()
     for problem in PROBLEM_LABEL:
@@ -4692,8 +5321,7 @@ def main() -> int:
     # the start, beside the card's phases (the [readme] and
     # [default_selector] phases' launch-bound forest loops then run with
     # the host to themselves)
-    children = [start_selector_cpu(SELECTOR_CMP_ROWS),
-                start_problem_cpu("multiclass"),
+    children = [start_problem_cpu("multiclass"),
                 start_problem_cpu("regression"),
                 start_schema_cpu(),
                 start_families_cpu()]
@@ -4706,8 +5334,7 @@ def main() -> int:
             child.communicate()
 
 
-def card_main(cpu_child: subprocess.Popen,
-              multiclass_cpu_child: subprocess.Popen,
+def card_main(multiclass_cpu_child: subprocess.Popen,
               regression_cpu_child: subprocess.Popen,
               schema_cpu_child: subprocess.Popen,
               families_cpu_child: subprocess.Popen) -> int:
@@ -5003,23 +5630,14 @@ def card_main(cpu_child: subprocess.Popen,
     assert spl["train"]["bin_matrix"] >= 6, spl
     assert (SELECTOR_AUROC_RANGE[0] <= sp["holdout_auroc"]
             <= SELECTOR_AUROC_RANGE[1]), sp["holdout_auroc"]
-    with kernel_inputs(kernels) as cv_inputs:
-        swc = run_selector("cuda", wdata, kernels, workflow_cv=True)
-    log_selector(f"selector, workflow CV, {WCV_ROWS} rows", swc)
-    swl = swc["launches"]
-    # the SanityChecker refits in each of the 3 folds, then on all rows
-    assert swl["train"]["fused_moments"] == 4, swl
-    assert swl["train"]["bin_matrix"] >= 3 * 4 + 3 * 3, swl
-    assert (SELECTOR_AUROC_RANGE[0] <= swc["holdout_auroc"]
-            <= SELECTOR_AUROC_RANGE[1]), swc["holdout_auroc"]
+    # (its run under workflow CV was cut to keep the whole run in its
+    # limit: [default_selector] drives the same route at WCV_ROWS)
     assert_counted(sp, sel_inputs)
-    assert_counted(swc, cv_inputs)
-    # each kernel on every input the two selector runs gave it, timed at
-    # the plain run's shapes
+    # each kernel on every input the selector run gave it, timed once a
+    # shape
     sel_shapes: dict = {}
     hold_path_inputs(kernels, sel_inputs, sel_shapes, errs, bin_errs)
-    hold_path_inputs(kernels, cv_inputs, {}, errs, bin_errs, timed=False)
-    del sel_inputs, cv_inputs
+    del sel_inputs
     log_path_shapes(f"the selector path's (the {SELECTOR_ROWS}-row run)",
                     sel_shapes)
 
@@ -5037,54 +5655,6 @@ def card_main(cpu_child: subprocess.Popen,
         f"card {1e3 * (t1 - t0):.1f} ms, CPU {1e3 * (t2 - t1):.1f} ms (host "
         f"walls), max |card - CPU| {rank_err:.3g} over AuROC and AuPR")
     del scores, yv, vmask
-
-    # (b) card against CPU at SELECTOR_CMP_ROWS, the rank-metric mode pinned
-    cdata = synthetic_passengers(SELECTOR_CMP_ROWS, seed=42, with_text=False)
-    os.environ["TX_CV_RANK_METRICS"] = CMP_RANK_MODE
-    try:
-        g1 = run_selector("cuda", cdata, keep_grid=True)
-        g2 = run_selector("cuda", cdata, keep_grid=True)
-    finally:
-        del os.environ["TX_CV_RANK_METRICS"]
-    log_selector(f"selector {SELECTOR_CMP_ROWS} rows", g1)
-    assert len(g1["grid"]) == len(g2["grid"]) == 1
-    for by_grid1, by_grid2 in zip(g1["grid"], g2["grid"]):
-        for folds1, folds2 in zip(by_grid1, by_grid2):
-            for p1, p2 in zip(folds1, folds2):
-                assert all(np.array_equal(a, b)
-                           for a, b in zip(p1["heaps"], p2["heaps"])), \
-                    "the card's GBT grid heaps differ between two trainings"
-    sc = finish_selector_cpu(cpu_child)
-    log(f"[selector {SELECTOR_CMP_ROWS} rows] cpu: train {sc['train_s']:.3f} s "
-        f"(GBT grid fit {sc['walls'].get('gbt_grid', 0.0):.3f} s), score "
-        f"{sc['score_s']:.3f} s, holdout AuROC {sc['holdout_auroc']:.6f}")
-    metric_diff = 0.0
-    for c_gpu, c_cpu in zip(g1["results"], sc["results"]):
-        assert (c_gpu["model_type"], c_gpu["params"]) == \
-            (c_cpu["model_type"], c_cpu["params"])
-        assert c_gpu["rank_metric_mode"] == c_cpu["rank_metric_mode"]
-        diff = abs(c_gpu["metric"] - c_cpu["metric"])
-        log(f"[selector {SELECTOR_CMP_ROWS} rows]   {c_gpu['model_type']} "
-            f"{json.dumps(c_gpu['params'], sort_keys=True)}: card "
-            f"{c_gpu['metric']:.6f}, cpu {c_cpu['metric']:.6f}, |diff| "
-            f"{diff:.3g} (tolerance {cmp_metric_atol(c_gpu):g})")
-        assert diff <= cmp_metric_atol(c_gpu), (c_gpu, c_cpu)
-        metric_diff = max(metric_diff, diff)
-    assert len(g1["results"]) == len(sc["results"]) == 17
-    win_gpu = [g1["summary"]["best_model_type"], g1["summary"]["best_params"]]
-    if win_gpu != sc["winner"]:
-        top = sorted(g1["results"], key=lambda c: -c["metric"])[:2]
-        assert abs(top[0]["metric"] - top[1]["metric"]) <= max(
-            cmp_metric_atol(c) for c in top), (win_gpu, sc["winner"])
-        cmp_prob = "not compared: the winners differ within the tolerance"
-    else:
-        pdiff = float(np.abs(g1["prob"] - sc["prob"]).max())
-        assert pdiff <= CMP_PROB_ATOL[win_gpu[0]], pdiff
-        cmp_prob = f"{pdiff:.3g}"
-    log(f"[selector {SELECTOR_CMP_ROWS} rows] cuda vs cpu: winners {win_gpu} "
-        f"and {sc['winner']}, max |mean metric diff| {metric_diff:.3g}, max "
-        f"|prob diff| of the winner {cmp_prob}; the card's GBT grid heaps "
-        "bit-identical across two trainings")
 
     del data
 
@@ -5132,12 +5702,14 @@ def card_main(cpu_child: subprocess.Popen,
     # -- 10e. multi-GPU on torch.distributed: world 1 over NCCL, world 2 ----
     mesh = mesh_phase(kernels, errs, bin_errs)
 
+    # -- 10f. the training operations layer: sharded ingest, autotune,
+    # serving knobs, continuous refit
+    ops = ops_phase(kernels, errs, bin_errs, timings)
+
     # -- 11. result lines ---------------------------------------------------
     def sel_by_path(k):
         return {"selector_train": spl["train"][k],
                 "selector_score": spl["score"][k],
-                "selector_workflow_cv_train": swl["train"][k],
-                "selector_workflow_cv_score": swl["score"][k],
                 "readme_train": rml["train"][k],
                 "readme_score": rml["score"][k],
                 "default_selector_train": dpl["train"][k],
@@ -5152,6 +5724,7 @@ def card_main(cpu_child: subprocess.Popen,
                 "ingest_scale": ingest["launches"][k],
                 "fused_train": fused["launches"][k],
                 **{path: v[k] for path, v in mesh["launches"].items()},
+                **{f"ops_{step}": v[k] for step, v in ops["launches"].items()},
                 **serve_by_path(serve, k)}
 
     def sel_launches(k):
@@ -5212,6 +5785,7 @@ def card_main(cpu_child: subprocess.Popen,
              "kernel_ms": mesh["world1"]["kernel"]["ms"],
              "bound_ms": mesh["world1"]["bound_ms"]},
             *[t for t in mesh["shapes"] if t["kernel"] == "fused_moments"]],
+        "ops_path_shapes": sel_shape_rows("fused_moments", ops["shapes"]),
         "at_scale": at_scale,
         "other_shapes": other_moments,
     }, {
@@ -5258,6 +5832,7 @@ def card_main(cpu_child: subprocess.Popen,
             "bin_matrix"],
         "mesh_path_shapes": [t for t in mesh["shapes"]
                              if t["kernel"] == "bin_matrix"],
+        "ops_path_shapes": sel_shape_rows("bin_matrix", ops["shapes"]),
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
     }]}

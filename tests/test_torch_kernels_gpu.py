@@ -971,3 +971,132 @@ def test_hot_swap_on_the_card_frees_the_retired_generation(cuda, tmp_path):
     # the two versions hold different heaps (30 trees against 10): a
     # retired generation that lived on would show as their sum
     assert mem[0] != mem[1], mem
+
+
+def test_streamed_train_and_autotuned_rungs_on_the_card(cuda, tmp_path):
+    """The training operations layer on the card: a streamed train from
+    three CSV shards (the imputer's and indexer's partial fits arm, the
+    SanityChecker launches K1 once) whose stage statistics and design
+    matrix equal the serial read's, and a warm autotuned GBT + LR
+    selection whose rung fits launch K2 - each K2 call equal to plain."""
+    import csv as _csv
+
+    from transmogrifai_tpu_torch.autotune import (
+        AutotuneConfig,
+        CostModel,
+        candidate_features,
+        key_for_fit,
+    )
+    from transmogrifai_tpu_torch.evaluators.binary import (
+        OpBinaryClassificationEvaluator,
+    )
+    from transmogrifai_tpu_torch.features.feature_builder import (
+        FeatureBuilder,
+    )
+    from transmogrifai_tpu_torch.models.logistic_regression import (
+        OpLogisticRegression,
+    )
+    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+    from transmogrifai_tpu_torch.ops.categorical import StringIndexer
+    from transmogrifai_tpu_torch.ops.scalers import FillMissingWithMean
+    from transmogrifai_tpu_torch.ops.transmogrifier import transmogrify
+    from transmogrifai_tpu_torch.preparators.sanity_checker import (
+        SanityChecker,
+    )
+    from transmogrifai_tpu_torch.readers.pipeline import PipelinedCSVReader
+    from transmogrifai_tpu_torch.selector.validator import OpCrossValidation
+    from transmogrifai_tpu_torch.types import feature_types as ft
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflow
+
+    r = np.random.RandomState(9)
+    paths = []
+    for s in range(3):
+        p = str(tmp_path / f"wf{s}.csv")
+        with open(p, "w", newline="") as f:
+            w = _csv.writer(f)
+            w.writerow(["y", "a", "cat"])
+            for i in range(4_000):
+                a = r.randn()
+                w.writerow([float(a + 0.3 * r.randn() > 0),
+                            "" if i % 13 == 0 else f"{a:.6f}",
+                            ("u", "v", "w")[int(r.randint(3))]])
+        paths.append(p)
+
+    def build(streaming):
+        reset_uids()
+        y = FeatureBuilder(ft.RealNN, "y").as_response()
+        a = FeatureBuilder(ft.Real, "a").as_predictor()
+        cat = FeatureBuilder(ft.Text, "cat").as_predictor()
+        am = FillMissingWithMean().set_input(a).get_output()
+        ci = StringIndexer().set_input(cat).get_output()
+        vec = transmogrify([am, ci])
+        checked = SanityChecker().set_input(y, vec).get_output()
+        pred = OpLogisticRegression(reg_param=0.1).set_input(
+            y, checked).get_output()
+        wf = OpWorkflow().set_result_features(pred).set_reader(
+            PipelinedCSVReader(paths, workers=3, chunk_bytes=1 << 14))
+        return wf.set_parameters(streaming_ingest=streaming), checked
+
+    runs = {}
+    for streaming in (True, False):
+        wf, checked = build(streaming)
+        tk.reset_launches()
+        model = wf.train()
+        assert tk.fused_moments.launches == 1
+        runs[streaming] = (wf, model, np.asarray(
+            model.score()[checked.name].values))
+    wf, model, X_s = runs[True]
+    assert len(wf.last_streamed_fits) == 2
+    assert np.array_equal(X_s, runs[False][2])
+    fills = [[s.fill for s in m.stages if type(s).__name__ == "_FillMeanModel"]
+             for _, m, _ in runs.values()]
+    assert fills[0] == pytest.approx(fills[1], rel=1e-12)
+
+    # a warm autotuned selection: the GBT rung fits launch K2
+    rng = np.random.RandomState(0)
+    X = rng.randn(40_000, 8)
+    yv = (rng.rand(40_000) < 1 / (1 + np.exp(-X @ np.linspace(1.5, -1.5, 8)))
+          ).astype(float)
+    cm = CostModel()
+    for fam, base in (("OpLogisticRegression", 60.0),
+                      ("OpGBTClassifier", 400.0)):
+        for rows in (4_000, 8_000, 20_000, 40_000):
+            cm.observe(key_for_fit(fam),
+                       candidate_features(rows, 8, {}, 0.5), base * rows / 4e4)
+    cv = OpCrossValidation(
+        num_folds=3, evaluator=OpBinaryClassificationEvaluator(), seed=7,
+        stratify=True, autotune=AutotuneConfig(cost_model=cm, rung_rows=8_000,
+                                               min_rows=10_000))
+    models = [(OpLogisticRegression(), [{"reg_param": v} for v in
+                                        (0.001, 0.01, 0.1, 0.3)]),
+              (OpGBTClassifier(num_trees=3, max_depth=3),
+               [{"step_size": v} for v in (0.05, 0.1, 0.3)])]
+    seen = []
+    real = tk.bin_matrix
+
+    def shim(x, edges, dtype):
+        seen.append((x.clone(), edges.clone(), dtype))
+        return real(x, edges, dtype)
+
+    import transmogrifai_tpu_torch.models.trees as trees_mod
+
+    holders = [m for m in (trees_mod,) if getattr(m, "bin_matrix", None)
+               is real]
+    for m in holders:
+        m.bin_matrix = shim
+    tk.reset_launches()
+    try:
+        res = cv.validate(models, X, yv)
+    finally:
+        for m in holders:
+            m.bin_matrix = real
+    rep = cv.last_autotune_report
+    assert rep["mode"] == "pruned" and rep["fits"]["total"] <= rep[
+        "fits"]["exhaustive"]
+    assert tk.bin_matrix.launches >= 3
+    for x, edges, dtype in seen:
+        assert x.is_cuda
+        assert torch.equal(real(x, edges, dtype),
+                           tk.bin_matrix_plain(x, edges, dtype))
+    assert res.best_estimator is not None

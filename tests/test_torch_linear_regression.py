@@ -160,17 +160,18 @@ def test_high_mean_low_variance_columns():
 
 
 def test_unported_routes_raise():
-    """The streamed fit raises with its item; the fused training seam is
-    ported (``fused_train_core`` gives the reference's keys, and its fit
+    """The streamed fit is ported (an empty chunk list is refused as in
+    the reference; ``tests/test_torch_input_pipeline.py`` holds its betas
+    against the reference's); the fused training seam is ported (``fused_train_core`` gives the reference's keys, and its fit
     is the batched fit's, bit for bit), and so is the scoring mirror of
     the device-fused program (``predict_arrays_torch``: a float64 matmul,
     whose row sums may take another order than numpy's BLAS, so within a
     few ULP of it)."""
     est = lin.OpLinearRegression(device="cpu")
-    for call in (lambda: est.streaming_fit_stats(None, None),
-                 lambda: est.fit_from_stats([])):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    with pytest.raises(ValueError, match="at least one chunk"):
+        est.fit_from_stats([])
+    stats = est.streaming_fit_stats(np.eye(2), np.ones(2))
+    assert stats[0] == 2 and np.array_equal(stats[2], np.eye(2))
     core = est.fused_train_core(False)
     want = mod(REF, "models.linear_regression").OpLinearRegression() \
         .fused_train_core(False)

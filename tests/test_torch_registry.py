@@ -18,13 +18,13 @@ the ``RollbackPolicy``) is held on the CPU:
   content hashes and the root path;
 * device faults: a ``KernelError`` or ``torch.AcceleratorError`` raised
   by the canary arm or the shadow escapes, with no re-score on stable;
-* unported pieces raise naming ROADMAP item 12 (the path-valued fleet
-  view).
+* the path-valued fleet view reads the published status torn-safe.
 
 Left out: the JAX package's registry CLI tests (``cli.py`` waits for
 ROADMAP item 12).
 """
 import gc
+import json
 import os
 import subprocess
 import sys
@@ -680,12 +680,20 @@ def test_ordinary_canary_failure_still_rescores_on_stable():
 # -- unported pieces raise ---------------------------------------------------------------
 
 def test_path_valued_fleet_view_raises_naming_item_12(tmp_path):
+    """The path-valued fleet view is ported with ``obs/fleet.py``: the
+    summary reads the published status document torn-safe (a torn or
+    missing one reads as None, never raising), as the reference's."""
     model, _records, _name = _trained()
     ctl = DeploymentController(batch_buckets=(1, 8))
     ctl.deploy(model, version="v1")
-    ctl.fleet_status_source = str(tmp_path / "fleet_status.json")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ctl.summary_json()
+    path = tmp_path / "fleet_status.json"
+    ctl.fleet_status_source = str(path)
+    assert ctl.summary_json()["fleet"] is None
+    path.write_text(json.dumps({"replicas": {"r0": {"generation": 2}}}))
+    assert ctl.summary_json()["fleet"] == {
+        "replicas": {"r0": {"generation": 2}}}
+    path.write_text('{"replicas": {"r0": {"gen')
+    assert ctl.summary_json()["fleet"] is None
     ctl.fleet_status_source = lambda: {"replicas": {"r0": {"generation": 1}}}
     assert ctl.summary_json()["fleet"] == {
         "replicas": {"r0": {"generation": 1}}}

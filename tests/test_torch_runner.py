@@ -11,10 +11,12 @@
 * against the JAX package: the same fitted models served by both
   packages' ``serve`` and ``deploy`` runs export documents with the same
   keys and score the same rows (exact);
-* the unported pieces - the ``fleet``, ``continuous`` and ``bulk`` run
-  types, ``autotune``, ``serving_autotune``, ``ingest_shards`` and the
-  obs-fleet shipping (``fleet_dir`` / ``TX_OBS_FLEET_DIR``) - raise
-  ``NotImplementedError`` naming ROADMAP item 12.
+* the unported pieces - the ``fleet`` and ``bulk`` run types - raise
+  ``NotImplementedError`` naming ROADMAP item 12; the ``continuous`` run
+  type, ``autotune``, ``serving_autotune``, ``ingest_shards`` and the
+  obs-fleet shipping (``fleet_dir`` / ``TX_OBS_FLEET_DIR``) no longer
+  raise and are held against the reference in
+  ``tests/test_torch_{autotune,input_pipeline,continuous,obs_fleet}.py``.
 """
 import json
 import os
@@ -354,7 +356,13 @@ def test_slo_path_wires_the_deploy_rollback_policy(tmp_path):
 
 @pytest.mark.parametrize("run_type", ["fleet", "continuous", "bulk"])
 def test_unported_run_types_raise_naming_item_12(run_type):
+    """``fleet`` and ``bulk`` raise naming item 12; ``continuous`` is
+    ported and, as in the reference, asks for its watch directory."""
     wf, _data, _pred = _build()
+    if run_type == "continuous":
+        with pytest.raises(ValueError, match="watch_dir"):
+            OpWorkflowRunner(wf).run(run_type, OpParams())
+        return
     with pytest.raises(NotImplementedError, match="item 12"):
         OpWorkflowRunner(wf).run(run_type, OpParams())
 
@@ -364,26 +372,52 @@ def test_unported_run_types_raise_naming_item_12(run_type):
     ("serve", "serving_autotune"),
 ])
 def test_unported_knobs_raise_naming_item_12(run_type, knob, tmp_path):
-    wf, _data, _pred = _build()
+    """The three knobs are ported and no longer raise: ``autotune``
+    records its decision trail and saves ``autotune.json``,
+    ``ingest_shards`` reads the shards through the pipelined reader, and
+    ``serving_autotune`` records its knob decision."""
+    wf, data, _pred = _build()
     if run_type == "serve":
         OpWorkflowRunner(wf).run("train", OpParams(
             model_location=str(tmp_path / "m")))
         wf = _build()[0]
-    value = ["a.csv"] if knob == "ingest_shards" else True
-    with pytest.raises(NotImplementedError, match="item 12"):
-        OpWorkflowRunner(wf).run(run_type, OpParams(
-            model_location=str(tmp_path / "m"),
-            custom_params={knob: value}))
+    value = True
+    if knob == "ingest_shards":
+        shard = tmp_path / "a.csv"
+        shard.write_text("y,a,b\n" + "".join(
+            f"{y},{a},{b}\n"
+            for y, a, b in zip(data["y"], data["a"], data["b"])))
+        value = [str(shard)]
+    res = OpWorkflowRunner(wf).run(run_type, OpParams(
+        model_location=str(tmp_path / "m"),
+        custom_params={knob: value, "autotune_probe_repeats": 1}))
+    if knob == "autotune":
+        assert res.summary["autotune"]["cost_model"]["path"] == str(
+            tmp_path / "m" / "autotune.json")
+        assert os.path.exists(tmp_path / "m" / "autotune.json")
+    elif knob == "ingest_shards":
+        assert len(res.model._train_data_cache) == len(data["y"])
+    else:
+        assert res.metrics["autotune"]["scope"] == "serving.microbatch"
 
 
 def test_obs_fleet_shipping_raises_naming_item_12(tmp_path, monkeypatch):
+    """The obs-fleet shipping is ported: ``fleet_dir`` and the
+    ``TX_OBS_FLEET_DIR`` env seam each ship this process's plane as one
+    shard that the aggregator reads back."""
+    from transmogrifai_tpu_torch.obs import FleetAggregator
+
     wf, _data, _pred = _build()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        OpWorkflowRunner(wf).run("features", OpParams(
-            custom_params={"fleet_dir": str(tmp_path / "agg")}))
-    monkeypatch.setenv("TX_OBS_FLEET_DIR", str(tmp_path / "agg"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        OpWorkflowRunner(wf).run("features", OpParams())
+    OpWorkflowRunner(wf).run("features", OpParams(
+        custom_params={"fleet_dir": str(tmp_path / "agg")}))
+    agg = FleetAggregator(str(tmp_path / "agg"), stale_after_s=300.0)
+    assert agg.last_report == {} and len(agg.shards()) == 1
+    monkeypatch.setenv("TX_OBS_FLEET_DIR", str(tmp_path / "agg2"))
+    OpWorkflowRunner(wf).run("features", OpParams())
+    shards = FleetAggregator(str(tmp_path / "agg2"),
+                             stale_after_s=300.0).shards()
+    assert len(shards) == 1 and any(
+        s["name"] == "run.features" for s in shards[0]["spans"])
 
 
 # -- against the JAX package --------------------------------------------------------

@@ -342,8 +342,11 @@ def test_factory_builds_ported_families_on_its_device():
 
 
 def test_unported_validator_options_raise(monkeypatch, tmp_path):
-    """autotune and validate_stream raise, naming their item;
-    ``checkpoint_path`` is ported: the port restores every row of a
+    """autotune and validate_stream are ported (an ``AutotuneConfig``
+    is installed as given, and an empty chunk stream is refused as the
+    reference refuses it; ``tests/test_torch_autotune.py`` and
+    ``tests/test_torch_input_pipeline.py`` hold them against the
+    reference); ``checkpoint_path`` is ported: the port restores every row of a
     checkpoint that the reference's validator wrote (LR and GBT
     candidates), fits nothing, and selects as the reference did.  The
     fused programs are ported: ``train_fused=True`` and ``TX_TRAIN_FUSED=1``
@@ -378,10 +381,11 @@ def test_unported_validator_options_raise(monkeypatch, tmp_path):
         [(r["model_type"], r["params"], r["fold_metrics"])
          for r in want.all_results]
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        val.OpCrossValidation(autotune=object())
+    cfg = mod(PORT, "autotune").AutotuneConfig(
+        cost_model=mod(PORT, "autotune").CostModel())
+    assert val.OpCrossValidation(autotune=cfg).autotune is cfg
     cv = val.OpCrossValidation(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
+    with pytest.raises(ValueError, match="no chunks observed"):
         cv.validate_stream([], iter(()))
     X, y = _cv_data(n=60)
     cv.evaluator = mod(PORT, "evaluators.binary") \

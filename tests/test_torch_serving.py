@@ -770,11 +770,17 @@ def test_device_fault_escapes_the_torch_lowering(err, monkeypatch):
 
 
 def test_scheduler_retune_waits_for_autotune():
-    """The autotuner's live knob seam is not ported: it raises naming
-    ROADMAP item 12, and the endpoint's buckets stay hand-set."""
+    """The autotuner's live knob seam is ported: ``retune`` applies the
+    knobs to the live scheduler and records them as tuned in telemetry
+    (the endpoint's buckets stay hand-set until then), as the
+    reference's does."""
     model, records, _ = _trained("lr")
     endpoint = compile_endpoint(model, fused_backend="numpy")
-    with MicroBatchScheduler(endpoint, start=False) as sched:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            sched.retune(max_batch_size=256, max_wait_us=500)
     assert endpoint.telemetry.snapshot()["knob_source"] == "hand_set"
+    with MicroBatchScheduler(endpoint, start=False) as sched:
+        applied = sched.retune(max_batch_size=256, max_wait_us=500)
+        assert applied == sched.knobs() == {"max_batch_size": 256,
+                                            "max_wait_us": 500}
+    snap = endpoint.telemetry.snapshot()
+    assert snap["knob_source"] == "autotune"
+    assert snap["tuned_knobs"]["max_batch_size"] == 256.0

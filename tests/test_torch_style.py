@@ -132,3 +132,127 @@ def test_the_artifact_gate_catches_a_raw_write():
     handler = ast.parse(
         "try:\n    f()\nexcept Exception:\n    pass\n").body[0].handlers[0]
     assert _is_broad(handler) and not _handler_is_accounted(handler)
+
+
+# -- the training operations layer ---------------------------------------------------
+
+def test_pipeline_queue_waits_are_bounded():
+    """Under readers/pipeline.py every queue ``.put()`` carries an explicit
+    ``timeout=`` and every zero-argument ``.get()``/``.join()`` is
+    forbidden (the JAX package's ``test_pipeline_queue_waits_are_
+    bounded``): a full prefetch buffer with a dead consumer, or a wedged
+    worker at join time, must never block ingest - or a card run - past
+    its time limit.  ``"sep".join(xs)`` and ``d.get(k)`` carry arguments
+    and pass; ``q.put(item)`` does not (it still blocks unboundedly)."""
+    p = ROOT / "readers" / "pipeline.py"
+    tree = ast.parse(p.read_text(encoding="utf-8"))
+    offenders, seen = [], 0
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("put", "get", "join")):
+            continue
+        seen += 1
+        has_timeout = any(kw.arg == "timeout" for kw in node.keywords)
+        ok = has_timeout if node.func.attr == "put" else (
+            has_timeout or bool(node.args))
+        if not ok:
+            offenders.append(f"{p}:{node.lineno} .{node.func.attr}()")
+    assert seen >= 5  # the gate is not vacuous
+    assert not offenders, offenders
+
+
+def test_autotune_reads_telemetry_via_public_apis_only():
+    """autotune/ reads observations only through public obs-plane APIs
+    (registry, profiler and tracer snapshots, span exports): no
+    single-underscore attribute of a foreign object is touched anywhere
+    in the package; ``self._x``/``cls._x`` own state is the exception
+    (the JAX package's ``test_autotune_reads_telemetry_via_public_apis_
+    only``)."""
+    files = sorted((ROOT / "autotune").rglob("*.py"))
+    assert len(files) == 4
+    offenders = []
+    for p in files:
+        for node in ast.walk(ast.parse(p.read_text(encoding="utf-8"))):
+            if not isinstance(node, ast.Attribute):
+                continue
+            if not node.attr.startswith("_") or node.attr.startswith("__"):
+                continue
+            if isinstance(node.value, ast.Name) and node.value.id in (
+                    "self", "cls"):
+                continue
+            offenders.append(f"{p}:{node.lineno} .{node.attr}")
+    assert not offenders, offenders
+
+
+#: the only functions of obs/fleet.py allowed to parse foreign JSON
+_FLEET_LOADER_FUNCS = {"read_json_torn_safe", "read_jsonl_tolerant"}
+
+
+def _json_parses_outside(tree, allowed) -> list:
+    found = []
+
+    def walk(node, func_name):
+        for child in ast.iter_child_nodes(node):
+            name = func_name
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                name = child.name
+            if (isinstance(child, ast.Call)
+                    and isinstance(child.func, ast.Attribute)
+                    and child.func.attr in ("load", "loads")
+                    and isinstance(child.func.value, ast.Name)
+                    and child.func.value.id == "json"
+                    and func_name not in allowed):
+                found.append(child.lineno)
+            walk(child, name)
+
+    walk(tree, "<module>")
+    return found
+
+
+def test_fleet_reads_snapshots_only_via_torn_safe_loader():
+    """obs/fleet.py calls ``json.load``/``json.loads`` only inside the
+    torn-read-safe loaders (the JAX package's ``test_fleet_reads_
+    snapshots_only_via_torn_safe_loader``): shard files are written by
+    other processes that can be killed mid-write, so a direct parse
+    elsewhere would let one dying process crash the whole scrape."""
+    p = ROOT / "obs" / "fleet.py"
+    offenders = _json_parses_outside(
+        ast.parse(p.read_text(encoding="utf-8")), _FLEET_LOADER_FUNCS)
+    assert not offenders, [f"{p}:{n}" for n in offenders]
+    # the gate's own check: a parse outside the loaders is caught
+    assert _json_parses_outside(ast.parse(
+        "def read_json_torn_safe(p):\n    return json.loads(p)\n"
+        "def other(p):\n    return json.load(p)\n"),
+        _FLEET_LOADER_FUNCS) == [4]
+
+
+#: the training-operations modules whose catch-alls must pass a device
+#: fault through (``parallel.kernels.is_device_fault``)
+_DEVICE_FAULT_SCOPE = (("autotune",), ("continuous",),
+                       ("readers", "pipeline.py"),
+                       ("selector", "validator.py"))
+
+
+def test_training_ops_catch_alls_pass_device_faults_through():
+    """Every broad ``except`` of the autotuner, the continuous trainer,
+    the sharded pipeline and the validator either re-raises
+    unconditionally or consults ``is_device_fault``: a device fault is
+    never scored as a failed rung, a losing probe, a failed refit or a
+    degraded fused dispatch."""
+    offenders, seen = [], 0
+    for p in MODULES:
+        rel = _rel(p)
+        if not any(rel[:len(s)] == s for s in _DEVICE_FAULT_SCOPE):
+            continue
+        for node in ast.walk(ast.parse(p.read_text(encoding="utf-8"))):
+            if not (isinstance(node, ast.ExceptHandler) and _is_broad(node)):
+                continue
+            seen += 1
+            names = {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
+            bare_raise = any(isinstance(n, ast.Raise) and n.exc is None
+                             for n in node.body)
+            if "is_device_fault" not in names and not bare_raise:
+                offenders.append(f"{p}:{node.lineno}")
+    assert seen >= 4  # rung, fused dispatch, probe, pipeline worker
+    assert not offenders, offenders

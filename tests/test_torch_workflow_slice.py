@@ -345,8 +345,9 @@ def test_streaming_ingest_flag_trains_from_a_csv_reader(tmp_path):
     without a chunk stream (``CSVReader``) trains on the batch path, as in
     the reference (its ``_streaming_eligible``); the port used to raise
     in ``set_parameters``.  The scores agree with the reference's within
-    1e-5.  A reader that has ``stream_dataset`` raises item 12 at
-    ``train()``, and ``streaming_ingest=False`` opts out of it."""
+    1e-5.  A reader that has ``stream_dataset`` streams at ``train()``
+    (the pipelined reader over the same file: the same scores as the
+    batch path), and ``streaming_ingest=False`` opts out of it."""
     path = mod(PORT, "examples.synthetic").write_readme_csv(
         str(tmp_path / "passengers.csv"), N)
     probs = []
@@ -358,11 +359,10 @@ def test_streaming_ingest_flag_trains_from_a_csv_reader(tmp_path):
     assert p_port.shape == p_ref.shape == (N, 2)
     np.testing.assert_allclose(p_port, p_ref, rtol=0, atol=1e-5)
 
-    class StreamingCSVReader(mod(PORT, "readers.csv_reader").CSVReader):
-        def stream_dataset(self, *args, **kwargs):
-            raise AssertionError("not reached")
-
-    wf, _ = _csv_slice_workflow(PORT, StreamingCSVReader(path))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        wf.train()
+    wf, pred = _csv_slice_workflow(
+        PORT, mod(PORT, "readers.pipeline").PipelinedCSVReader(
+            [path], workers=1))
+    assert wf._streaming_eligible()
+    streamed = probabilities(wf.train().score(), pred.name)
+    np.testing.assert_array_equal(streamed, p_port)
     assert not wf.set_parameters(streaming_ingest=False)._streaming_eligible()

@@ -27,8 +27,27 @@ TORCH_TEST_THREADS = 4
 torch.set_num_threads(TORCH_TEST_THREADS)
 
 
+def _device_fault_params():
+    """pytest params of the two device faults (``parallel.kernels.
+    is_device_fault``) that every catch-all of the port re-raises."""
+    import pytest
+
+    kernel_error = mod(PORT, "parallel.kernels").KernelError
+    return [
+        pytest.param(lambda: kernel_error(
+            "bin_matrix kernel launch failed: CUDA error 700"),
+            id="KernelError"),
+        pytest.param(lambda: torch.AcceleratorError(
+            "CUDA error: an illegal memory access was encountered"),
+            id="AcceleratorError"),
+    ]
+
+
 def mod(pkg: str, path: str):
     return importlib.import_module(f"{pkg}.{path}")
+
+
+DEVICE_FAULTS = _device_fault_params()
 
 
 def reset_uids(pkg: str) -> None:

@@ -40,15 +40,23 @@ canary.regression          live canary outputs poisoned to NaN through
 canary.latency             the canary arm sleeps ``delay`` seconds
                            inside its timed window (latency-SLO drill)
 supervisor.child_kill      the supervisor kills its child (preemption)
+continuous.refit_crash     hard kill in the continuous trainer between
+                           refit completion and the registry publish (the
+                           old stable must keep serving; the next cycle
+                           recovers)
+drift.false_positive       the continuous detect phase reports a forced
+                           trigger on a healthy window
 ========================== ==================================================
 
 The mesh points fire in ``parallel/resilience.py`` (the watchdog's
 worker, before the guarded step) and ``parallel/distributed.py``
 (``initialize``'s connect); the serving points in ``serving/endpoint.py``,
-the registry and canary points in ``registry/``.  The engine accepts
-every point name of the JAX package (continuous, drift, bulk and fleet
-too); their call sites come with the subsystems that hold
-them (ROADMAP.md queue 1, item 12).
+the registry and canary points in ``registry/``, the continuous and
+drift points in ``continuous/trainer.py``; the reader points also fire
+inside the sharded pipeline's worker shards (``readers/pipeline.py``).
+The engine accepts every point name of the JAX package (bulk and fleet
+too); their call sites come with the subsystems that hold them
+(ROADMAP.md queue 1, item 12).
 """
 from .injection import (
     DEFAULT_KILL_EXIT,

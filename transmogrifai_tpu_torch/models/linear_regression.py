@@ -21,10 +21,9 @@ False and the validator batches regression grids.
 Scoring has the numpy route (``predict_arrays_np``) and its torch mirror
 for the device-fused program (``predict_arrays_torch``).
 ``fused_train_core`` is the fused training program's seam
-(``local/fused_train.py``).  Not ported yet, raising
-``NotImplementedError`` with its ROADMAP.md queue 1 item: the streamed
-sufficient-statistics fit (``streaming_fit_stats``, ``fit_from_stats``;
-item 12).
+(``local/fused_train.py``).  The streamed sufficient-statistics fit
+(``streaming_fit_stats`` per chunk, ``fit_from_stats`` over the merged
+moments) is host float64 numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,13 +38,6 @@ from .base import PredictorEstimator
 from .logistic_regression import _f32
 from .packed_newton import (
     _batched_diag, fit_batched, pd_jitter, run_newton, solve_pos)
-
-
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        f"(ROADMAP.md queue 1, item {item})"
-    )
 
 
 def linreg_core(X, y, w, reg, elastic_net, l1_iters: int = 8):
@@ -208,12 +200,61 @@ class OpLinearRegression(PredictorEstimator):
         return {"fit": fit, "score": score,
                 "sig": ("linreg", packed)}
 
+    # -- streamed sufficient-statistics fit (readers/pipeline.py) ----------
     @staticmethod
     def streaming_fit_stats(X_block, y_block) -> tuple:
-        raise _not_ported("the streamed sufficient-statistics fit", 12)
+        """Per-chunk sufficient statistics for the closed-form ridge fit:
+        (n, sum x [d], X^T X [d, d], sum y, X^T y [d]).  Mergeable by
+        addition, so the sharded input pipeline can accumulate them while
+        later shards parse; ``fit_from_stats`` then completes the fit in
+        O(d^2) after the last chunk lands."""
+        Xb = np.asarray(X_block, dtype=np.float64)
+        yb = np.asarray(y_block, dtype=np.float64)
+        return (
+            len(yb), Xb.sum(axis=0), Xb.T @ Xb, float(yb.sum()),
+            Xb.T @ yb,
+        )
 
     def fit_from_stats(self, stats) -> dict:
-        raise _not_ported("the streamed sufficient-statistics fit", 12)
+        """Fit from accumulated :meth:`streaming_fit_stats` chunks: the
+        centered/standardized ridge + reweighted-L1 math of the batch fit,
+        reconstructed from the merged moments (the [n, d] matrix never
+        needs to exist).  Chunks are summed in the given (deterministic
+        source) order."""
+        stats = list(stats)
+        if not stats:
+            raise ValueError("fit_from_stats needs at least one chunk")
+        n = sum(s[0] for s in stats)
+        S1 = np.sum([s[1] for s in stats], axis=0)
+        S2 = np.sum([s[2] for s in stats], axis=0)
+        Sy = float(sum(s[3] for s in stats))
+        Sxy = np.sum([s[4] for s in stats], axis=0)
+        d = len(S1)
+        m0 = S1 / n
+        # centered second moments: Xc^T Xc = X^T X - n m0 m0^T (Xc sums
+        # to 0, so the batch fit's mean terms vanish exactly here)
+        XtX_c = S2 - n * np.outer(m0, m0)
+        var = np.maximum(np.diag(XtX_c) / n, 0.0)
+        msq = var  # mu == 0
+        active = var > 1e-6 * msq + 1e-30
+        sd = np.where(active, np.sqrt(np.maximum(var, 1e-12)), 1.0)
+        ybar = Sy / n
+        G = (XtX_c / np.outer(sd, sd) / n) * np.outer(active, active)
+        c = ((Sxy - m0 * Sy) / sd / n) * active
+        reg = float(self.params["reg_param"])
+        en = float(self.params["elastic_net_param"])
+        lam_l2 = reg * (1.0 - en)
+        lam_l1 = reg * en
+        ridge = float(pd_jitter(np.trace(G) / d, d))
+        beta_s = np.zeros(d)
+        for _ in range(8):  # same reweighted-L1 schedule as the batch fit
+            l1_diag = lam_l1 / (np.abs(beta_s) + 1e-3)
+            H = G + np.diag(lam_l2 + l1_diag + ridge + (1.0 - active))
+            new = np.linalg.solve(H, c)
+            beta_s = np.where(np.isfinite(new), new, beta_s)
+        beta = beta_s / sd
+        intercept = ybar - float(m0 @ beta)
+        return {"beta": beta, "intercept": float(intercept)}
 
     def predict_arrays(self, params: Any, X: np.ndarray):
         dev = resolve_device(self.device)

@@ -1,7 +1,8 @@
 """transmogrifai_tpu_torch.obs: the observability plane's host half.
 
 Host copies of the JAX package's ``obs/trace.py``, ``obs/metrics.py``,
-``obs/profiler.py`` and ``obs/slo.py``, and its ``export_obs``:
+``obs/profiler.py``, ``obs/fleet.py`` and ``obs/slo.py``, and its
+``export_obs``:
 
 * :mod:`~transmogrifai_tpu_torch.obs.trace` - run-scoped trace spans
   (contextvar-propagated, ``perf_counter_ns``-timed, bounded ring
@@ -13,19 +14,30 @@ Host copies of the JAX package's ``obs/trace.py``, ``obs/metrics.py``,
   snapshots as views; exported as JSON and Prometheus text.
 * :mod:`~transmogrifai_tpu_torch.obs.profiler` - per-span EWMA +
   histogram with a p99 tail sampler.
+* :mod:`~transmogrifai_tpu_torch.obs.fleet` - cross-process
+  trace-context propagation (``TX_OBS_TRACE_CONTEXT``, :func:`child_env`),
+  per-process metric/span shipping into an aggregation dir, and the
+  :class:`FleetAggregator` merging live shards into one scrape and one
+  trace forest.
 * :mod:`~transmogrifai_tpu_torch.obs.slo` - declarative SLOs with
   multi-window burn-rate alerting, read by the runner's ``slo_path``
   knob and ``RollbackPolicy.slo_engine``.
 
-The cross-process shipping (``obs/fleet.py``) and cross-process trace
-contexts come with the host-side operations subsystems (ROADMAP.md
-queue 1, item 12).  The package is stdlib-only.
+The package is stdlib-only.
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
 
+from .fleet import (
+    FleetAggregator,
+    ObsShipper,
+    child_env,
+    read_json_torn_safe,
+    read_jsonl_tolerant,
+    ship_now,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -49,9 +61,12 @@ from .slo import (
     resolve_metric,
 )
 from .trace import (
+    TRACE_CONTEXT_ENV,
     Span,
     Tracer,
     build_trees,
+    current_context,
+    parse_context,
     reset_tracer,
     set_enabled,
     span,
@@ -60,28 +75,37 @@ from .trace import (
 
 __all__ = [
     "Counter",
+    "FleetAggregator",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "ObsShipper",
     "SLOEngine",
     "SLObjective",
     "Span",
     "SpanProfiler",
+    "TRACE_CONTEXT_ENV",
     "Tracer",
     "build_trees",
+    "child_env",
+    "current_context",
     "default_objectives",
     "export_obs",
     "load_slo_config",
     "metrics_registry",
+    "parse_context",
     "percentiles",
     "process_instance",
     "prometheus_text_from_json",
+    "read_json_torn_safe",
+    "read_jsonl_tolerant",
     "reset_metrics_registry",
     "reset_tracer",
     "resolve_metric",
     "sanitize_metric_name",
     "set_enabled",
     "set_process_instance",
+    "ship_now",
     "span",
     "tracer",
     "write_json_artifact",

@@ -5,7 +5,10 @@ Host copy of ``transmogrifai_tpu/obs/trace.py``: one trace id follows
 a run across every subsystem boundary - the workflow's ``workflow.train``
 and ``workflow.ingest`` spans and the reader's ``ingest.read`` span are
 parented through :data:`contextvars`, so a run's ingest and training
-line up into one tree.
+line up into one tree.  A parent process exports its ambient span's
+context through ``TX_OBS_TRACE_CONTEXT`` (``obs.child_env``) and a
+child's tracer adopts it, so one trace id follows a run into the
+processes it spawns.
 
 Design constraints, in order:
 
@@ -43,12 +46,40 @@ log = logging.getLogger("transmogrifai_tpu_torch.obs")
 
 __all__ = [
     "Span",
+    "TRACE_CONTEXT_ENV",
     "Tracer",
+    "current_context",
+    "parse_context",
     "reset_tracer",
     "set_enabled",
     "span",
     "tracer",
 ]
+
+#: the cross-process trace-context seam: a parent process
+#: exports ``<trace_id>:<span_id>`` of its ambient span into this env
+#: var before spawning a child, and the child's Tracer ADOPTS it at
+#: construction - every root span the child mints then joins the
+#: parent's trace (same trace id, parented to the exporting span), so
+#: one trace id follows a run through supervisor re-dispatch, mesh-peer
+#: bootstrap, and deploy-drill children.
+TRACE_CONTEXT_ENV = "TX_OBS_TRACE_CONTEXT"
+
+
+def parse_context(value: Optional[str]) -> tuple[Optional[str], Optional[int]]:
+    """Parse a ``<trace_id>:<span_id>`` context string (the
+    :data:`TRACE_CONTEXT_ENV` format).  Malformed input yields
+    ``(None, None)`` - a garbled env var must degrade to a fresh local
+    trace, never crash a child at import time."""
+    if not value:
+        return None, None
+    trace_id, sep, span_part = value.strip().rpartition(":")
+    if not sep or not trace_id:
+        return None, None
+    try:
+        return trace_id, int(span_part)
+    except ValueError:
+        return None, None
 
 #: the ambient span (contextvars so nested spans parent correctly per
 #: thread/task; a thread started without a copied context roots a new
@@ -92,6 +123,9 @@ class Span:
         self._children: list[dict] = []
         self._children_dropped = 0
         self._token = None
+        # local-rootness is a flag, not ``parent_id is None``: a root
+        # that ADOPTED a cross-process context carries the remote parent
+        # span id, yet is still this process's tree root
         self._root = root
 
     def set_attr(self, key: str, value: Any) -> None:
@@ -99,8 +133,8 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = _current.set(self)
-        self.t_epoch = time.time()  # wall stamp only - durations come
-        # from perf_counter_ns below
+        self.t_epoch = time.time()  # wall stamp for cross-process
+        # correlation only - durations come from perf_counter_ns below
         self._start_ns = time.perf_counter_ns()
         return self
 
@@ -155,9 +189,11 @@ class Tracer:
         self.profiler = profiler if profiler is not None else SpanProfiler()
         self._lock = threading.Lock()
         self._spans: deque = deque(maxlen=int(capacity))
-        # span ids count up from a random 63-bit base, as the JAX
-        # package's tracer does: one C-level next() on the hot path - no
-        # per-span entropy or formatting.
+        # span ids count up from a random 63-bit base so they stay
+        # collision-safe when span shards from MANY processes merge into
+        # one tree (fleet.py): a per-process count-from-1 would collide
+        # on the very first merged pair.  Still one C-level next() on
+        # the hot path - no per-span entropy or formatting.
         self._ids = itertools.count(
             int.from_bytes(os.urandom(8), "big") >> 1 or 1
         )
@@ -170,6 +206,13 @@ class Tracer:
         # prefix and collide id-for-id.
         self._trace_prefix = f"{os.getpid():x}-{os.urandom(8).hex()}-"
         self._trace_ids = itertools.count(1)
+        # cross-process context adoption (the TRACE_CONTEXT_ENV seam):
+        # when a parent process exported its ambient span, every root
+        # this tracer mints joins that trace instead of starting one
+        self._adopted_trace, self._adopted_parent = parse_context(
+            os.environ.get(TRACE_CONTEXT_ENV)
+        )
+        self.contexts_adopted = 1 if self._adopted_trace else 0
         self.spans_recorded = 0
         self.spans_evicted = 0
         self.traces_started = 0
@@ -183,9 +226,17 @@ class Tracer:
             return _NULL_SPAN
         parent = _current.get()
         if parent is None or parent.tracer is not self:
-            trace_id = self._trace_prefix + format(next(self._trace_ids), "x")
-            return Span(self, name, trace_id, next(self._ids), None, attrs,
-                        root=True)
+            if self._adopted_trace is not None:
+                # adopted cross-process context: this root joins the
+                # parent process's trace, parented to the exporting span
+                trace_id = self._adopted_trace
+                parent_id = self._adopted_parent
+            else:
+                trace_id = self._trace_prefix + format(
+                    next(self._trace_ids), "x")
+                parent_id = None
+            return Span(self, name, trace_id, next(self._ids),
+                        parent_id, attrs, root=True)
         return Span(self, name, parent.trace_id, next(self._ids),
                     parent.span_id, attrs)
 
@@ -240,6 +291,37 @@ class Tracer:
                 self.traces_started += 1
         self.profiler.observe(s.name, record["wall_ms"], tree)
 
+    # -- cross-process context ----------------------------------------------
+    def adopt_context(self, value: Optional[str]) -> bool:
+        """Adopt a foreign trace context IN-PROCESS (the
+        :data:`TRACE_CONTEXT_ENV` seam only runs at construction): the
+        bulk job's resume path joins the PLANNING process's trace this
+        way, so plan -> score -> commit -> resume is one trace across
+        kills.  A no-op (False) on a malformed context, when this
+        tracer already adopted one, or when a span is open - joining a
+        foreign trace mid-span would orphan the open root."""
+        trace_id, parent = parse_context(value)
+        if trace_id is None or self._adopted_trace is not None:
+            return False
+        if self.current_context() is not None:
+            return False
+        self._adopted_trace, self._adopted_parent = trace_id, parent
+        self.contexts_adopted += 1
+        return True
+
+    def current_context(self) -> Optional[str]:
+        """The ambient span's ``<trace_id>:<span_id>`` context string
+        (the :data:`TRACE_CONTEXT_ENV` payload), or - with no span open
+        - the adopted context this tracer itself inherited, so a
+        middle process relays its parent's trace to grandchildren even
+        between spans.  None when there is nothing to propagate."""
+        cur = _current.get()
+        if cur is not None and cur.tracer is self:
+            return f"{cur.trace_id}:{cur.span_id}"
+        if self._adopted_trace is not None:
+            return f"{self._adopted_trace}:{self._adopted_parent}"
+        return None
+
     # -- reading ------------------------------------------------------------
     def spans(self, trace_id: Optional[str] = None) -> list[dict]:
         with self._lock:
@@ -277,6 +359,7 @@ class Tracer:
                 "spans_recorded": self.spans_recorded,
                 "spans_evicted": self.spans_evicted,
                 "traces_started": self.traces_started,
+                "contexts_adopted": self.contexts_adopted,
                 "tree_children_dropped": self.tree_children_dropped,
             }
 
@@ -344,3 +427,10 @@ def span(name: str, **attrs: Any):
     ``with obs_trace.span("serve.batch", bucket=b): ...``)."""
     return tracer().span(name, **attrs)
 
+
+def current_context() -> Optional[str]:
+    """The default tracer's exportable trace context (see
+    :meth:`Tracer.current_context`); the payload child-process spawners
+    put in :data:`TRACE_CONTEXT_ENV` (``obs.fleet.child_env`` wraps
+    the env-dict plumbing)."""
+    return tracer().current_context()

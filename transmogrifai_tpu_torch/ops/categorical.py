@@ -9,8 +9,9 @@ sorted pivots.
 
 The pivot and the string indexer lower to numpy only (``lower_block``,
 ``lower``): strings never enter the device program, so a fused torch
-pipeline runs them as host pre-steps.  The indexer's streamed fit from
-per-chunk counts comes with streaming ingest (ROADMAP.md queue 1, item 12).
+pipeline runs them as host pre-steps.  The indexer is
+``streaming_fittable``: the workflow's streaming ingest adds up its
+per-chunk label counts while shards parse.
 """
 from __future__ import annotations
 
@@ -370,10 +371,25 @@ class StringIndexer(Estimator):
 
     input_types = [Text]
     output_type = RealNN
+    streaming_fittable = True
+
+    def partial_fit_chunk(self, cols: Sequence[Column], ds: Dataset):
+        """Mergeable per-chunk label counts: Counter addition is exact, so
+        streamed and batch fits index identically."""
+        (col,) = cols
+        return Counter(v for v in col.values if v is not None)
+
+    def _merge_partial_fits(self, stats: list):
+        total: Counter = Counter()
+        for c in stats:
+            total.update(c)
+        return total
 
     def fit_model(self, cols: Sequence[Column], ds: Dataset):
-        (col,) = cols
-        counts = Counter(v for v in col.values if v is not None)
+        counts = self._take_streamed()
+        if counts is None:
+            (col,) = cols
+            counts = Counter(v for v in col.values if v is not None)
         labels = [v for v, _ in sorted(counts.items(), key=lambda vc: (-vc[1], vc[0]))]
         return StringIndexerModel(labels)
 

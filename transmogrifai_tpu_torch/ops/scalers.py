@@ -5,10 +5,10 @@ FillMissingWithMean and PercentileCalibrator (reference: core/.../impl/
 feature/OpScalarStandardScaler.scala, FillMissingWithMean.scala,
 PercentileCalibrator.scala), host numpy in both packages.  The fitted
 models lower to numpy (``lower``, the numpy-fused program) and to torch
-(``lower_torch``, the device program).  ``partial_fit_chunk`` and
-``_merge_partial_fits`` give the mergeable per-chunk statistics; the
-estimator seam that fits a model from them comes with streaming ingest
-(item 12).
+(``lower_torch``, the device program).  The standard scaler and the mean
+imputer are ``streaming_fittable``: the workflow's streaming ingest
+accumulates their per-chunk moments while shards parse and their next
+fit takes the merged moments.
 """
 from __future__ import annotations
 
@@ -74,6 +74,7 @@ class OpScalarStandardScaler(Estimator):
 
     input_types = [Real]
     output_type = RealNN
+    streaming_fittable = True
 
     def __init__(self, with_mean: bool = True, with_std: bool = True, **kw) -> None:
         super().__init__(**kw)
@@ -94,6 +95,13 @@ class OpScalarStandardScaler(Estimator):
         return (n, sx, sxx)
 
     def fit_model(self, cols: Sequence[Column], ds: Dataset):
+        streamed = self._take_streamed()
+        if streamed is not None:
+            n, sx, sxx = streamed
+            mean = sx / n if self.with_mean and n else 0.0
+            var = max(sxx / n - (sx / n) ** 2, 0.0) if n else 0.0
+            std = float(np.sqrt(var)) if self.with_std and n else 1.0
+            return _ScaleModel(float(mean), std)
         (c,) = cols
         assert isinstance(c, NumericColumn)
         present = c.values[c.mask]
@@ -154,6 +162,7 @@ class FillMissingWithMean(Estimator):
 
     input_types = [Real]
     output_type = RealNN
+    streaming_fittable = True
 
     def __init__(self, default: float = 0.0, **kw) -> None:
         super().__init__(**kw)
@@ -169,6 +178,10 @@ class FillMissingWithMean(Estimator):
         return (sum(s[0] for s in stats), sum(s[1] for s in stats))
 
     def fit_model(self, cols: Sequence[Column], ds: Dataset):
+        streamed = self._take_streamed()
+        if streamed is not None:
+            n, sx = streamed
+            return _FillMeanModel(sx / n if n else self.default)
         (c,) = cols
         assert isinstance(c, NumericColumn)
         return _FillMeanModel(masked_mean(c.values, c.mask, self.default))

@@ -46,8 +46,8 @@ Port of ``transmogrifai_tpu/registry/deployment.py``.  A device fault
 CUDA error) raised by the canary arm or the shadow escapes unchanged:
 the canary's rows are not re-scored on stable after one.  A new
 generation warms on the current CUDA stream, the one live traffic
-scores on.  The fleet view reads a callable; its path-valued form waits
-for ``obs/fleet.py`` (ROADMAP.md queue 1, item 12).
+scores on.  The fleet view reads a callable or, path-valued, a
+published status document through ``obs.fleet.read_json_torn_safe``.
 """
 from __future__ import annotations
 
@@ -165,8 +165,8 @@ class DeploymentController:
             "max_abs_delta": 0.0, "sum_abs_delta": 0.0,
         }
         #: fleet view source: a zero-arg callable returning the fleet
-        #: status document (a path to a published ``fleet_status.json``
-        #: raises until ``obs/fleet.py`` is ported, ROADMAP item 12) -
+        #: status document, or a path to a published
+        #: ``fleet_status.json`` read torn-safe -
         #: ``summary_json()`` then carries per-replica generation /
         #: heartbeat age / in-flight in ONE consistent document instead
         #: of every consumer re-reading N obs shards
@@ -706,19 +706,17 @@ class DeploymentController:
             except Exception as e:  # noqa: BLE001 - summary only
                 log.warning("deploy summary: SLO report failed: %s", e)
         src = self.fleet_status_source
-        if src is not None and not callable(src):
-            # raised before the catch-all below can swallow it
-            raise NotImplementedError(
-                "a path-valued fleet_status_source reads the fleet's "
-                "published status through obs/fleet.py, which is not "
-                "ported yet (ROADMAP.md queue 1, item 12); pass a callable "
-                "returning the status document"
-            )
         if src is not None:
             # the fleet view: per-replica generation, last heartbeat age,
-            # in-flight - one consistent document
+            # in-flight - one consistent document, read torn-safe (the
+            # publisher may be replacing it right now)
             try:
-                out["fleet"] = src()
+                if callable(src):
+                    out["fleet"] = src()
+                else:
+                    from ..obs.fleet import read_json_torn_safe
+
+                    out["fleet"] = read_json_torn_safe(str(src))
             except Exception as e:  # noqa: BLE001 - summary only
                 log.warning("deploy summary: fleet view failed: %s", e)
         return out

@@ -287,6 +287,13 @@ class ModelSelector(Estimator):
                 "n_features": int(X.shape[1]),
             }
         }
+        if result.autotune is not None:
+            # the successive-halving decision trail: rungs, prunes,
+            # predicted-vs-actual times - rides the stage metadata into
+            # summary_json() and the saved summary.json
+            model.metadata["model_selector_summary"]["autotune"] = (
+                result.autotune
+            )
         if result.train_fused is not None:
             # the fused-training trail: which families ran fused, and why
             # the others took the kernel-at-a-time path

@@ -56,25 +56,37 @@ shard their rows over the ``data`` mesh themselves (``models/trees.py``).
 A mesh keeps the fused training programs off, with reason ``mesh``, as
 in the JAX package.  Only rank 0 writes the CV checkpoint.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item when asked for: successive-halving ``autotune`` (item 12)
-and ``validate_stream`` (item 12).
+``autotune`` (an ``autotune.AutotuneConfig``) runs the successive-halving
+ladder before the fold x grid spend: the cost model's go/no-go
+(``autotune/pruning.py``), then every candidate fits once on a seeded
+row subsample - gathered on the device from the validate-wide float32
+buffer (``index_select``), so X itself never crosses to the host for
+it - and only the survivors take the full cross-validation; the trail
+is ``last_autotune_report`` / ``ValidationResult.autotune``.
+``validate_stream`` builds the fold masks from design-matrix chunks as
+the input pipeline lands them (``StreamingFoldBuilder``), bit-equal to
+the batch masks whatever the arrival order.  The catch-alls of the rung
+fits and of the fused dispatch re-raise a device fault
+(``parallel.kernels.is_device_fault``): only an ordinary error ranks a
+rung last or degrades a family to the kernel-at-a-time path.
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..autotune.cost_model import params_hash as _params_hash
 from ..evaluators.base import OpEvaluatorBase
 from ..evaluators.binary import masked_rank_metrics
 from ..models.base import PredictorEstimator
 from ..obs import trace as _obs_trace
+from ..parallel.kernels import is_device_fault
 from ..parallel.mesh import cv_mesh_or_none, data_mesh_or_none, is_writer
 from ..types.columns import PredictionColumn
 from ..utils.device import resolve_device
@@ -84,26 +96,34 @@ from ..utils.device import resolve_device
 APPROX_RANK_MIN_ROWS = 100_000
 
 
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        f"(ROADMAP.md queue 1, item {item})"
-    )
-
-
-def _params_hash(params: dict) -> str:
-    """Stable 12-hex identity of a hyperparameter map (the JAX package's
-    ``autotune.cost_model.params_hash``: sha256 of the sorted JSON)."""
-    blob = json.dumps(params, sort_keys=True, default=str)
-    return hashlib.sha256(blob.encode()).hexdigest()[:12]
-
-
 def _numeric_params(pmap: dict) -> dict:
-    """The numeric hyperparameters of one grid point, as span attrs."""
+    """The numeric hyperparameters of one grid point, flattened for span
+    attrs: exactly the features the cost model trains on."""
     return {
         k: float(v) for k, v in pmap.items()
         if isinstance(v, (int, float)) and not isinstance(v, bool)
     }
+
+
+def _rung_train_mask(ys: np.ndarray, train_fraction: float,
+                     seed: int) -> np.ndarray:
+    """Deterministic train mask over the rung subsample: stratified per
+    label class when the label is discrete (<=32 classes), else a plain
+    shuffled split - regression rungs must not np.unique-explode.
+    Bit-equal to the JAX package's."""
+    n = len(ys)
+    rng = np.random.RandomState(seed + 1)
+    mask = np.zeros(n, dtype=bool)
+    classes = np.unique(ys)
+    if len(classes) <= 32:
+        for c in classes:
+            idx = np.nonzero(ys == c)[0]
+            perm = rng.permutation(idx)
+            mask[perm[: int(np.ceil(len(idx) * train_fraction))]] = True
+    else:
+        perm = rng.permutation(n)
+        mask[perm[: int(np.ceil(n * train_fraction))]] = True
+    return mask
 
 
 def _ckpt_key(est, pmap: dict, mode: str) -> str:
@@ -126,6 +146,9 @@ class ValidationResult:
     metric_name: str
     larger_better: bool
     all_results: list = field(default_factory=list)  # per (model, grid) dicts
+    #: the successive-halving decision trail: rungs, prunes,
+    #: predicted-vs-actual times; None when autotune was off
+    autotune: Optional[dict] = None
     #: the fused-training trail: per family the backend (fused, or
     #: existing with its reason) and, for a fused one, its walls, mode and
     #: shape bucket; None when no family reached the fused gate
@@ -161,6 +184,68 @@ def _kfold_masks_from_indices(
         perm = rng.permutation(len(idx))
         fold_of[idx[perm]] = np.arange(len(idx)) % k
     return np.stack([fold_of != f for f in range(k)], axis=0)
+
+
+class StreamingFoldBuilder:
+    """CV fold construction that consumes design-matrix chunks AS THEY
+    LAND from the sharded input pipeline (readers/pipeline.py), instead
+    of waiting for the full matrix.
+
+    ``observe`` runs the per-chunk work - per-class row scans for the
+    stratified split plus block retention - while worker threads are
+    still parsing later shards; ``finalize`` orders chunks by their
+    (shard_id, chunk_id) key, assembles X/y with one copy pass, and
+    computes fold masks bit-identical to the batch
+    :func:`stratified_kfold_masks` on the assembled y (same RNG
+    consumption), regardless of chunk ARRIVAL order.
+    """
+
+    def __init__(self, k: int, seed: int = 42,
+                 stratify: bool = False) -> None:
+        self.k = int(k)
+        self.seed = int(seed)
+        self.stratify = bool(stratify)
+        self._chunks: list[tuple] = []  # (order_key, X, y, local_idx)
+        self.rows = 0
+
+    def observe(self, order_key, X_block, y_block) -> None:
+        Xb = np.asarray(X_block)
+        yb = np.asarray(y_block)
+        local: dict = {}
+        if self.stratify:
+            for c in np.unique(yb):
+                local[float(c)] = np.nonzero(yb == c)[0]
+        self._chunks.append((tuple(order_key), Xb, yb, local))
+        self.rows += len(yb)
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Returns (X [n, d] float32, y [n], train_masks [k, n])."""
+        if not self._chunks:
+            raise ValueError("no chunks observed")
+        self._chunks.sort(key=lambda t: t[0])
+        n = self.rows
+        d = self._chunks[0][1].shape[1]
+        X = np.empty((n, d), np.float32)
+        y = np.empty(n, self._chunks[0][2].dtype)
+        class_indices: dict = {}
+        at = 0
+        for _, Xb, yb, local in self._chunks:
+            m = len(yb)
+            X[at:at + m] = Xb
+            y[at:at + m] = yb
+            for c, idx in local.items():
+                class_indices.setdefault(c, []).append(idx + at)
+            at += m
+        if self.stratify:
+            merged = {
+                c: np.concatenate(parts)
+                for c, parts in class_indices.items()
+            }
+            masks = _kfold_masks_from_indices(merged, n, self.k,
+                                              self.seed)
+        else:
+            masks = stratified_kfold_masks(y, self.k, self.seed, False)
+        return X, y, masks
 
 
 def _lr_style_grid(grid: Sequence[dict]) -> bool:
@@ -204,13 +289,17 @@ class OpValidator:
         autotune=None,
         device: str = "cuda",
     ) -> None:
-        if autotune is not None:
-            raise _not_ported("successive-halving autotune", 12)
         self.evaluator = evaluator
         self.seed = seed
         self.stratify = stratify
         self.checkpoint_path = checkpoint_path
         self.device = str(device)
+        #: successive-halving config (autotune.AutotuneConfig); None runs
+        #: the exhaustive sweep
+        self.autotune = autotune
+        #: decision trail of the LAST validate() call (also on
+        #: ValidationResult.autotune); None when autotune was off
+        self.last_autotune_report: Optional[dict] = None
         #: the fused training programs: None = auto (TX_TRAIN_FUSED and
         #: the row floor), True / False force them on or off
         self.train_fused: Optional[bool] = None
@@ -260,8 +349,38 @@ class OpValidator:
     def train_masks(self, y: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
-    def validate_stream(self, models, chunks, weights=None):
-        raise _not_ported("validate_stream (chunk-streamed CV)", 12)
+    #: one-shot mask override installed by validate_stream (fold masks
+    #: already built chunk by chunk during ingest)
+    _streamed_masks: Optional[np.ndarray] = None
+
+    def validate_stream(
+        self,
+        models: Sequence[tuple[PredictorEstimator, Sequence[dict]]],
+        chunks,
+        weights: Optional[np.ndarray] = None,
+    ) -> ValidationResult:
+        """:meth:`validate` fed by a chunk stream: ``chunks`` yields
+        (order_key, X_block, y_block) as the input pipeline lands them
+        (readers/pipeline.py).  Fold construction - the stratified
+        per-class row scans and the design-matrix assembly - runs per
+        chunk DURING parsing; the candidate fits start the moment the
+        last chunk lands.  Selection is the batch path's on the same data
+        (same masks, same RNG)."""
+        is_cv = isinstance(self, OpCrossValidation)
+        k = getattr(self, "num_folds", 1)
+        # per-chunk stratified scans pay off only when the masks are
+        # used: a train/validation split computes its own in validate()
+        builder = StreamingFoldBuilder(
+            k, self.seed, self.stratify and is_cv)
+        for order_key, Xb, yb in chunks:
+            builder.observe(order_key, Xb, yb)
+        X, y, masks = builder.finalize()
+        if is_cv:
+            self._streamed_masks = masks
+        try:
+            return self.validate(models, X, y, weights=weights)
+        finally:
+            self._streamed_masks = None
 
     def _metric_of(self, y: np.ndarray, pred, raw, prob) -> float:
         m = self.evaluator.evaluate_arrays(
@@ -344,7 +463,10 @@ class OpValidator:
                 est.model_type, {"backend": "existing", "reason": e.reason})
             return None
         except Exception as e:  # noqa: BLE001 - a fused-path fault must
-            # degrade to the kernel-at-a-time path, never end the selection
+            # degrade to the kernel-at-a-time path, never end the
+            # selection; a device fault is not a fused-path fault
+            if is_device_fault(e):
+                raise
             import logging
 
             logging.getLogger("transmogrifai_tpu_torch.selector").warning(
@@ -399,6 +521,151 @@ class OpValidator:
             return False
         return dev.type == "cuda" and n >= APPROX_RANK_MIN_ROWS
 
+    # -- successive-halving pre-pass ------------------------------------------
+    def _autotune_prune(self, models, y, w, masks, larger, xdev, n_features):
+        """Budget-ladder rung 0: every candidate fits ONCE on a
+        deterministic row subsample, the cost model plus interim eval
+        scores pick survivors, and only survivors proceed to the full
+        fold x grid spend.  Decision logic lives in autotune/pruning.py
+        (go/no-go BEFORE any rung fit, so a degraded run costs exactly the
+        exhaustive budget); this method owns execution.  The rung rows are
+        gathered from the validate-wide device buffer ``xdev()`` with a
+        device index.  Returns (models-to-run, decision report,
+        all_results entries for the pruned candidates)."""
+        from ..autotune import pruning as _at
+        from ..autotune.cost_model import candidate_features, key_for_fit
+
+        cfg = self.autotune
+        k = masks.shape[0]
+        n = len(y)
+        d = int(n_features)
+        models = [(est, list(grid) or [{}]) for est, grid in models]
+        infos = []
+        gi = 0
+        for ei, (est, grid) in enumerate(models):
+            for j, pmap in enumerate(grid):
+                infos.append(_at.CandidateInfo(
+                    index=gi, est_index=ei, grid_index=j,
+                    family=est.model_type, params=dict(pmap),
+                    params_hash=_params_hash(pmap),
+                ))
+                gi += 1
+        classes, counts = np.unique(y, return_counts=True)
+        balance = float(counts.min() / counts.sum()) \
+            if len(classes) > 1 else 1.0
+        plan = _at.plan_pruning(cfg, infos, n, d, k, class_balance=balance)
+        if not plan.pruning:
+            report = plan.report()
+            self._record_autotune(report)
+            return models, report, []
+        # rung subsample + split: seeded by the validator seed, so the
+        # ladder is the same run to run
+        rng = np.random.RandomState(self.seed)
+        sub = np.sort(rng.permutation(n)[: plan.rung_rows])
+        Xd = xdev()
+        Xs = Xd.index_select(
+            0, torch.as_tensor(sub, device=Xd.device)).cpu().numpy()
+        ys, ws = y[sub], w[sub]
+        rtr = _rung_train_mask(ys, cfg.rung_train_fraction, self.seed)
+        n_rtr = int(rtr.sum())
+        cm = cfg.cost_model
+        with _obs_trace.span("autotune.rung", rows=int(plan.rung_rows),
+                             candidates=len(infos)):
+            for c in infos:
+                est, _grid = models[c.est_index]
+                cand = est.with_params(**c.params)
+                t0 = time.perf_counter()
+                try:
+                    with _obs_trace.span(
+                        "autotune.rung_fit", family=c.family,
+                        params_hash=c.params_hash, n_rows=n_rtr,
+                        n_features=d, **_numeric_params(c.params),
+                    ):
+                        params = cand.fit_arrays(Xs[rtr], ys[rtr], ws[rtr])
+                    pred, raw, prob = cand.predict_arrays(params, Xs[~rtr])
+                    c.interim_metric = self._metric_of(
+                        ys[~rtr], pred, raw, prob)
+                except Exception as e:  # noqa: BLE001 - a failed rung
+                    # fit ranks the candidate last (recorded in the trail)
+                    # but never ends the selection; a device fault is not
+                    # a failed rung, and re-raises
+                    if is_device_fault(e):
+                        raise
+                    c.rung_error = f"{type(e).__name__}: {e}"
+                c.rung_wall_ms = (time.perf_counter() - t0) * 1e3
+                if c.rung_error is None:
+                    # a failed fit's time-to-exception is NOT a cost
+                    # observation
+                    cm.observe(
+                        key_for_fit(c.family),
+                        candidate_features(n_rtr, d, c.params, balance),
+                        c.rung_wall_ms,
+                    )
+        _at.select_survivors(plan, larger)
+        pruned_models = []
+        for ei, (est, grid) in enumerate(models):
+            keep = sorted(
+                c.grid_index for c in infos
+                if c.est_index == ei and c.kept
+            )
+            if keep:
+                # survivors keep their ORIGINAL grid order, so the main
+                # loop's evaluation order - and winner tie-breaks - match
+                # the exhaustive sweep's
+                pruned_models.append((est, [grid[j] for j in keep]))
+        pruned_results = [
+            {
+                "model_type": c.family,
+                "model_uid": models[c.est_index][0].uid,
+                "params": dict(c.params),
+                "metric": float("nan") if c.interim_metric is None
+                else float(c.interim_metric),
+                "fold_metrics": [],
+                "pruned": True,
+                "metric_kind": "rung",
+                "rung_rows": int(plan.rung_rows),
+            }
+            for c in infos if not c.kept
+        ]
+        report = plan.report()
+        self._record_autotune(report)
+        return pruned_models, report, pruned_results
+
+    def _record_autotune(self, report: dict) -> None:
+        """Every pruning decision is visible in the obs plane: counters
+        and gauges in the metrics registry (scraped as tx_autotune_*) plus
+        a decision event on the ambient trace."""
+        from ..obs.metrics import metrics_registry
+
+        reg = metrics_registry()
+        reg.counter(
+            "autotune.selections",
+            help="validate() calls that consulted the autotune ladder",
+        ).inc()
+        if report["mode"] == "pruned":
+            reg.counter(
+                "autotune.candidates_pruned",
+                help="grid candidates pruned at the rung",
+            ).inc(report["candidates_pruned"])
+            if report.get("predicted_speedup"):
+                reg.gauge(
+                    "autotune.predicted_speedup",
+                    help="cost-model predicted exhaustive/pruned "
+                         "selection speedup",
+                ).set(float(report["predicted_speedup"]))
+        else:
+            reg.counter(
+                "autotune.exhaustive_runs",
+                help="autotune-enabled selections that degraded to the "
+                     "exhaustive sweep (reason in the report)",
+            ).inc()
+        _obs_trace.tracer().event(
+            "autotune.decision", mode=report["mode"],
+            reason=report.get("reason") or "",
+            pruned=int(report["candidates_pruned"]),
+            survivors=int(report["survivors"]),
+        )
+
     def validate(
         self,
         models: Sequence[tuple[PredictorEstimator, Sequence[dict]]],
@@ -416,7 +683,12 @@ class OpValidator:
         self.last_train_fused = None
         n = len(y)
         w = np.ones(n) if weights is None else np.asarray(weights, dtype=np.float64)
-        masks = self.train_masks(y)  # [k, n] True=train
+        if self._streamed_masks is not None:
+            # fold masks already built chunk by chunk during ingest
+            # (validate_stream); bit-identical to train_masks(y)
+            masks = self._streamed_masks
+        else:
+            masks = self.train_masks(y)  # [k, n] True=train
         k = masks.shape[0]
         larger = self.evaluator.larger_better
         metric_name = getattr(self.evaluator, "metric_name", "")
@@ -458,14 +730,21 @@ class OpValidator:
                 _ybin.append(_binary_labels(y))
             return _ybin[0]
 
+        n_features = int(X.shape[1])
+        at_report = None
+        pruned_results: list = []
+        if self.autotune is not None:
+            models, at_report, pruned_results = self._autotune_prune(
+                models, y, w, masks, larger, xdev, n_features)
+        self.last_autotune_report = at_report
         ckpt = self._ckpt_load()
         self._beat()  # validation started: open the liveness window
-        n_features = int(X.shape[1])
         all_results = []
         best = None  # (metric, estimator, params)
         for est, grid in models:
             grid = list(grid) or [{}]
             g = len(grid)
+            t_est0 = time.perf_counter()
             batched = (hasattr(est, "fit_arrays_batched")
                        and _lr_style_grid(grid) and labels_ok(est))
             # only the batched-LR branch can use the device approximation;
@@ -638,8 +917,20 @@ class OpValidator:
                 cand_metric > best[0] if larger else cand_metric < best[0]
             ):
                 best = (cand_metric, est, dict(grid[j_best]))
+            if at_report is not None:
+                # predicted-vs-actual trail: the measured full-spend wall
+                # per family next to the cost model's predictions
+                walls = at_report.setdefault("actual_full_ms_by_family", {})
+                walls[est.model_type] = round(
+                    walls.get(est.model_type, 0.0)
+                    + (time.perf_counter() - t_est0) * 1e3, 3)
 
         assert best is not None, "no models to validate"
+        if pruned_results:
+            # pruned candidates stay visible in the selection metadata
+            # (flagged, rung-scored) but can never win: the best scan saw
+            # only survivors' full-CV means
+            all_results.extend(pruned_results)
         return ValidationResult(
             best_estimator=best[1].with_params(**best[2]),
             best_params=best[2],
@@ -647,6 +938,7 @@ class OpValidator:
             metric_name=self.evaluator.metric_name,
             larger_better=larger,
             all_results=all_results,
+            autotune=at_report,
             train_fused=self.last_train_fused,
         )
 

@@ -93,16 +93,32 @@ class MicroBatchScheduler:
             )
             self._worker.start()
 
-    # -- knob seam -----------------------------------------------
+    # -- knob seam ----------------------------------------------------------
+    def knobs(self) -> dict:
+        """The scheduler's live micro-batch knobs (the tuner's A/B probe
+        surface and the values the serving artifact reports)."""
+        return {
+            "max_batch_size": int(self.max_batch_size),
+            "max_wait_us": int(round(self.max_wait_s * 1e6)),
+        }
+
     def retune(self, max_batch_size: Optional[int] = None,
                max_wait_us: Optional[int] = None,
                source: str = "autotune") -> dict:
-        """The autotuner's live knob seam: it waits for autotune."""
-        raise NotImplementedError(
-            "MicroBatchScheduler.retune (the autotuner's live knob seam) is "
-            "not ported to the torch package yet (ROADMAP.md queue 1, "
-            "item 12)"
-        )
+        """Apply tuner-chosen micro-batch knobs to the LIVE scheduler.
+        Attribute writes are atomic and the batch loop reads them fresh
+        each ``run_once``, so no lock or restart is needed; the new values
+        land in telemetry as the tuned-knob record.  Returns the applied
+        knob dict."""
+        if max_batch_size is not None:
+            if int(max_batch_size) < 1:
+                raise ValueError("max_batch_size must be >= 1")
+            self.max_batch_size = int(max_batch_size)
+        if max_wait_us is not None:
+            self.max_wait_s = max(int(max_wait_us), 0) / 1e6
+        applied = self.knobs()
+        self.telemetry.set_tuned_knobs(applied, source=source)
+        return applied
 
     # -- request side -------------------------------------------------------
     def submit(self, record: Mapping[str, Any],

@@ -17,8 +17,10 @@ The compile-to-kernel seams: a fitted stage returns a numpy
 :class:`Lowering` from ``lower()`` (the numpy-fused scoring program,
 ``local/fused.py``) and a :class:`TorchLowering` from ``lower_torch()``
 (the device program of ``local/fused_torch.py``; the JAX package's
-``XlaLowering``).  The JAX package's streaming partial-fit hooks come
-with ROADMAP.md queue 1, item 12.
+``XlaLowering``).  Estimators whose fit statistics merge across row
+chunks (``streaming_fittable``) take them from the workflow's streaming
+ingest (``partial_fit_chunk``, ``accept_partial_fits``), as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -230,6 +232,42 @@ class Estimator(PipelineStage):
     Estimators with device work keep a ``device`` attribute (a string such
     as ``"cuda"`` or ``"cpu"``); ``OpWorkflow`` sets it to the workflow's
     device before it fits them."""
+
+    #: estimators whose fit-time statistics are mergeable across row
+    #: chunks flip this True and implement :meth:`partial_fit_chunk`:
+    #: the workflow's streaming ingest (readers/pipeline.py) then
+    #: accumulates their statistics WHILE shards parse, and the next
+    #: fit() consumes the merged stats instead of re-scanning the
+    #: materialized columns
+    streaming_fittable = False
+
+    #: merged streaming statistics, set by :meth:`accept_partial_fits`
+    #: and consumed EXACTLY ONCE by the next fit (one-shot, so a later
+    #: refit - a CV fold refit on a subset - never reuses full-data
+    #: statistics)
+    _streamed_stats = None
+
+    def partial_fit_chunk(self, cols: Sequence[Column], ds: Dataset):
+        """Pure per-chunk fit statistics (no state mutation): whatever
+        :meth:`accept_partial_fits` can merge deterministically."""
+        raise NotImplementedError(
+            f"{type(self).__name__} is not streaming-fittable"
+        )
+
+    def accept_partial_fits(self, stats: Sequence) -> None:
+        """Install chunk statistics (in deterministic source order) for
+        the next fit; stages override ``_merge_partial_fits`` for their
+        stat shape."""
+        self._streamed_stats = self._merge_partial_fits(list(stats))
+
+    def _merge_partial_fits(self, stats: list):
+        return stats
+
+    def _take_streamed(self):
+        """Pop the installed streaming statistics (None when absent)."""
+        s = self._streamed_stats
+        self._streamed_stats = None
+        return s
 
     def fit_model(self, cols: Sequence[Column], ds: Dataset) -> "Transformer":
         raise NotImplementedError

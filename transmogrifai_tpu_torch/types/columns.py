@@ -385,3 +385,38 @@ def column_from_list(
         arr = np.asarray([list(v) for v in data], dtype=np.float32)
         return VectorColumn(arr, VectorMetadata("anonymous", tuple()))
     raise TypeError(f"cannot build column for kind {kind!r}")
+
+
+def concat_columns(parts: Sequence[Column]) -> Column:
+    """Row-concatenate column chunks of one feature (the streaming
+    ingest hand-off: readers/pipeline.py materializes per-chunk columns
+    while shards parse, then joins them here).  Supported for the
+    column kinds the pipelined readers produce."""
+    if not parts:
+        raise ValueError("concat_columns needs at least one part")
+    if len(parts) == 1:
+        return parts[0]
+    first = parts[0]
+    if isinstance(first, NumericColumn):
+        return NumericColumn(
+            np.concatenate([p.values for p in parts]),
+            np.concatenate([p.mask for p in parts]),
+            first.feature_type,
+        )
+    if isinstance(first, TextColumn):
+        return TextColumn(
+            np.concatenate([p.values for p in parts]), first.feature_type
+        )
+    if isinstance(first, ListColumn):
+        out: list = []
+        for p in parts:
+            out.extend(p.values)
+        return ListColumn(out, first.feature_type)
+    if isinstance(first, VectorColumn):
+        return VectorColumn(
+            np.concatenate([p.values for p in parts], axis=0),
+            first.metadata,
+        )
+    raise TypeError(
+        f"concat_columns does not support {type(first).__name__}"
+    )

@@ -88,6 +88,28 @@ class Dataset:
 
     # -- constructors -------------------------------------------------------
     @staticmethod
+    def concat(parts: Sequence["Dataset"]) -> "Dataset":
+        """Row-concatenate chunk datasets sharing one column set (the
+        streaming-ingest join, readers/pipeline.py).  Column order and
+        names come from the first part; every part must carry the same
+        columns."""
+        from .columns import concat_columns
+
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            return Dataset()
+        names = parts[0].column_names()
+        for p in parts[1:]:
+            if p.column_names() != names:
+                raise ValueError(
+                    "Dataset.concat parts disagree on columns: "
+                    f"{names} vs {p.column_names()}"
+                )
+        return Dataset({
+            n: concat_columns([p[n] for p in parts]) for n in names
+        })
+
+    @staticmethod
     def from_pylists(
         data: Mapping[str, Sequence], types: Mapping[str, Type[FeatureType]]
     ) -> "Dataset":

@@ -23,17 +23,24 @@ OpWorkflowRunner.scala:296-365, OpApp.scala:49-209) and port of
                    signal-driven automatic rollback, and export the
                    deployment summary (generations, lifecycle events,
                    rollback evidence) as JSON
+* continuous     - a bounded run of the drift-triggered refit controller
+                   (continuous/): tail ``watch_dir`` for shards, score
+                   each window's drift against the stable model's
+                   training contract, refit + publish + promote when the
+                   governor trips, exit after ``continuous_max_cycles``
+                   cycles or ``continuous_idle_exit`` empty polls
 
 plus a CLI (``python -m transmogrifai_tpu_torch.workflow.runner
 --run-type ...``) standing in for OpApp.main's scopt parsing.
 
 Models load and score on the workflow's device: ``OpWorkflow()`` is the
-card (``"cuda"``), ``OpWorkflow(device="cpu")`` the host.  The ``fleet``,
-``continuous`` and ``bulk`` run types, the ``autotune`` and
-``serving_autotune`` knobs, the pipelined reader (``ingest_shards``) and
-the obs-fleet shipping (``fleet_dir`` / ``TX_OBS_FLEET_DIR``) raise
-``NotImplementedError`` until their subsystems are ported (ROADMAP.md
-queue 1, item 12).
+card (``"cuda"``), ``OpWorkflow(device="cpu")`` the host.  The train
+run takes the pipelined sharded reader (``ingest_shards``) and the
+successive-halving ``autotune`` knobs, the serve run the
+``serving_autotune`` A/B knob probes, and every run ships the process's
+observability plane into ``fleet_dir`` / ``TX_OBS_FLEET_DIR``.  The
+``fleet`` and ``bulk`` run types raise ``NotImplementedError`` until
+their subsystems are ported (ROADMAP.md queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ from .params import OpParams
 from .workflow import OpWorkflow, OpWorkflowModel
 
 #: the run types whose subsystems wait for ROADMAP.md queue 1, item 12
-UNPORTED_RUN_TYPES = ("fleet", "continuous", "bulk")
+UNPORTED_RUN_TYPES = ("fleet", "bulk")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -140,12 +147,6 @@ class OpWorkflowRunner:
         run_type = run_type.lower().replace("-", "_")
         if run_type in UNPORTED_RUN_TYPES:
             raise _not_ported(f"the {run_type!r} run type")
-        # obs-fleet shipping: the custom param or the env seam
-        fd = params.custom_params.get("fleet_dir") or os.environ.get(
-            "TX_OBS_FLEET_DIR")
-        if fd:
-            raise _not_ported("obs-fleet shipping (fleet_dir / "
-                              "TX_OBS_FLEET_DIR)")
         dag = compute_dag(self.workflow.result_features)
         params.apply_to_dag(dag)
         # declarative SLOs: custom_params {"slo_path": FILE} loads the
@@ -176,6 +177,8 @@ class OpWorkflowRunner:
                     result = self._serve(params)
                 elif run_type == "deploy":
                     result = self._deploy(params)
+                elif run_type == "continuous":
+                    result = self._continuous(params)
                 else:
                     raise ValueError(f"unknown run type {run_type!r}")
         finally:
@@ -201,6 +204,25 @@ class OpWorkflowRunner:
             from ..obs import export_obs
 
             export_obs(str(mp), extra={"run_type": run_type})
+        # fleet shipping: {"fleet_dir": DIR} custom param or the
+        # TX_OBS_FLEET_DIR env ships this process's whole plane into the
+        # aggregation dir - the env seam is what makes supervised or
+        # re-dispatched children ship without any code of their own
+        fd = params.custom_params.get("fleet_dir") or os.environ.get(
+            "TX_OBS_FLEET_DIR")
+        if fd:
+            from ..obs import fleet as _fleet
+
+            try:
+                _fleet.ship_now(str(fd))
+            except OSError as e:
+                # best-effort like every other shipper seam: a full or
+                # read-only aggregation disk costs the fleet this
+                # process's freshness, never the completed run's result
+                import logging
+
+                logging.getLogger("transmogrifai_tpu_torch.obs").warning(
+                    "post-run fleet ship to %s failed: %s", fd, e)
         return result
 
     # ------------------------------------------------------------------
@@ -211,14 +233,27 @@ class OpWorkflowRunner:
     def _train(self, params: OpParams) -> OpWorkflowRunnerResult:
         if self.train_reader is not None:
             self.workflow.set_reader(self.train_reader)
-        if params.custom_params.get("ingest_shards"):
-            raise _not_ported("the pipelined sharded reader "
-                              "(ingest_shards)")
-        if params.custom_params.get("autotune"):
-            raise _not_ported("successive-halving autotune (autotune)")
+        # pipelined-ingest knobs (readers/pipeline.py): custom_params
+        # ingest_shards=[paths...] swaps in the sharded parallel reader
+        # (ingest_workers / ingest_buffer_chunks / ingest_errors tune it)
+        shards = params.custom_params.get("ingest_shards")
+        if shards:
+            from ..readers.pipeline import PipelinedCSVReader
+
+            self.workflow.set_reader(PipelinedCSVReader(
+                [str(p) for p in shards],
+                workers=int(params.custom_params.get("ingest_workers", 4)),
+                buffer_chunks=int(params.custom_params.get(
+                    "ingest_buffer_chunks", 8)),
+                errors=str(params.custom_params.get(
+                    "ingest_errors", "coerce")),
+            ))
+        at_cfg = self._setup_autotune(params)
         tf_validators = self._setup_train_fused(params)
         model = self.workflow.train()
         summary = model.summary_json()
+        if at_cfg is not None:
+            summary["autotune"] = self._autotune_summary(at_cfg)
         tf_summary = train_fused_summary(tf_validators)
         if tf_summary is not None:
             summary["train_fused"] = tf_summary
@@ -228,9 +263,63 @@ class OpWorkflowRunner:
                 os.path.join(params.model_location, "summary.json"), "w"
             ) as f:
                 json.dump(summary, f, indent=1, default=str)
+        if at_cfg is not None and at_cfg.model_path:
+            # the versioned cost-model artifact rides next to the model -
+            # AFTER model.save (the artifact swap must not eat it), and
+            # also when only autotune_model_path was given
+            at_cfg.cost_model.save(at_cfg.model_path)
         return OpWorkflowRunnerResult(
             run_type="train", model=model, summary=summary
         )
+
+    def _setup_autotune(self, params: OpParams):
+        """The ``autotune`` custom param: build the cost model (loaded
+        from the versioned artifact next to the model when one exists)
+        and install successive-halving on every ModelSelector validator in
+        the DAG.  Knobs: ``autotune_model_path`` (default
+        <model_location>/autotune.json), ``autotune_rung_rows``,
+        ``autotune_keep_fraction``, ``autotune_min_rows``."""
+        cp = params.custom_params
+        if not cp.get("autotune"):
+            return None
+        from ..autotune import COST_MODEL_FILENAME, AutotuneConfig, CostModel
+        from .dag import compute_dag
+
+        at_path = cp.get("autotune_model_path") or (
+            os.path.join(params.model_location, COST_MODEL_FILENAME)
+            if params.model_location else None
+        )
+        cfg = AutotuneConfig(
+            cost_model=CostModel.load(at_path),
+            rung_rows=int(cp.get("autotune_rung_rows", 250_000)),
+            keep_fraction=float(cp.get("autotune_keep_fraction", 0.5)),
+            min_rows=int(cp.get("autotune_min_rows", 20_000)),
+            model_path=at_path,
+        )
+        for layer in compute_dag(self.workflow.result_features):
+            for stage in layer:
+                if getattr(stage, "is_model_selector", False):
+                    stage.validator.autotune = cfg
+        return cfg
+
+    @staticmethod
+    def _autotune_summary(at_cfg) -> dict:
+        """Post-train autotune bookkeeping: fold this run's tagged fit
+        spans into the cost model (the online-training loop) and report
+        the model's state; the per-selection decision trail already rides
+        each selector's stage metadata in the summary."""
+        from ..obs import trace as _obs_trace
+
+        cm = at_cfg.cost_model
+        ingested = cm.ingest_spans(_obs_trace.tracer().spans())
+        return {
+            "cost_model": dict(
+                cm.snapshot(),
+                ingested_spans=ingested,
+                path=at_cfg.model_path,
+                load_error=cm.load_error,
+            ),
+        }
 
     def _setup_train_fused(self, params: OpParams) -> list:
         """Fused-training knob: the ``train_fused`` custom param (None =
@@ -316,9 +405,6 @@ class OpWorkflowRunner:
         )
 
         cp = params.custom_params
-        if cp.get("serving_autotune"):
-            raise _not_ported("the serving micro-batch autotune "
-                              "(serving_autotune)")
         model = self._load_model(params)
         reader = self._reader("score")
         if reader is not None:
@@ -342,12 +428,16 @@ class OpWorkflowRunner:
             fused_backend=cp.get("serving_fused_backend"),
         )
         deadline = cp.get("serving_deadline_ms")
+        tuner_decision = None
         with MicroBatchScheduler(
             endpoint,
             max_wait_us=int(cp.get("serving_max_wait_us", 2000)),
             max_queue=int(cp.get("serving_max_queue", 1024)),
             default_deadline_ms=None if deadline is None else float(deadline),
         ) as scheduler:
+            if cp.get("serving_autotune"):
+                tuner_decision = self._autotune_scheduler(
+                    scheduler, records, cp)
             results = list(scheduler.score_stream(
                 records, window=int(cp.get("serving_window", 256))
             ))
@@ -356,6 +446,8 @@ class OpWorkflowRunner:
             "rows_submitted": n,
             "model_location": params.model_location,
         }
+        if tuner_decision is not None:
+            extra["autotune"] = tuner_decision
         if params.metrics_location:
             os.makedirs(params.metrics_location, exist_ok=True)
             metrics = endpoint.telemetry.export(
@@ -377,6 +469,46 @@ class OpWorkflowRunner:
         return OpWorkflowRunnerResult(
             run_type="serve", model=model, metrics=metrics
         )
+
+    @staticmethod
+    def _autotune_scheduler(scheduler, records: list, cp: dict):
+        """The ``serving_autotune`` knob: short measured A/B probes of
+        micro-batch knob candidates against the hand-set defaults on a
+        record prefix, applying the winner to the LIVE scheduler via
+        ``retune``.  Probe rows score through the real endpoint (their
+        latencies land in telemetry like any other request); the decision
+        trail returns into run metrics and the tuned values into
+        ``ServingTelemetry.tuned_knobs``.  Knobs: ``autotune_probe_rows``,
+        ``autotune_margin``, ``autotune_probe_repeats``."""
+        from ..autotune import KnobTuner, microbatch_candidates
+
+        baseline = scheduler.knobs()
+        probe_n = max(1, min(len(records),
+                             int(cp.get("autotune_probe_rows", 512))))
+        probe_records = records[:probe_n]
+        window = int(cp.get("serving_window", 256))
+        tuner = KnobTuner(
+            margin=float(cp.get("autotune_margin", 0.03)),
+            repeats=int(cp.get("autotune_probe_repeats", 2)),
+        )
+
+        def measure(knobs: dict) -> float:
+            scheduler.retune(knobs["max_batch_size"],
+                             knobs["max_wait_us"], source="probe")
+            t0 = time.perf_counter()
+            res = list(scheduler.score_stream(probe_records, window=window))
+            return len(res) / max(time.perf_counter() - t0, 1e-9)
+
+        decision = tuner.ab_probe(
+            "serving.microbatch", baseline,
+            microbatch_candidates(baseline), measure,
+        )
+        scheduler.retune(
+            decision.winner["max_batch_size"],
+            decision.winner["max_wait_us"],
+            source="autotune" if decision.tuned else "hand_set",
+        )
+        return decision.to_json()
 
     def _deploy(self, params: OpParams) -> OpWorkflowRunnerResult:
         """Registry-driven deployment run.  Knobs ride
@@ -521,6 +653,65 @@ class OpWorkflowRunner:
                 json.dump(rows, f, default=str)
         return OpWorkflowRunnerResult(run_type="deploy", metrics=metrics)
 
+    def _continuous(self, params: OpParams) -> OpWorkflowRunnerResult:
+        """The ``continuous`` run type: a BOUNDED run of the
+        drift-triggered refit controller - tail ``watch_dir`` for shards,
+        score each window's drift against the stable model's training
+        contract, refit + publish + promote when the governor trips, then
+        exit after ``continuous_max_cycles`` cycles or
+        ``continuous_idle_exit`` consecutive empty polls.  The batch
+        entrypoint runs in DIRECT promote mode (publish -> stable pointer
+        flip), bootstrapping a stable version from the factory workflow
+        when the registry has none.  Knobs (custom_params): ``watch_dir``
+        (required), ``registry_root`` (default <model_location>/registry),
+        ``drift_threshold`` / ``drift_consecutive`` / ``drift_cooldown``,
+        ``continuous_window_rows``, ``continuous_refit_rows``,
+        ``continuous_max_cycles`` / ``continuous_idle_exit`` /
+        ``continuous_poll_s``, ``continuous_status_dir`` and
+        ``train_fused``, which the refits take."""
+        from ..continuous import ContinuousTrainer
+        from ..registry import ModelRegistry
+
+        cp = params.custom_params
+        watch = cp.get("watch_dir")
+        if not watch:
+            raise ValueError("continuous run needs custom_params "
+                             "{'watch_dir': DIR} to tail")
+        root = cp.get("registry_root") or (
+            os.path.join(params.model_location, "registry")
+            if params.model_location else None)
+        if not root:
+            raise ValueError("continuous run needs custom_params "
+                             "{'registry_root': DIR} or model_location")
+        status_dir = str(cp.get("continuous_status_dir")
+                         or params.metrics_location or watch)
+        trainer = ContinuousTrainer(
+            str(watch), ModelRegistry(str(root)), self._fresh_workflow,
+            status_dir=status_dir,
+            drift_threshold=float(cp.get("drift_threshold", 0.1)),
+            consecutive_windows=int(cp.get("drift_consecutive", 3)),
+            cooldown_windows=int(cp.get("drift_cooldown", 2)),
+            min_window_rows=int(cp.get("continuous_window_rows", 64)),
+            refit_rows=int(cp.get("continuous_refit_rows", 4096)),
+            train_fused=cp.get("train_fused"),
+            bootstrap=True,
+        )
+        trainer.run(
+            max_cycles=int(cp.get("continuous_max_cycles", 4)),
+            idle_exit=int(cp.get("continuous_idle_exit", 2)),
+            poll_interval_s=float(cp.get("continuous_poll_s", 0.2)),
+        )
+        metrics = dict(trainer.status(), run_type="continuous")
+        if params.metrics_location:
+            from ..obs import write_json_artifact
+
+            os.makedirs(params.metrics_location, exist_ok=True)
+            write_json_artifact(
+                os.path.join(params.metrics_location,
+                             "continuous_metrics.json"), metrics)
+        return OpWorkflowRunnerResult(run_type="continuous",
+                                      metrics=metrics)
+
     # ------------------------------------------------------------------
     def streaming_score(
         self,
@@ -579,7 +770,8 @@ def main(argv=None) -> int:
         description="transmogrifai_tpu_torch workflow runner")
     p.add_argument("--run-type", required=True,
                    choices=["train", "score", "features", "evaluate",
-                            "serve", "deploy", *UNPORTED_RUN_TYPES])
+                            "serve", "deploy", "continuous",
+                            *UNPORTED_RUN_TYPES])
     p.add_argument("--params", help="path to OpParams JSON")
     p.add_argument("--workflow", required=True,
                    help="module:function returning (workflow, evaluator, readers...)")

@@ -29,21 +29,12 @@ from typing import Optional, Sequence
 
 from ..faults import injection as _faults
 from ..obs import trace as _obs_trace
+from ..obs.fleet import child_env as _child_env
 
-#: the environment variable that carries a trace context to a child (the
-#: JAX package's ``obs.fleet.TRACE_CONTEXT_ENV``)
-TRACE_CONTEXT_ENV = "TX_OBS_TRACE_CONTEXT"
-
-
-def _child_env(env: Optional[dict] = None) -> dict:
-    """The environment of one dispatch attempt: a copy of ``env`` (default
-    ``os.environ``), the JAX package's ``obs.fleet.child_env``.  This
-    package's tracer exports no cross-process context yet (ROADMAP.md
-    queue 1, item 12), so an inherited context is removed: a stale one
-    must not graft the child onto a finished trace."""
-    out = dict(os.environ if env is None else env)
-    out.pop(TRACE_CONTEXT_ENV, None)
-    return out
+# the environment of one dispatch attempt: obs.fleet.child_env exports
+# the ambient trace context through the TX_OBS_TRACE_CONTEXT seam, so a
+# re-dispatched child's spans join the supervising run's trace, and
+# strips a stale inherited context when there is none to export
 
 
 def beat(heartbeat_path: str) -> None:

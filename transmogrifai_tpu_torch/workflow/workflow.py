@@ -143,13 +143,6 @@ def apply_transformations_dag(
     return data
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        f"(ROADMAP.md queue 1, item {item})"
-    )
-
-
 class OpWorkflow:
     """User entry point (reference: OpWorkflow.scala:85-563).
 
@@ -169,6 +162,9 @@ class OpWorkflow:
         self.blacklisted_features: list[Feature] = []
         self.blacklisted_map_keys: dict[str, list[str]] = {}
         self.rff_results: Optional[dict] = None
+        #: uids of the estimators whose streamed partial fits armed in
+        #: the last streaming ingest (``_ingest_streaming``)
+        self.last_streamed_fits: list[str] = []
 
     def set_result_features(self, *features: Feature) -> "OpWorkflow":
         self.result_features = tuple(features)
@@ -284,14 +280,84 @@ class OpWorkflow:
         stream seam (``stream_dataset``) and nothing downstream needs the
         whole dataset before the first chunk (RawFeatureFilter does).  Opt
         out with ``set_parameters(streaming_ingest=False)`` (reference:
-        OpWorkflow._streaming_eligible).  No ported reader has the seam
-        yet."""
+        OpWorkflow._streaming_eligible): ``readers.pipeline.
+        PipelinedCSVReader`` has it."""
         return (
             self._reader is not None
             and hasattr(self._reader, "stream_dataset")
             and self._raw_feature_filter is None
             and bool(self.parameters.get("streaming_ingest", True))
         )
+
+    def _reserve_fraction(self, dag) -> float:
+        """The holdout share: the larger of the workflow's
+        ``reserve_test_fraction`` and every model selector's splitter's."""
+        frac = float(self.parameters.get("reserve_test_fraction", 0.0))
+        for sel in flatten(dag):
+            if getattr(sel, "is_model_selector", False):
+                sp = getattr(sel, "splitter", None)
+                if sp is not None:
+                    frac = max(frac,
+                               getattr(sp, "reserve_test_fraction", 0.0))
+        return frac
+
+    def _ingest_streaming(self) -> Dataset:
+        """Consume the reader's chunk stream: raw-feature materialization
+        happens per chunk WHILE worker threads parse the remaining shards,
+        and first-layer estimators with mergeable fit statistics
+        (``Estimator.streaming_fittable``) accumulate their partial fits
+        on each chunk as it lands (reference:
+        OpWorkflow._ingest_streaming).
+
+        Partial-fit accumulation is leakage-gated: it observes the FULL
+        raw stream, so it arms only when no holdout will be reserved
+        (reserve fraction 0); otherwise the stream still overlaps
+        materialization but every estimator fits from the materialized
+        train split.  Chunk statistics merge in (shard_id, chunk_id)
+        source order whatever the arrival order, so a streamed fit is the
+        same on every run.  ``last_streamed_fits`` names the estimators
+        whose partial fits armed (the uids, in DAG order)."""
+        dag = compute_dag(self.result_features)
+        raw_names = {f.name for f in self.raw_features}
+        eligible = []
+        if self._reserve_fraction(dag) == 0.0:
+            eligible = [
+                s for s in flatten(dag)
+                if isinstance(s, Estimator)
+                and getattr(s, "streaming_fittable", False)
+                and all(f.name in raw_names for f in s.input_features)
+            ]
+        parts: list[tuple] = []
+        stats: dict[str, list] = {s.uid: [] for s in eligible}
+        stream = self._reader.stream_dataset(
+            self.raw_features, self.parameters
+        )
+        for pc, ds_chunk in stream:
+            for st in eligible:
+                cols = [ds_chunk[f.name] for f in st.input_features]
+                stats[st.uid].append(
+                    (pc.order_key, st.partial_fit_chunk(cols, ds_chunk))
+                )
+            parts.append((pc.order_key, ds_chunk))
+        parts.sort(key=lambda kv: kv[0])
+        if parts and any(len(p) for _, p in parts):
+            raw = Dataset.concat([p for _, p in parts])
+        else:
+            # zero rows (header-only shards, or every row quarantined):
+            # keep the batch path's shape - schema'd 0-row columns, not a
+            # column-less Dataset that fails on the first raw feature
+            raw = Dataset({
+                f.name: column_from_list([], f.ftype)
+                for f in self.raw_features
+            })
+        armed = []
+        for st in eligible:
+            per_chunk = sorted(stats[st.uid], key=lambda kv: kv[0])
+            if per_chunk:
+                st.accept_partial_fits([s for _, s in per_chunk])
+                armed.append(st.uid)
+        self.last_streamed_fits = armed
+        return raw
 
     def with_model_stages(self, model: "OpWorkflowModel") -> "OpWorkflow":
         """Warm start: fitted stages of ``model`` replace their unfitted
@@ -363,10 +429,13 @@ class OpWorkflow:
 
         app_metrics = AppMetrics()
         t0 = time.perf_counter()
+        raw = None
         if self._streaming_eligible():
-            raise _not_ported("streaming ingest", 12)
-        with _obs_trace.span("workflow.ingest"):
-            raw = self.generate_raw_data()
+            with _obs_trace.span("workflow.ingest", mode="streaming"):
+                raw = self._ingest_streaming()
+        if raw is None:
+            with _obs_trace.span("workflow.ingest"):
+                raw = self.generate_raw_data()
         train_span.set_attr("rows", len(raw))
         dag = compute_dag(self.result_features)
         validate_dag(dag)
@@ -395,11 +464,7 @@ class OpWorkflow:
         train_data = raw
         selectors = [s for s in flatten(dag)
                      if getattr(s, "is_model_selector", False)]
-        frac = float(self.parameters.get("reserve_test_fraction", 0.0))
-        for sel in selectors:
-            sp = getattr(sel, "splitter", None)
-            if sp is not None:
-                frac = max(frac, getattr(sp, "reserve_test_fraction", 0.0))
+        frac = self._reserve_fraction(dag)
         if frac > 0.0:
             seed = int(self.parameters.get("split_seed", 42))
             rng = np.random.RandomState(seed)
