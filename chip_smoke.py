@@ -12,7 +12,8 @@ two agree:
   OpLogisticRegression -> AuROC, on 1M rows (kernel ``fused_moments``);
 * the tree slice, transmogrify(label=...) (one decision-tree bucketizer per
   numeric column) -> SanityChecker -> OpGBTClassifier -> AuROC, on the same
-  1M rows (kernels ``fused_moments`` and ``bin_matrix``);
+  1M rows (kernels ``fused_moments`` and ``bin_matrix``), twice on the card
+  (heaps bit-identical), and card against CPU on the first 200k rows;
 * the selector, transmogrify(label=...) -> SanityChecker ->
   BinaryClassificationModelSelector (3-fold CV over logistic regression's
   8-point and the GBT's 9-point default grids) -> holdout AuROC -> score(),
@@ -46,8 +47,18 @@ two agree:
   the registry under a scoring thread (the p99 inside the swap windows
   beside outside them, the device memory after each swap), every
   generation torch-fused and warm, every ``bin_matrix`` launch counted by
-  step and arm and held against its plain version (``--serve-only`` runs
-  both alone);
+  step and arm and held against its plain version; then ``[fleet]``: the
+  saved forest published as v1 and v2 into a fresh registry, a
+  ``FleetController`` of three replica worker processes on the card
+  (``device="cuda"``, each its own CUDA context, each rebuilding the
+  workflow through ``chip_smoke:fleet_forest_workflow`` and holding its
+  own ``bin_matrix`` launches against the plain version, the counts
+  shipped in its obs shard), the 50k records routed in 512-row batches
+  from four client threads with ``rolling_deploy("v2")`` mid-traffic,
+  then one replica SIGKILLed under traffic: every routed row 0 ULP from
+  ``score_function()``, none dropped, rows conserved exactly, each
+  worker's spawn-to-ready wall and device memory (``--serve-only`` runs
+  the phase and both steps alone);
 * the same four families on the passenger data's front
   (transmogrify(label=...) -> SanityChecker), their forest and GBT grids
   cut to depths 3 and 6, at 200k rows on the card, counted; and under
@@ -188,6 +199,9 @@ SUM_RTOL, SUM_ATOL_PER_1K_ROWS = 3e-5, 3e-3
 AUROC_RANGE = (0.72, 0.755)
 TREE_AUROC_RANGE = (0.70, 0.755)
 TREE_PROB_ATOL = 1e-3  # card vs CPU: float32 scans and sums in other orders
+#: the tree slice's card-against-CPU comparison runs on this many first
+#: rows of the 1M-row slice data (the CPU's 1M-row train took ~39 s)
+TREE_CMP_ROWS = 200_000
 BIN_MAX_BINS = 32      # the tree learner's default
 
 
@@ -2097,6 +2111,516 @@ def deploy_step(kernels, tmp: str, serve_csv: str, want: dict,
     return out
 
 
+# -- [fleet]: the serving fleet core on the card ---------------------------------
+
+#: [fleet]: three replica workers on the one card, [serve]'s held-out
+#: records in the runner's default 512-row fleet batches from four client
+#: threads, round robin: the rolling deploy starts half way through the
+#: first pass and one more pass follows it; then one pass with one
+#: replica SIGKILLed
+FLEET_REPLICAS, FLEET_BATCH_ROWS, FLEET_CLIENTS = 3, 512, 4
+#: the factory every replica worker rebuilds [serve]'s forest workflow
+#: with (the controller puts the repo root on the workers' PYTHONPATH),
+#: and the environment that names its CSV and arms its K2 hold
+FLEET_WORKFLOW = "chip_smoke:fleet_forest_workflow"
+FLEET_CSV_ENV, FLEET_HOLD_ENV = "TX_SMOKE_FLEET_CSV", "TX_SMOKE_FLEET_HOLD"
+#: the metrics view the hold ships in each worker's obs shard
+FLEET_VIEW = "chip_fleet_k2"
+
+_fleet_hold = None
+
+
+class FleetK2Hold:
+    """Inside a replica worker: every K2 call the package makes (through
+    ``models.trees`` and ``ops.bucketizers``, which hold the wrapper by
+    name) launches the kernel, then is held against ``bin_matrix_plain``
+    on the same card tensors.  ``snapshot()`` is a metrics view: the
+    worker's ObsShipper ships it in its shard, where the parent reads it
+    through ``FleetAggregator``."""
+
+    def __init__(self, kernels):
+        import threading
+
+        self.kernels = kernels
+        self.lock = threading.Lock()
+        self.held = self.mismatches = self.max_abs_err = 0
+        self.shapes: dict = {}
+
+    def install(self) -> None:
+        import importlib
+
+        w = self.kernels.bin_matrix
+        for name in ("models.trees", "ops.bucketizers"):
+            mod = importlib.import_module(f"transmogrifai_tpu_torch.{name}")
+            assert getattr(mod, w.__name__) is w, name
+
+            def shim(*args, _w=w):
+                got = _w(*args)
+                want = self.kernels.bin_matrix_plain(*args)
+                err = int((got.int() - want.int()).abs().max()) \
+                    if got.numel() else 0
+                x, edges, dtype = args[0], args[1], args[2]
+                key = (f"{x.shape[0]}x{x.shape[1]}x{edges.shape[1]}:"
+                       f"{str(dtype).replace('torch.', '')}")
+                with self.lock:
+                    self.held += 1
+                    self.mismatches += int(err != 0 or got.dtype != dtype)
+                    self.max_abs_err = max(self.max_abs_err, err)
+                    self.shapes[key] = self.shapes.get(key, 0) + 1
+                return got
+
+            setattr(mod, w.__name__, shim)
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return {
+                "launches": self.kernels.bin_matrix.launches,
+                "fused_moments_launches": self.kernels.fused_moments.launches,
+                "held": self.held, "mismatches": self.mismatches,
+                "max_abs_err": self.max_abs_err, "shapes": dict(self.shapes),
+                "device": torch.cuda.get_device_name(0),
+                "memory_allocated": torch.cuda.memory_allocated(),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "memory_reserved": torch.cuda.memory_reserved(),
+                "pid": os.getpid(),
+            }
+
+
+def fleet_forest_workflow():
+    """[serve]'s forest workflow (``serve_front`` with SERVE_FOREST) over
+    the CSV that ``TX_SMOKE_FLEET_CSV`` names: the zero-argument factory
+    each [fleet] replica worker rebuilds it with.  With
+    ``TX_SMOKE_FLEET_HOLD`` set (the workers' environment), the first
+    call installs this process's ``FleetK2Hold`` and registers its view."""
+    global _fleet_hold
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+
+    if os.environ.get(FLEET_HOLD_ENV) and _fleet_hold is None:
+        from transmogrifai_tpu_torch.obs.metrics import metrics_registry
+        from transmogrifai_tpu_torch.parallel import kernels
+
+        _fleet_hold = FleetK2Hold(kernels)
+        _fleet_hold.install()
+        metrics_registry().register_view(FLEET_VIEW, _fleet_hold)
+    return serve_front(os.environ[FLEET_CSV_ENV],
+                       OpRandomForestClassifier(**SERVE_FOREST))
+
+
+def device_used_bytes() -> int:
+    """Bytes in use on card 0 by every process (``cudaMemGetInfo``)."""
+    free, total = torch.cuda.mem_get_info(0)
+    return int(total - free)
+
+
+def compute_app_memory() -> dict:
+    """pid -> MiB of device memory, as ``nvidia-smi --query-compute-apps``
+    gives it ({} when it gives none; a container's processes may all be
+    listed under one pid)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30)
+    mem = {}
+    for line in out.stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            try:
+                mem[int(parts[0])] = float(parts[1])
+            except ValueError:
+                continue
+    return mem
+
+
+def fleet_views(fc) -> dict:
+    """instance -> the shipped FleetK2Hold view of each live replica."""
+    from transmogrifai_tpu_torch.obs import FleetAggregator
+
+    out = {}
+    for doc in FleetAggregator(fc.fleet_dir, stale_after_s=60.0).shards():
+        views = doc.get("metrics", {}).get("views", {})
+        view = views.get(f"{FLEET_VIEW}/0")
+        if view is not None:
+            out[str(doc.get("instance"))] = view
+    return out
+
+
+def wait_fleet_views(fc, instances, batches_by_instance: dict,
+                     timeout_s: float = 30.0) -> dict:
+    """The replicas' views once each has shipped at least the K2 holds its
+    served batches imply (every batch launches K2 at least once)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        views = fleet_views(fc)
+        if all(i in views and views[i]["held"] >=
+               batches_by_instance.get(i, 0) for i in instances):
+            return views
+        assert time.monotonic() < deadline, (
+            f"[fleet] replicas did not ship their K2 views: {sorted(views)}")
+        time.sleep(0.1)
+
+
+class FleetPump:
+    """Routes ``batches`` round robin through the fleet's router from
+    ``clients`` threads until ``total`` requests, or until ``finish``
+    caps them; keeps each request's (batch index, submit time, done time,
+    FleetResult or error)."""
+
+    def __init__(self, fc, batches: list, clients: int,
+                 total: "int | None" = None):
+        import threading
+
+        self.fc, self.batches = fc, batches
+        self.lock = threading.Lock()
+        self.next, self.total = 0, total
+        self.requests: list = []
+        self.threads = [threading.Thread(target=self._client, daemon=True)
+                        for _ in range(clients)]
+
+    def _client(self) -> None:
+        while True:
+            with self.lock:
+                i = self.next
+                if self.total is not None and i >= self.total:
+                    return
+                self.next = i + 1
+            b = i % len(self.batches)
+            t0 = time.perf_counter()
+            try:
+                res = self.fc.router.submit(
+                    records=self.batches[b]).wait(120.0)
+            except Exception as e:  # noqa: BLE001 - the step counts it
+                res = e
+            with self.lock:
+                self.requests.append((b, t0, time.perf_counter(), res))
+
+    def done(self) -> int:
+        with self.lock:
+            return len(self.requests)
+
+    def finish(self, more: int) -> int:
+        """Cap the pump at ``more`` requests past those already submitted;
+        returns the cap."""
+        with self.lock:
+            self.total = self.next + more
+            return self.total
+
+    def run(self, steer) -> dict:
+        """Start the clients, run ``steer(self)`` in this thread (it must
+        call ``finish`` unless ``total`` was given), wait for the
+        clients."""
+        t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        try:
+            steer(self)
+        finally:
+            if self.total is None:
+                self.finish(0)
+            for t in self.threads:
+                t.join(timeout=600.0)
+        assert not any(t.is_alive() for t in self.threads), \
+            "[fleet] a client hung"
+        return {"requests": self.requests, "total": self.total,
+                "wall_s": time.perf_counter() - t0}
+
+
+def fleet_step(kernels, tmp: str, serve_csv: str, records: list,
+               want: np.ndarray, deploy_serve: dict, bin_errs: list) -> dict:
+    """``[fleet]``, in [serve]'s temporary directory ``tmp``: [serve]'s
+    saved forest published as v1 (stable) and again as v2 in a fresh
+    registry; ``FleetController(n_replicas=3, device="cuda")`` on AF_UNIX,
+    every worker rebuilding the workflow through ``fleet_forest_workflow``
+    and holding its own K2 calls against plain; the held-out records
+    routed in 512-row batches from four client threads with
+    ``rolling_deploy("v2")`` mid-traffic; then one replica SIGKILLed under
+    traffic (``max_restarts=0``).  Every routed row is held at 0 ULP
+    against ``want`` (the loaded forest's ``score_function()`` rows over
+    ``records``).  Returns the result lines' pieces."""
+    import signal
+    import threading
+
+    from transmogrifai_tpu_torch.fleet import FleetController
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    from transmogrifai_tpu_torch.registry import ModelRegistry
+    from transmogrifai_tpu_torch.serving import compile_endpoint
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    t_step = time.perf_counter()
+    out: dict = {"walls": {}}
+    reg = ModelRegistry(os.path.join(tmp, "fleet_registry"))
+    model = OpWorkflowModel.load(
+        os.path.join(tmp, "forest"),
+        serve_front(serve_csv, OpRandomForestClassifier(**SERVE_FOREST)))
+    v1 = reg.publish(model, stage="stable").version
+    v2 = reg.publish(model).version
+    # the workers' K2 shapes, reproduced here: an endpoint at the workers'
+    # default buckets warmed, then one fleet batch, its K2 inputs kept
+    with kernel_inputs(kernels) as kept:
+        endpoint = compile_endpoint(model)
+        endpoint.score_batch(records[:FLEET_BATCH_ROWS])
+    k2_inputs = {}
+    for args in kept["bin_matrix"]:
+        k2_inputs.setdefault(int(args[0].shape[0]), args)
+    del endpoint, model, kept
+    log(f"[fleet] published [serve]'s forest as {v1} (stable) and {v2}; "
+        f"K2 per {FLEET_BATCH_ROWS}-row batch at rows {sorted(k2_inputs)}")
+
+    batches = [records[lo:lo + FLEET_BATCH_ROWS]
+               for lo in range(0, len(records), FLEET_BATCH_ROWS)]
+    starts = list(range(0, len(records), FLEET_BATCH_ROWS))
+    work = os.path.join(tmp, "fleet")
+    socks = [os.path.join(work, f"replica-{i}.sock")
+             for i in range(FLEET_REPLICAS)]
+    ready: dict = {}
+    watching = threading.Event()
+
+    def watch_sockets() -> None:
+        # a worker listens once its load, lowering and warm-up are done:
+        # its socket file's appearance is its readiness
+        while not watching.is_set() and len(ready) < len(socks):
+            for i, s in enumerate(socks):
+                if i not in ready and os.path.exists(s):
+                    ready[i] = time.time()
+            time.sleep(0.005)
+
+    fc = FleetController(
+        reg.root, FLEET_WORKFLOW, n_replicas=FLEET_REPLICAS,
+        work_dir=work, device="cuda", max_restarts=0,
+        worker_env={FLEET_CSV_ENV: serve_csv, FLEET_HOLD_ENV: "1"},
+        router_kw={"max_in_flight_per_replica": 2, "max_queue": 256})
+    watcher = threading.Thread(target=watch_sockets, daemon=True)
+    torch.cuda.synchronize()
+    used = {"before": device_used_bytes()}
+    t0 = time.perf_counter()
+    watcher.start()
+    try:
+        fc.start()
+        out["walls"]["bring_up"] = time.perf_counter() - t0
+        used["up"] = device_used_bytes()
+        watching.set()
+        watcher.join(timeout=5.0)
+        spawn = {r.index: r.events[0]["t"] for r in fc._replicas.values()}
+        out["spawn_to_ready_s"] = {
+            f"replica-{i}": ready[i] - spawn[i] for i in sorted(spawn)}
+        pids = {r.instance: r.proc.pid for r in fc._replicas.values()}
+        for inst in sorted(pids):
+            doc = fc.router.control(inst, "status", timeout_s=60.0)
+            assert doc["device"] == "cuda", (inst, doc["device"])
+            assert doc["version"] == v1, (inst, doc["version"])
+        log(f"[fleet] {FLEET_REPLICAS} replica workers up on the card in "
+            f"{out['walls']['bring_up']:.3f} s (spawn to ready "
+            + ", ".join(f"{k} {v:.3f} s"
+                        for k, v in out["spawn_to_ready_s"].items())
+            + "); every worker reports device cuda, serving "
+            f"{v1}; pids {pids}")
+
+        # -- warm; half a pass, the rolling deploy under traffic, one more
+        # pass after it --------------------------------------------------
+        fc.router.score_batch(batches[0], timeout_s=120.0)
+        roll: dict = {}
+
+        def deploy_mid_traffic(pump) -> None:
+            while pump.done() < len(batches) // 2:
+                time.sleep(0.005)
+            roll["at"] = pump.done()
+            t_r = time.perf_counter()
+            roll["report"] = fc.rolling_deploy(v2)
+            roll["wall_s"] = time.perf_counter() - t_r
+            roll["done_at"] = pump.done()
+            pump.finish(len(batches))
+
+        pumped = FleetPump(fc, batches, FLEET_CLIENTS).run(deploy_mid_traffic)
+        reqs = pumped["requests"]
+        errors = [r for *_, r in reqs if isinstance(r, BaseException)]
+        assert not errors, f"[fleet] {len(errors)} requests failed: {errors[:2]}"
+        assert len(reqs) == pumped["total"]
+        versions = set()
+        for b, _ta, _tb, res in reqs:
+            assert res.version in (v1, v2) and res.generation is not None, \
+                (res.version, res.generation)
+            versions.add((res.version, res.generation))
+            got = serve_rows(res.results)
+            ref = want[starts[b]:starts[b] + len(batches[b])]
+            assert got.shape == ref.shape and np.array_equal(got, ref), (
+                f"[fleet] batch {b} on {res.version}: rows differ from "
+                f"score_function(), up to {max_ulps(got, ref):g} ULP")
+        assert {v for v, _ in versions} == {v1, v2}, versions
+        snap = fc.router.snapshot()
+        n_rows = sum(len(batches[b]) for b, *_ in reqs)
+        assert snap["rows_ok"] == n_rows + len(batches[0]), (
+            snap["rows_ok"], n_rows)
+        assert snap["replica_deaths"] == 0 and snap["retries"] == 0, snap
+        assert all(r.restarts == 0 for r in fc._replicas.values())
+        walls = np.array([1e3 * (tb - ta) for _b, ta, tb, _r in reqs])
+        out["route"] = {
+            "requests": len(reqs), "rows": n_rows,
+            "wall_s": pumped["wall_s"],
+            "rows_per_s": n_rows / pumped["wall_s"],
+            "batch_p50_ms": float(np.percentile(walls, 50)),
+            "batch_p99_ms": float(np.percentile(walls, 99)),
+            "versions": sorted(f"{v}/g{g}" for v, g in versions),
+            "rows_by_replica": {k: v["rows_ok"]
+                                for k, v in snap["replicas"].items()},
+        }
+        out["rolling_deploy"] = dict(roll)
+        r = out["route"]
+        single = deploy_serve["rows_per_s"]
+        log(f"[fleet] routed {r['requests']} batches of up to "
+            f"{FLEET_BATCH_ROWS} rows ({r['rows']} rows: [serve]'s "
+            f"{len(records)} held-out records round robin, one pass after "
+            f"the rolling deploy) from "
+            f"{FLEET_CLIENTS} client threads in {r['wall_s']:.3f} s: "
+            f"{r['rows_per_s']:.0f} rows/s with {FLEET_REPLICAS} replicas "
+            f"(against {single} rows/s of [deploy]'s single-process serve "
+            f"run), batch p50 {r['batch_p50_ms']:.3f} ms, p99 "
+            f"{r['batch_p99_ms']:.3f} ms; rows by replica "
+            f"{r['rows_by_replica']}; none dropped, every row 0 ULP from "
+            f"score_function(); responses by (version, generation) "
+            f"{r['versions']}")
+        for s in roll["report"]:
+            log(f"[fleet] rolling deploy step: {s['instance']} -> "
+                f"{s['version']} generation {s['generation']}, drained and "
+                f"swapped in {s['swap_s']:.3f} s")
+        log(f"[fleet] rolling deploy to {v2}: {roll['wall_s']:.3f} s, "
+            f"started after {roll['at']} and done after {roll['done_at']} "
+            f"of {pumped['total']} requests")
+
+        # -- each worker's K2 launches, holds and device memory ------------
+        by_inst = {k: v["requests_ok"] for k, v in snap["replicas"].items()}
+        views = wait_fleet_views(fc, sorted(pids), by_inst)
+        smi = compute_app_memory()
+        used["routed"] = device_used_bytes()
+        out["workers"] = {}
+        for inst in sorted(pids):
+            v = views[inst]
+            assert v["pid"] == pids[inst], (inst, v["pid"], pids[inst])
+            assert v["launches"] >= 1, f"[fleet] {inst}: K2 never launched"
+            assert v["held"] == v["launches"], (inst, v)
+            assert v["mismatches"] == 0 and v["max_abs_err"] == 0, (inst, v)
+            assert v["fused_moments_launches"] == 0, (inst, v)
+            bin_errs.append(v["max_abs_err"])
+            out["workers"][inst] = {
+                "pid": v["pid"], "k2_launches": v["launches"],
+                "k2_shapes": v["shapes"],
+                "memory_allocated": v["memory_allocated"],
+                "max_memory_allocated": v["max_memory_allocated"],
+                "memory_reserved": v["memory_reserved"],
+                "smi_used_mib": smi.get(pids[inst]),
+                "spawn_to_ready_s": out["spawn_to_ready_s"][inst],
+                "rows_ok": snap["replicas"][inst]["rows_ok"],
+            }
+            w = out["workers"][inst]
+            log(f"[fleet] {inst} (pid {w['pid']}): K2 launched "
+                f"{w['k2_launches']} times, each equal to plain, at "
+                f"{w['k2_shapes']}; device memory: nvidia-smi "
+                f"{w['smi_used_mib']} MiB, torch allocated "
+                f"{w['memory_allocated']} B (peak "
+                f"{w['max_memory_allocated']} B, reserved "
+                f"{w['memory_reserved']} B)")
+        out["parent_smi_used_mib"] = smi.get(os.getpid())
+        log(f"[fleet] this process: nvidia-smi {out['parent_smi_used_mib']} "
+            f"MiB; all compute apps {smi}; the card's memory in use "
+            f"{used['before']} B before the fleet, {used['up']} B with the "
+            f"{FLEET_REPLICAS} workers up ({(used['up'] - used['before']) / FLEET_REPLICAS:.0f}"
+            f" B a worker), {used['routed']} B after the traffic")
+
+        # -- the SIGKILL drill ----------------------------------------------
+        victim = fc._replicas["replica-1"]
+        kill: dict = {}
+
+        def kill_mid_traffic(pump) -> None:
+            # a quarter of the way through the pass: the fleet is busy
+            while pump.done() < len(batches) // 4:
+                time.sleep(0.001)
+            kill["t"] = time.perf_counter()
+            kill["at"] = pump.done()
+            os.kill(victim.proc.pid, signal.SIGKILL)
+            while fc.router.snapshot()["replica_deaths"] < 1:
+                time.sleep(0.001)
+            kill["detect_s"] = time.perf_counter() - kill["t"]
+
+        before = fc.router.snapshot()["rows_ok"]
+        pumped = FleetPump(fc, batches, FLEET_CLIENTS,
+                           total=len(batches)).run(kill_mid_traffic)
+        reqs = pumped["requests"]
+        errors = [r for *_, r in reqs if isinstance(r, BaseException)]
+        assert not errors, f"[fleet] kill drill: {len(errors)} failed: {errors[:2]}"
+        assert kill["at"] < pumped["total"], "[fleet] traffic ended before the kill"
+        for b, _ta, _tb, res in reqs:
+            got = serve_rows(res.results)
+            ref = want[starts[b]:starts[b] + len(batches[b])]
+            assert np.array_equal(got, ref), f"[fleet] kill drill batch {b}"
+        snap = fc.router.snapshot()
+        n_rows = sum(len(batches[b]) for b, *_ in reqs)
+        assert n_rows == len(records) and len(reqs) == len(batches)
+        assert snap["rows_ok"] - before == n_rows, (snap["rows_ok"], before)
+        assert snap["replica_deaths"] == 1, snap["replica_deaths"]
+        live = sorted(h.instance for h in fc.router.live_replicas())
+        assert live == ["replica-0", "replica-2"], live
+        assert victim.proc.wait(timeout=10) == -signal.SIGKILL
+        assert all(r.restarts == 0 for r in fc._replicas.values())
+        # recovery: the last answer to a request that was out before the kill
+        orphans = [tb for _b, ta, tb, _r in reqs if ta < kill["t"] < tb]
+        kill["recover_s"] = (max(orphans) - kill["t"]) if orphans else 0.0
+        kill.update(retries=snap["retries"], in_flight=len(orphans),
+                    rows=n_rows, wall_s=pumped["wall_s"])
+        del kill["t"]
+        out["kill"] = kill
+        log(f"[fleet] SIGKILL of replica-1 after {kill['at']} of "
+            f"{pumped['total']} requests: death seen in "
+            f"{kill['detect_s']:.3f} s, the {len(orphans)} requests out at "
+            f"the kill answered within {kill['recover_s']:.3f} s "
+            f"({snap['retries']} failed over); {n_rows} rows conserved "
+            f"exactly on {live}, every row 0 ULP, no restarts")
+        # the launches of the kill pass too: the survivors' views once
+        # they shipped their batches, replica-1's last view before it died
+        by_inst = {k: v["requests_ok"] for k, v in snap["replicas"].items()
+                   if k != "replica-1"}
+        views = wait_fleet_views(fc, sorted(by_inst), by_inst)
+        for inst, w in out["workers"].items():
+            v = views.get(inst)
+            if v is None:  # the killed worker's shard aged out
+                assert inst == "replica-1", sorted(views)
+                continue
+            assert v["held"] == v["launches"] >= w["k2_launches"], (inst, v)
+            assert v["mismatches"] == 0 and v["max_abs_err"] == 0, (inst, v)
+            w["k2_launches"], w["k2_shapes"] = v["launches"], v["shapes"]
+        log("[fleet] K2 launches a worker after the kill drill (each equal "
+            "to plain; replica-1 as of its last shipped view): "
+            + ", ".join(f"{k} {w['k2_launches']}"
+                        for k, w in out["workers"].items()))
+    finally:
+        watching.set()
+        fc.stop()
+    assert all(r.proc.poll() is not None for r in fc._replicas.values())
+    used["stopped"] = device_used_bytes()
+    out["device_used_bytes"] = used
+    log(f"[fleet] the card's memory in use after the fleet stopped: "
+        f"{used['stopped']} B (before it: {used['before']} B)")
+
+    # -- K2 at the workers' shapes, timed here -------------------------------
+    out["k2_shapes"] = []
+    launches = {}
+    for w in out["workers"].values():
+        for key, n in w["k2_shapes"].items():
+            m = int(key.split("x")[0])
+            launches[m] = launches.get(m, 0) + n
+    assert set(launches) == set(k2_inputs), (sorted(launches), sorted(k2_inputs))
+    for m in sorted(k2_inputs):
+        x, edges, dtype = k2_inputs[m]
+        bin_errs.append(check_bins(kernels, x, edges, dtype))
+        b = time_bins(kernels, x, edges, dtype)
+        b["fleet_launches"] = launches[m]
+        out["k2_shapes"].append(b)
+        log_bins_times(f"[fleet] {tuple(x.shape)} x {edges.shape[1]} edges "
+                       f"-> {dtype} ({launches[m]} launches in the workers)",
+                       b)
+    out["k2_launches"] = sum(w["k2_launches"] for w in out["workers"].values())
+    out["wall_s"] = time.perf_counter() - t_step
+    log(f"[fleet] step wall {out['wall_s']:.1f} s")
+    return out
+
+
 def serve_phase(kernels, readme_model, bin_errs: list,
                 readme_build=None) -> dict:
     """``[serve]``: three models served on the card through save ->
@@ -2158,8 +2682,13 @@ def serve_phase(kernels, readme_model, bin_errs: list,
         deploy = deploy_step(kernels, tmp, serve_csv,
                              {"v1": out["forest"]["rows"],
                               "v2": out["gbt"]["rows"]}, bin_errs)
+        out["fleet"] = fleet_step(kernels, tmp, serve_csv, records,
+                                  out["forest"]["rows"], deploy["serve"],
+                                  bin_errs)
+    fleet = out.pop("fleet")
     for v in out.values():
         del v["rows"]
+    out["fleet"] = fleet
     # K2 at the serving shapes: the served forest's own inputs
     shapes = []
     for m in SERVE_BATCHES:
@@ -5234,6 +5763,11 @@ def serve_by_path(serve: dict, k: str) -> dict:
     out.update({f"deploy_{step}_{arm}": n if k == "bin_matrix" else 0
                 for step, arms in serve["deploy"]["launches"].items()
                 for arm, n in arms.items()})
+    # [fleet]: the launches in each replica worker, read from its shipped
+    # view (each worker's counts start at 0 with the process; K1 was held
+    # to none there)
+    out.update({f"fleet_{inst}": w["k2_launches"] if k == "bin_matrix"
+                else 0 for inst, w in serve["fleet"]["workers"].items()})
     return out
 
 
@@ -5583,21 +6117,32 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
                        "(equal to plain, bit-identical twice)", other_bins[-1])
     del xo, yo, eo, xo_np
 
-    # -- 6. the same tree slice on the CPU agrees ---------------------------------
-    tc = run_tree_slice("cpu", data, kernels)
-    log(f"[trees] cpu: train {tc['train_s']:.3f} s, score "
-        f"{tc['score_s']:.3f} s, AuROC {tc['auroc']:.6f}")
-    assert tc["splits"] == tg["splits"], (tc["splits"], tg["splits"])
-    assert tc["keep"] == tg["keep"], (tc["keep"], tg["keep"])
-    tprob_diff = float(np.abs(tg["prob"] - tc["prob"]).max())
+    # -- 6. the same tree slice on the CPU agrees, on a shared prefix ------------
+    # the card against the CPU at TREE_CMP_ROWS rows, both sides on the
+    # same first rows (the card-against-card run above holds the heaps at
+    # SLICE_ROWS)
+    cmp_data = data.take(np.arange(TREE_CMP_ROWS))
+    tgc = run_tree_slice("cuda", cmp_data, kernels)
+    tc = run_tree_slice("cpu", cmp_data, kernels)
+    del cmp_data
+    log(f"[trees] {TREE_CMP_ROWS}-row prefix: cuda train "
+        f"{tgc['train_s']:.3f} s, score {tgc['score_s']:.3f} s; cpu train "
+        f"{tc['train_s']:.3f} s, score {tc['score_s']:.3f} s, AuROC "
+        f"{tc['auroc']:.6f} (card {tgc['auroc']:.6f}); the comparison took "
+        f"{tgc['train_s'] + tgc['score_s'] + tc['train_s'] + tc['score_s']:.3f}"
+        f" s of train and score")
+    assert tc["splits"] == tgc["splits"], (tc["splits"], tgc["splits"])
+    assert tc["keep"] == tgc["keep"], (tc["keep"], tgc["keep"])
+    tprob_diff = float(np.abs(tgc["prob"] - tc["prob"]).max())
     assert tprob_diff <= TREE_PROB_ATOL, tprob_diff
-    assert abs(tg["auroc"] - tc["auroc"]) <= 1e-4
+    assert abs(tgc["auroc"] - tc["auroc"]) <= 1e-4
     nodes_differ = int(sum((a != b).sum() for a, b in
-                           zip(tg["heaps"][:3], tc["heaps"][:3])))
-    log(f"[trees] cuda vs cpu: same splits and kept columns, max |prob diff| "
-        f"{tprob_diff:.3g}, AuROC diff {abs(tg['auroc'] - tc['auroc']):.3g}, "
-        f"heap entries (feature, bin, leaf) that differ: {nodes_differ} of "
-        f"{3 * tg['heaps'][0].size}")
+                           zip(tgc["heaps"][:3], tc["heaps"][:3])))
+    log(f"[trees] cuda vs cpu on the prefix: same splits and kept columns, "
+        f"max |prob diff| {tprob_diff:.3g}, AuROC diff "
+        f"{abs(tgc['auroc'] - tc['auroc']):.3g}, heap entries (feature, bin, "
+        f"leaf) that differ: {nodes_differ} of {3 * tgc['heaps'][0].size}")
+    del tgc
 
     # -- 7. the selector on the card, counted ---------------------------------
     from transmogrifai_tpu_torch.evaluators.binary import masked_rank_metrics
@@ -5826,6 +6371,7 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
                                                families["shapes"]),
         "serve_path_shapes": serve["k2_shapes"],
         "deploy_path_shapes": serve["deploy"]["k2_shapes"],
+        "fleet_path_shapes": serve["fleet"]["k2_shapes"],
         "fused_train_path_shapes": sel_shape_rows("bin_matrix",
                                                   fused["shapes"]),
         "fused_train_existing_launches": fused["existing_launches"][

@@ -1,8 +1,7 @@
-"""The continuous-training loop, port against reference, in direct mode.
+"""The continuous-training loop, port against reference.
 
-Ports the contracts of ``tests/test_continuous.py`` (less its CLI and
-fleet cases: ``cli.py`` and ``fleet/`` are not ported) onto
-``transmogrifai_tpu_torch.continuous``:
+Ports the contracts of ``tests/test_continuous.py`` (less its CLI cases:
+``cli.py`` is not ported) onto ``transmogrifai_tpu_torch.continuous``:
 
 * governor decisions on the same score sequences, and the shard
   follower's ids on the same directory: equal to the reference's;
@@ -14,8 +13,19 @@ fleet cases: ``cli.py`` and ``fleet/`` are not ported) onto
   child (``sys.modules["jax"] = None``) leaves the old stable, and the
   next cycle recovers;
 * a device fault in the refit propagates and the registry keeps its
-  stable; a ``module:function`` factory and ``fleet=`` raise naming
-  ROADMAP item 12 (the fleet slice).
+  stable;
+* the constructor takes the reference's keywords (``train_cache_dir``,
+  accepted and unused, and the four canary knobs), a ``module:function``
+  factory loads through ``fleet.worker.load_workflow_factory``, and
+  ``fleet=`` runs the canary through a ``FleetController``;
+* fleet mode end to end on port replica workers (CPU, one thread each):
+  a mid-stream shift on a live two-replica fleet is detected, refit,
+  canaried and auto-promoted, the old model serving throughout with
+  zero dropped rows, the cycle under one trace id.  It is held to the
+  reference's contract (the JAX package's own e2e needs
+  ``jax.experimental.enable_x64``, which jax 0.9 removed, and the port
+  keeps no compiled-program cache, so the reference's cache-hit checks
+  have no counterpart).
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -403,17 +415,192 @@ def test_device_fault_in_the_refit_propagates_and_keeps_stable(
 
 
 def test_string_factory_and_fleet_mode_raise_naming_item_12(tmp_path):
+    """A ``module:function`` factory loads through the fleet worker's
+    loader (the reference's convention), a malformed one raises its
+    ``ValueError``, and ``fleet=`` puts the trainer in fleet mode: the
+    publish goes to the fleet's canary, and the status says so."""
     cont = mod(PORT, "continuous")
     os.makedirs(tmp_path / "watch")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    trainer = cont.ContinuousTrainer(
+        str(tmp_path / "watch"), str(tmp_path / "registry"),
+        "torch_fleet:tiny_cpu", bootstrap=True)
+    assert trainer.registry.stable == trainer.version
+    assert trainer.status()["mode"] == "direct"
+    with pytest.raises(ValueError, match="module:function"):
         cont.ContinuousTrainer(str(tmp_path / "watch"),
-                               str(tmp_path / "registry"),
-                               "transmogrifai_tpu_torch.x:factory",
+                               str(tmp_path / "registry"), "no_colon",
                                bootstrap=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cont.ContinuousTrainer(str(tmp_path / "watch"),
-                               str(tmp_path / "registry"), _factory(PORT),
-                               fleet=object(), bootstrap=True)
+
+    class _Fleet:
+        """The FleetController surface fleet mode drives."""
+
+        def __init__(self):
+            self.calls = []
+
+        def start_canary(self, version, fraction):
+            self.calls.append(("canary", version, fraction))
+
+        def check_canary(self):
+            return None
+
+        def canary_telemetry(self):
+            return {"canary": {"rows_scored": 50}}
+
+        def promote_canary(self):
+            self.calls.append(("promote",))
+
+    fleet = _Fleet()
+    trainer = cont.ContinuousTrainer(
+        str(tmp_path / "watch"), str(tmp_path / "registry"),
+        "torch_fleet:tiny_cpu", fleet=fleet, canary_fraction=0.25,
+        drift_threshold=0.3, consecutive_windows=1, cooldown_windows=0,
+        min_window_rows=32, refit_rows=256, train_fused=False,
+        status_dir=str(tmp_path))
+    write_shard(os.path.join(trainer.watch_dir, "s0.csv"),
+                shard_rows(64, seed=80, shift=3.0))
+    c = trainer.run_cycle()
+    assert c["verdict"] == "trigger" and c["outcome"] == "promote"
+    assert fleet.calls == [("canary", c["published"], 0.25), ("promote",)]
+    assert c["canary_rows"] == 50
+    assert trainer.version == c["published"]
+    assert trainer.status()["mode"] == "fleet"
+
+
+def test_constructor_takes_the_reference_keywords(tmp_path):
+    """Both packages' trainers accept ``train_cache_dir`` and the four
+    canary knobs and store them alike; the port leaves the cache dir
+    unused (it keeps no compiled-program cache)."""
+    kw = dict(train_cache_dir=str(tmp_path / "cache"), canary_fraction=0.3,
+              canary_min_rows=12, canary_timeout_s=7.5, canary_poll_s=0.001)
+    got = {}
+    for pkg in (REF, PORT):
+        root = str(tmp_path / pkg)
+        trainer = _trainer(pkg, root, **kw)
+        got[pkg] = {k: getattr(trainer, k) for k in kw}
+        assert trainer.fleet is None
+    assert got[PORT] == got[REF]
+    assert got[PORT]["canary_poll_s"] == 0.01  # floored alike
+    assert not os.path.exists(tmp_path / "cache")
+
+
+CONT_WORKER_SPEC = (
+    "transmogrifai_tpu_torch.testkit.drills:continuous_drill_workflow")
+
+
+def test_fleet_mode_e2e_shift_refit_canary_promote(tmp_path):
+    """A mid-stream shift on a live two-replica fleet of port workers is
+    detected, refit, canaried at half the traffic and auto-promoted:
+    the superseded model serves throughout, no row is dropped, and the
+    promoted cycle runs under one trace id."""
+    from torch_fleet import controller
+
+    from transmogrifai_tpu_torch.obs import tracer
+    from transmogrifai_tpu_torch.obs.slo import SLObjective
+    from transmogrifai_tpu_torch.registry import ModelRegistry
+    from transmogrifai_tpu_torch.testkit.drills import (
+        continuous_drill_workflow,
+        continuous_shard_rows,
+        write_shard_csv,
+    )
+
+    reg_root = str(tmp_path / "registry")
+    watch = str(tmp_path / "watch")
+    os.makedirs(watch)
+    n_train = 256
+    v1 = ModelRegistry(reg_root).publish(
+        continuous_drill_workflow(n=n_train, device="cpu").train(),
+        stage="stable").version
+    batch_base = [{k: r[k] for k in ("a", "c")}
+                  for r in continuous_shard_rows(40, seed=99)]
+    batch_shifted = [{k: r[k] for k in ("a", "c")}
+                     for r in continuous_shard_rows(40, seed=98,
+                                                    shift=3.0)]
+    current = {"batch": batch_base}
+    results: list = []
+    errors: list = []
+    stop = threading.Event()
+    # the rollback signal is a health objective (NaN-guard refusals):
+    # during a genuine shift the drift objective fires because of the
+    # very traffic that triggered the refit
+    health_slo = SLObjective(
+        name="fleet-nonfinite", kind="threshold",
+        metric="serving.breaker.rows_nonfinite", objective=0.5,
+        windows_s=(30.0, 5.0))
+    with controller(reg_root, CONT_WORKER_SPEC, 2, str(tmp_path / "fleet"),
+                    slo_objectives=[health_slo]) as fc:
+        fc.router.score_batch(batch_base, timeout_s=120.0)
+
+        def pump() -> None:
+            while not stop.is_set():
+                try:
+                    results.append(fc.router.submit(
+                        records=current["batch"]).wait(120.0))
+                except Exception as e:  # noqa: BLE001 - the drill counts
+                    errors.append(repr(e))
+
+        threads = [threading.Thread(target=pump) for _ in range(2)]
+        for t in threads:
+            t.start()
+        try:
+            trainer = mod(PORT, "continuous").ContinuousTrainer(
+                watch, reg_root, "torch_fleet:continuous_drill_cpu",
+                fleet=fc, status_dir=str(tmp_path),
+                drift_threshold=0.4, consecutive_windows=4,
+                cooldown_windows=2, min_window_rows=64,
+                refit_rows=n_train, train_cache_dir=str(tmp_path / "c"),
+                canary_fraction=0.5, canary_min_rows=48,
+                canary_timeout_s=120.0)
+            assert trainer.version == v1
+            write_shard_csv(os.path.join(watch, "s0000.csv"),
+                            continuous_shard_rows(64, seed=10))
+            c = trainer.run_cycle()
+            assert c["verdict"] == "clear", c
+            current["batch"] = batch_shifted
+            for i in range(1, 4):
+                write_shard_csv(
+                    os.path.join(watch, f"s{i:04d}.csv"),
+                    continuous_shard_rows(64, seed=10 + i, shift=3.0))
+                c = trainer.run_cycle()
+                assert c["verdict"] == "over", c
+            write_shard_csv(os.path.join(watch, "s0004.csv"),
+                            continuous_shard_rows(64, seed=14, shift=3.0))
+            c = trainer.run_cycle()
+            assert c["verdict"] == "trigger", c
+            assert c["outcome"] == "promote", c
+            time.sleep(0.4)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120.0)
+
+        v2 = c["published"]
+        assert v2 != v1 and fc.registry.stable == v2
+        assert trainer.version == v2
+        assert c["refit"]["rows"] == n_train
+        assert errors == []
+        assert all(res.n_rows == len(batch_base) for res in results)
+        snap = fc.router.snapshot()
+        assert snap["rows_ok"] == (sum(r.n_rows for r in results)
+                                   + len(batch_base))
+        versions = {res.version for res in results}
+        assert None not in versions
+        assert versions <= {v1, v2}
+        assert v1 in versions
+        assert c["canary_rows"] >= 48
+        assert not os.path.exists(tmp_path / "c")
+
+    names = {s["name"] for s in tracer().spans()
+             if s.get("trace") == c["trace"]
+             and str(s["name"]).startswith("continuous.")}
+    assert {"continuous.cycle", "continuous.detect",
+            "continuous.refit", "continuous.publish",
+            "continuous.canary", "continuous.verdict"} <= names
+    with open(os.path.join(str(tmp_path),
+                           mod(PORT, "continuous").STATUS_FILENAME)) as f:
+        doc = json.load(f)
+    assert doc["mode"] == "fleet"
+    assert doc["counters"]["promotes"] == 1
+    assert doc["last_trace"] == c["trace"]
 
 
 # ---------------------------------------------------------------------------

@@ -111,6 +111,40 @@ def test_imports_and_trains_without_jax(subprocess_env):
     assert out.stdout.strip().endswith("OK")
 
 
+_FLEET_CHILD = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import transmogrifai_tpu_torch.fleet as fleet
+import transmogrifai_tpu_torch.fleet.worker as worker
+from transmogrifai_tpu_torch.testkit import drills
+assert not any(k == "transmogrifai_tpu" or k.startswith("transmogrifai_tpu.")
+               for k in sys.modules), "the JAX package was imported"
+assert worker.load_workflow_factory(
+    "transmogrifai_tpu_torch.testkit.drills:continuous_tiny_factory"
+) is drills.continuous_tiny_factory
+wf, _data, records, _name = drills.tiny_drill_pipeline(device="cpu")
+assert wf.device == "cpu" and drills.tiny_drill_pipeline()[0].device == "cuda"
+model = wf.train()
+chan = fleet.encode_results(model.score_function().score_batch(records[:4]))
+assert len(fleet.decode_results(chan)) == 4
+assert not any(k == "transmogrifai_tpu" or k.startswith("transmogrifai_tpu.")
+               for k in sys.modules), "the JAX package was imported"
+print("OK")
+"""
+
+
+def test_fleet_and_drills_import_without_jax(subprocess_env):
+    """``fleet/`` and ``testkit/drills.py`` import, load a factory spec and
+    serve a drill model with jax unimportable, and pull in nothing of the
+    JAX package; the drills build on the card unless told otherwise."""
+    out = subprocess.run(
+        [sys.executable, "-c", _FLEET_CHILD], env=subprocess_env,
+        cwd=str(ROOT), capture_output=True, text=True, timeout=240,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
 def _imported_modules(path: pathlib.Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -453,3 +453,47 @@ def test_shipper_beats_and_ships_on_stop(tmp_path):
     shard = obs.FleetAggregator(agg_dir, stale_after_s=300.0).shards()[0]
     assert shard["instance"] == "replica-0"
     assert shard["fleet"]["generation"] == len(calls)
+
+
+# ---------------------------------------------------------------------------
+# a live fleet's shards
+# ---------------------------------------------------------------------------
+def test_fleet_shards_carry_replica_router_and_health_views(tmp_path):
+    """One scrape of a port fleet's aggregation dir: each replica's shard
+    carries its ``fleet_replica`` view (its device and rows scored), the
+    router's own shard (``ship_router_obs``) carries the ``fleet_router``
+    and ``fleet_health`` views that ``health_views`` extracts, and the
+    replicas' serving views roll up under ``instance="fleet"``."""
+    from torch_fleet import PORT_TINY_SPEC, controller, publish_tiny
+
+    fleet_obs = mod(PORT, "obs.fleet")
+    reg = publish_tiny(str(tmp_path / "registry"), n_versions=1)
+    with controller(reg["root"], PORT_TINY_SPEC, 2, str(tmp_path / "fleet"),
+                    ship_router_obs=True) as fc:
+        for _ in range(3):
+            fc.router.score_batch(reg["records"][:16], timeout_s=60.0)
+
+        def shipped():
+            docs = {str(d.get("instance")): d.get("metrics", {})
+                    for d in fc.aggregator.shards()}
+            reps = [docs.get(f"replica-{i}", {}).get("views", {})
+                    for i in range(2)]
+            return docs if "router" in docs and sum(
+                v.get("fleet_replica/0", {}).get("rows_scored", 0)
+                for v in reps) == 48 else None
+
+        deadline = time.monotonic() + 30.0
+        while shipped() is None and time.monotonic() < deadline:
+            time.sleep(0.1)
+        docs = shipped()
+        assert docs is not None
+        for i in range(2):
+            view = docs[f"replica-{i}"]["views"]["fleet_replica/0"]
+            assert view["device"] == "cpu" and view["instance"] == \
+                f"replica-{i}"
+        health = dict(fleet_obs.health_views(docs["router"]))
+        assert health and all(set(h["replicas"]) == {"replica-0",
+                                                      "replica-1"}
+                              for h in health.values())
+        assert dict(fleet_obs.health_views(docs["replica-0"])) == {}
+        assert 'instance="fleet",agg="sum"' in fc.aggregator.prometheus_text()

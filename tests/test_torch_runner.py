@@ -355,13 +355,37 @@ def test_slo_path_wires_the_deploy_rollback_policy(tmp_path):
 # -- the unported pieces raise naming ROADMAP item 12 ------------------------------
 
 @pytest.mark.parametrize("run_type", ["fleet", "continuous", "bulk"])
-def test_unported_run_types_raise_naming_item_12(run_type):
-    """``fleet`` and ``bulk`` raise naming item 12; ``continuous`` is
-    ported and, as in the reference, asks for its watch directory."""
+def test_unported_run_types_raise_naming_item_12(run_type, tmp_path):
+    """``bulk`` raises naming item 12, as does the fleet run's
+    ``fleet_autoscale`` knob; ``fleet`` and ``continuous`` are ported and,
+    as in the reference, ask for what they need (the fleet run for its
+    registry root and worker factory, with the reference's message)."""
     wf, _data, _pred = _build()
     if run_type == "continuous":
         with pytest.raises(ValueError, match="watch_dir"):
             OpWorkflowRunner(wf).run(run_type, OpParams())
+        return
+    if run_type == "fleet":
+        ref_wf = tiny_pipeline(REF)[0]
+        for cp in ({}, {"registry_root": str(tmp_path / "r")},
+                   {"fleet_workflow": "m:f"}):
+            with pytest.raises(ValueError) as got:
+                OpWorkflowRunner(wf).run(run_type, OpParams(
+                    custom_params=dict(cp)))
+            with pytest.raises(ValueError) as want:
+                mod(REF, "workflow.runner").OpWorkflowRunner(ref_wf).run(
+                    run_type, mod(REF, "workflow.params").OpParams(
+                        custom_params=dict(cp)))
+            assert str(got.value) == str(want.value)
+            assert "registry_root" in str(got.value)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            OpWorkflowRunner(wf).run(run_type, OpParams(custom_params={
+                "registry_root": str(tmp_path / "r"),
+                "fleet_workflow": "m:f", "fleet_autoscale": True}))
+        with pytest.raises(ValueError, match="serving_fused_backend"):
+            OpWorkflowRunner(wf).run(run_type, OpParams(custom_params={
+                "registry_root": str(tmp_path / "r"),
+                "fleet_workflow": "m:f", "serving_fused_backend": "xla"}))
         return
     with pytest.raises(NotImplementedError, match="item 12"):
         OpWorkflowRunner(wf).run(run_type, OpParams())

@@ -13,6 +13,12 @@ package ``transmogrifai_tpu_torch/``:
   version rides the crash-consistent fsync + manifest + rename path (the
   JAX package's ``test_model_artifacts_written_only_via_serialization_
   and_registry``).
+
+The fleet (``fleet/``) is held to the same broad-except rule, to the
+JAX package's bounded-wait gate (``test_no_unbounded_blocking_waits_
+under_parallel_and_workflow``: every ``.join()``/``.wait()``/``.get()``/
+``.recv()`` passes a timeout) and to the device-fault rule of the
+training operations.
 """
 import ast
 import pathlib
@@ -78,6 +84,54 @@ def test_serving_and_workflow_broad_excepts_leave_a_trace():
     offenders = [f"{p}:{h.lineno}" for p, h in handlers
                  if not _handler_is_accounted(h)]
     assert not offenders, offenders
+
+
+def test_fleet_broad_excepts_leave_a_trace():
+    """Every broad ``except`` under fleet/ re-raises, uses the bound
+    exception, or records telemetry or a log entry: a replica, router or
+    controller failure is never swallowed silently."""
+    handlers = list(_broad_handlers(("fleet",)))
+    assert len(handlers) >= 10  # router, worker and controller loops
+    offenders = [f"{p}:{h.lineno}" for p, h in handlers
+                 if not _handler_is_accounted(h)]
+    assert not offenders, offenders
+
+
+#: the blocking calls that must carry a timeout under fleet/
+_BLOCKING_METHODS = {"join", "wait", "get", "recv"}
+
+
+def _unbounded_waits(tree) -> list:
+    """Line numbers of zero-argument ``.join()``/``.wait()``/``.get()``/
+    ``.recv()`` calls: the unbounded forms (``d.get(k)``, ``"sep".join(
+    xs)`` and ``q.get(timeout=...)`` carry arguments and pass)."""
+    return [node.lineno for node in ast.walk(tree)
+            if isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and node.func.attr in _BLOCKING_METHODS
+            and not node.args and not node.keywords]
+
+
+def test_no_unbounded_blocking_waits_under_fleet():
+    """Under fleet/ every blocking wait passes a timeout: a SIGKILLed
+    replica or a wedged router peer must never block dispatch, failover
+    or worker shutdown forever (every fleet wait runs in 50 ms quanta)."""
+    files = sorted((ROOT / "fleet").rglob("*.py"))
+    assert len(files) == 6
+    offenders, seen = [], 0
+    for p in files:
+        tree = ast.parse(p.read_text(encoding="utf-8"))
+        seen += sum(isinstance(n, ast.Call)
+                    and isinstance(n.func, ast.Attribute)
+                    and n.func.attr in _BLOCKING_METHODS
+                    for n in ast.walk(tree))
+        offenders += [f"{p}:{n}" for n in _unbounded_waits(tree)]
+    assert seen >= 20  # the gate is not vacuous
+    assert not offenders, offenders
+    # the gate's own check: a bare wait is caught, a bounded one is not
+    assert _unbounded_waits(ast.parse(
+        "ev.wait()\nev.wait(0.05)\nt.join(timeout=1)\nchan.recv()\n"
+        "d.get(k)\n")) == [1, 4]
 
 
 def _call_writes_artifact(node: ast.Call) -> bool:
@@ -229,17 +283,17 @@ def test_fleet_reads_snapshots_only_via_torn_safe_loader():
 
 #: the training-operations modules whose catch-alls must pass a device
 #: fault through (``parallel.kernels.is_device_fault``)
-_DEVICE_FAULT_SCOPE = (("autotune",), ("continuous",),
+_DEVICE_FAULT_SCOPE = (("autotune",), ("continuous",), ("fleet",),
                        ("readers", "pipeline.py"),
                        ("selector", "validator.py"))
 
 
 def test_training_ops_catch_alls_pass_device_faults_through():
     """Every broad ``except`` of the autotuner, the continuous trainer,
-    the sharded pipeline and the validator either re-raises
+    the fleet, the sharded pipeline and the validator either re-raises
     unconditionally or consults ``is_device_fault``: a device fault is
-    never scored as a failed rung, a losing probe, a failed refit or a
-    degraded fused dispatch."""
+    never scored as a failed rung, a losing probe, a failed refit, a
+    degraded fused dispatch or a per-request replica error."""
     offenders, seen = [], 0
     for p in MODULES:
         rel = _rel(p)
@@ -254,5 +308,7 @@ def test_training_ops_catch_alls_pass_device_faults_through():
                              for n in node.body)
             if "is_device_fault" not in names and not bare_raise:
                 offenders.append(f"{p}:{node.lineno}")
-    assert seen >= 4  # rung, fused dispatch, probe, pipeline worker
+    # rung, fused dispatch, probe, pipeline worker and the fleet's
+    # channel, router, worker and controller
+    assert seen >= 20
     assert not offenders, offenders

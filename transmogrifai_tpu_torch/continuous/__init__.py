@@ -1,14 +1,13 @@
 """transmogrifai_tpu_torch.continuous: the self-operating training loop.
 
 Host copy of ``transmogrifai_tpu/continuous/``: a drift-triggered refit
-controller that closes the data -> drift -> refit -> promote loop - the
-sharded reader's follow mode tails a shard directory, the drift monitor
-scores each window against the stable model's training contract, the
-governor's hysteresis and cooldown decide, and the refit trains on the
-workflow's device (the card by default) before it is published and
-promoted.  See :mod:`.trainer` for the state machine.  Direct promote
-mode is ported; the fleet mode (a canary judged by a serving fleet)
-waits for ``fleet/`` (ROADMAP.md queue 1, item 12).
+controller that closes the data -> drift -> refit -> canary -> promote
+loop - the sharded reader's follow mode tails a shard directory, the
+drift monitor scores each window against the stable model's training
+contract, the governor's hysteresis and cooldown decide, and the refit
+trains on the workflow's device (the card by default) before it is published and
+promoted, directly or through a serving fleet's canary.  See
+:mod:`.trainer` for the state machine.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""ContinuousTrainer: the data -> drift -> refit -> promote loop, closed.
+"""ContinuousTrainer: the data -> drift -> refit -> canary -> promote loop,
+closed.
 
-Host copy of ``transmogrifai_tpu/continuous/trainer.py``, in direct
-promote mode.  Every building block exists elsewhere in the package; this
+Host copy of ``transmogrifai_tpu/continuous/trainer.py``.  Every building
+block exists elsewhere in the package; this
 daemon joins them, driving each through its public seams:
 
 * **tail** - a :class:`~..readers.pipeline.ShardDirectoryFollower`
@@ -18,11 +19,17 @@ daemon joins them, driving each through its public seams:
   buffer of most-recent rows, on the workflow's device (the card by
   default: the SanityChecker's K1 and the tree families' K2 run there),
   with the fused-training knob installed on its validators.
-* **publish + promote** - the new version goes through
-  :class:`~..registry.store.ModelRegistry` and is promoted to stable by a
-  pointer flip (the batch ``continuous`` run type).
+* **publish + canary** - the new version goes through
+  :class:`~..registry.store.ModelRegistry`; with a fleet attached the
+  :class:`~..fleet.controller.FleetController` runs
+  canary -> shadow-score -> auto-promote-or-rollback, the SLO engine
+  wired into ``check_canary`` as the rollback signal, and a canary whose
+  verdict window expires undecided is RELEASED (slot freed, no
+  judgement) rather than rolled back.  Without a fleet the publish
+  promotes directly by a pointer flip (the batch ``continuous`` run
+  type).
 * **observe** - every cycle runs under ONE ``continuous.cycle`` trace id
-  (detect / refit / publish / verdict child spans), a ``continuous``
+  (detect / refit / publish / canary / verdict child spans), a ``continuous``
   metrics view rides the obs scrape (``tx_continuous_*``), and
   ``continuous_status.json`` is published atomically (tempfile +
   replace).
@@ -30,20 +37,20 @@ daemon joins them, driving each through its public seams:
 The refit has no catch-all: an error in it, a device fault included,
 ends the cycle before the publish, so the registry keeps its stable.
 
-Not ported yet, raising ``NotImplementedError`` with ROADMAP.md queue 1
-item 12: a ``module:function`` string factory (``fleet/worker.
-load_workflow_factory``) and the fleet mode (``fleet=``, a canary judged
-by a serving fleet).
+``train_cache_dir`` is accepted for the JAX package's signature and
+left unused: the port keeps no compiled-program cache (the validator
+does the same).
 
 Fault points:
 
 * ``continuous.refit_crash`` - hard kill in the window between refit
-  completion and registry publish: the registry must keep the old
-  stable, and the NEXT cycle (a fresh daemon re-polling the same shards)
-  must recover end-to-end.
+  completion and registry publish: the registry (and therefore the
+  fleet) must keep the old stable, and the NEXT cycle (a fresh daemon
+  re-polling the same shards) must recover end-to-end.
 * ``drift.false_positive`` - forces a trigger on a healthy window: the
-  refit is published and promoted on its merits, so a spurious detection
-  cannot wedge the loop.
+  refit is published and promoted on its merits (in fleet mode the
+  healthy canary auto-promotes or cleanly releases the slot), so a
+  spurious detection cannot wedge or degrade the loop.
 """
 from __future__ import annotations
 
@@ -80,11 +87,12 @@ class ContinuousTrainer:
 
     ``registry`` is a :class:`ModelRegistry` or its root path;
     ``workflow_factory`` is a zero-arg callable returning a FRESH
-    workflow (or a tuple whose first element is one), so the daemon and
-    the seed trainer rebuild the identical workflow.  Promote is a direct
-    registry pointer flip.  A ``module:function`` string factory and
-    ``fleet=`` raise ``NotImplementedError`` naming ROADMAP.md queue 1
-    item 12 until ``fleet/`` is ported."""
+    workflow (or a tuple whose first element is one), or an importable
+    ``module:function`` spec - the same contract fleet replica workers
+    use, so the daemon, the workers and the seed trainer all rebuild the
+    identical workflow.  ``fleet`` is an optional started
+    :class:`~..fleet.controller.FleetController`; without one, promote
+    is a direct registry pointer flip."""
 
     def __init__(
         self,
@@ -103,17 +111,17 @@ class ContinuousTrainer:
         pipeline_workers: int = 2,
         settle_s: float = 0.0,
         bootstrap: bool = False,
+        train_cache_dir: Optional[str] = None,
+        canary_fraction: float = 0.5,
+        canary_min_rows: int = 48,
+        canary_timeout_s: float = 90.0,
+        canary_poll_s: float = 0.1,
     ) -> None:
         if isinstance(workflow_factory, str):
-            raise NotImplementedError(
-                "a module:function workflow factory loads through "
-                "fleet/worker.py, which is not ported to the torch package "
-                "yet (ROADMAP.md queue 1, item 12); pass a callable")
-        if fleet is not None:
-            raise NotImplementedError(
-                "the continuous trainer's fleet mode (fleet=) waits for "
-                "fleet/, which is not ported to the torch package yet "
-                "(ROADMAP.md queue 1, item 12); run in direct mode")
+            from ..fleet.worker import load_workflow_factory
+
+            workflow_factory = load_workflow_factory(workflow_factory)
+        self.fleet = fleet
         self.workflow_factory = workflow_factory
         self.registry = (registry if isinstance(registry, ModelRegistry)
                          else ModelRegistry(str(registry)))
@@ -126,6 +134,13 @@ class ContinuousTrainer:
         self.refit_rows = int(refit_rows)
         self.train_fused = train_fused
         self.pipeline_workers = int(pipeline_workers)
+        #: accepted and unused: the port keeps no compiled-program cache
+        self.train_cache_dir = (str(train_cache_dir)
+                                if train_cache_dir else None)
+        self.canary_fraction = float(canary_fraction)
+        self.canary_min_rows = int(canary_min_rows)
+        self.canary_timeout_s = float(canary_timeout_s)
+        self.canary_poll_s = max(float(canary_poll_s), 0.01)
         # bounded most-recent-rows refit buffer: a refit trains on the
         # freshest refit_rows rows the tail has seen, nothing older
         self._buffer: deque = deque(maxlen=self.refit_rows)
@@ -253,7 +268,8 @@ class ContinuousTrainer:
 
     # -- one cycle ----------------------------------------------------------
     def run_cycle(self) -> dict:
-        """Poll → window-score → (maybe) refit → publish → promote, the whole cycle under ONE trace id.  Returns the cycle
+        """Poll → window-score → (maybe) refit → publish → canary →
+        verdict, the whole cycle under ONE trace id.  Returns the cycle
         document (also kept as ``last_cycle`` and folded into the
         status file)."""
         self.cycles += 1
@@ -276,8 +292,8 @@ class ContinuousTrainer:
                                       "train_fused": trail}
                     sp.set_attr("rows", train_rows)
                 # THE crash window the refit_crash drill kills in: the
-                # refit exists only in this process; the registry must be
-                # unaffected by dying here
+                # refit exists only in this process; the registry (and
+                # therefore the fleet) must be unaffected by dying here
                 _faults.inject_kill("continuous.refit_crash")
                 with _obs_trace.span("continuous.publish") as sp:
                     entry = self.registry.publish(model, metrics={
@@ -334,14 +350,62 @@ class ContinuousTrainer:
         return verdict, forced
 
     def _rollout(self, version: str, model, cycle: dict) -> str:
-        """Publish -> promote hand-off in direct mode: a stable pointer
-        flip, and the refit becomes the drift baseline."""
-        with _obs_trace.span("continuous.verdict", version=version,
-                             mode="direct"):
-            self.registry.promote(version, to="stable")
-            self.promotes += 1
-            self._adopt(model, version)
-        return "promote"
+        """Publish -> promote hand-off.  Fleet mode: canary at
+        ``canary_fraction``, poll merged telemetry until the policy
+        rolls back, ``canary_min_rows`` canary rows auto-promote, or
+        the verdict window expires and the slot is released undecided.
+        Direct mode: stable pointer flip.  A promoted refit becomes the
+        drift baseline."""
+        if self.fleet is None:
+            with _obs_trace.span("continuous.verdict", version=version,
+                                 mode="direct"):
+                self.registry.promote(version, to="stable")
+                self.promotes += 1
+                self._adopt(model, version)
+            return "promote"
+        outcome: Optional[str] = None
+        decision = None
+        canary_rows = 0
+        with _obs_trace.span("continuous.canary", version=version,
+                             fraction=self.canary_fraction) as sp:
+            self.fleet.start_canary(version,
+                                    fraction=self.canary_fraction)
+            deadline = time.monotonic() + self.canary_timeout_s
+            while time.monotonic() < deadline:
+                decision = self.fleet.check_canary()
+                if decision is not None and decision.rollback:
+                    outcome = "rollback"
+                    break
+                tel = self.fleet.canary_telemetry()
+                canary_rows = int(
+                    tel.get("canary", {}).get("rows_scored") or 0)
+                if canary_rows >= self.canary_min_rows:
+                    outcome = "promote"
+                    break
+                time.sleep(self.canary_poll_s)  # bounded poll quantum
+            sp.set_attr("rows", canary_rows)
+            sp.set_attr("outcome", outcome or "timeout")
+        cycle["canary_rows"] = canary_rows
+        with _obs_trace.span("continuous.verdict",
+                             version=version) as sp:
+            if outcome == "promote":
+                self.fleet.promote_canary()
+                self.promotes += 1
+                self._adopt(model, version)
+            elif outcome == "rollback":
+                # check_canary already rolled the fleet back; the old
+                # baseline stays the drift reference
+                self.rollbacks += 1
+                cycle["rollback_reasons"] = [
+                    dict(r) for r in decision.reasons]
+            else:
+                outcome = "release"
+                self.fleet.release_canary(
+                    reason="continuous: canary verdict window "
+                           "expired undecided")
+                self.releases += 1
+            sp.set_attr("outcome", outcome)
+        return outcome
 
     # -- daemon loop --------------------------------------------------------
     def run(self, max_cycles: Optional[int] = None,
@@ -401,7 +465,7 @@ class ContinuousTrainer:
             "instance": self.instance,
             "watch_dir": self.watch_dir,
             "registry_root": self.registry.root,
-            "mode": "direct",
+            "mode": "fleet" if self.fleet is not None else "direct",
             "stable_version": self.version,
             "registry_stable": self.registry.stable,
             "counters": self.snapshot(),

@@ -453,3 +453,27 @@ class FleetAggregator:
             },
         }
 
+
+
+def health_views(metrics_doc: dict):
+    """``(view_key, snapshot)`` pairs for every ``fleet_health`` view in
+    one metrics document (the per-replica failure-detector plane the
+    fleet router registers) - the shared filter for consumers that
+    surface ejection/readmission state from a router shard (dashboards
+    scraping ``tx_fleet_health_*``)."""
+    for key, snap in (metrics_doc.get("views") or {}).items():
+        if key.partition("/")[0] == "fleet_health" \
+                and isinstance(snap, dict):
+            yield key, snap
+
+
+def autoscaler_views(metrics_doc: dict):
+    """``(view_key, snapshot)`` pairs for every ``autoscaler`` view in
+    one metrics document (an elastic-capacity control loop registers
+    exactly one per process) - the shared filter for consumers
+    surfacing scale-decision state from a control-plane shard
+    (dashboards scraping ``tx_autoscaler_*``)."""
+    for key, snap in (metrics_doc.get("views") or {}).items():
+        if key.partition("/")[0] == "autoscaler" \
+                and isinstance(snap, dict):
+            yield key, snap

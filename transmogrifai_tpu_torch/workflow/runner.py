@@ -23,6 +23,12 @@ OpWorkflowRunner.scala:296-365, OpApp.scala:49-209) and port of
                    signal-driven automatic rollback, and export the
                    deployment summary (generations, lifecycle events,
                    rollback evidence) as JSON
+* fleet          - scale-out serving (fleet/): bring up N replica worker
+                   processes behind the least-loaded router, each on the
+                   workflow's device, pump the reader's rows through
+                   the fleet as concurrent batches, optionally rolling
+                   hot-swap to a new registry version mid-traffic, and
+                   export the fleet status + router counters
 * continuous     - a bounded run of the drift-triggered refit controller
                    (continuous/): tail ``watch_dir`` for shards, score
                    each window's drift against the stable model's
@@ -39,8 +45,9 @@ run takes the pipelined sharded reader (``ingest_shards``) and the
 successive-halving ``autotune`` knobs, the serve run the
 ``serving_autotune`` A/B knob probes, and every run ships the process's
 observability plane into ``fleet_dir`` / ``TX_OBS_FLEET_DIR``.  The
-``fleet`` and ``bulk`` run types raise ``NotImplementedError`` until
-their subsystems are ported (ROADMAP.md queue 1, item 12).
+``bulk`` run type and the fleet run's ``fleet_autoscale`` knob raise
+``NotImplementedError`` until their subsystems are ported (ROADMAP.md
+queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ from .params import OpParams
 from .workflow import OpWorkflow, OpWorkflowModel
 
 #: the run types whose subsystems wait for ROADMAP.md queue 1, item 12
-UNPORTED_RUN_TYPES = ("fleet", "bulk")
+UNPORTED_RUN_TYPES = ("bulk",)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -177,6 +184,8 @@ class OpWorkflowRunner:
                     result = self._serve(params)
                 elif run_type == "deploy":
                     result = self._deploy(params)
+                elif run_type == "fleet":
+                    result = self._fleet(params)
                 elif run_type == "continuous":
                     result = self._continuous(params)
                 else:
@@ -652,6 +661,198 @@ class OpWorkflowRunner:
             ) as f:
                 json.dump(rows, f, default=str)
         return OpWorkflowRunnerResult(run_type="deploy", metrics=metrics)
+
+    def _fleet(self, params: OpParams) -> OpWorkflowRunnerResult:
+        """Scale-out fleet serving run.  Knobs ride
+        OpParams.custom_params: ``registry_root`` (required),
+        ``fleet_workflow`` (required ``module:function`` factory the
+        replica workers rebuild the workflow from - the same spec the
+        runner CLI's ``--workflow`` takes), ``fleet_replicas``
+        (default 2), ``fleet_dir`` (obs aggregation dir; default under
+        the fleet work dir), ``fleet_work_dir``, ``registry_publish``
+        (publish model_location as a new version; default: only when
+        the registry has no stable), ``fleet_deploy_version`` (rolling
+        hot-swap to this version mid-traffic), ``fleet_batch_rows``
+        (rows per routed batch, default 512), ``fleet_concurrency``
+        (client pump threads, default 4), ``fleet_tenant_quota``,
+        ``fleet_max_in_flight``, plus the worker serve knobs
+        ``serving_buckets`` / ``serving_drift_policy`` /
+        ``serving_fused_backend`` (auto|torch|numpy).  Network knobs:
+        ``fleet_transport`` ("unix" on-host fast path, default; "tcp"
+        for the cross-host wire, loopback-drillable), ``fleet_quorum``
+        + ``fleet_tenant_priority`` (brownout: below quorum healthy
+        replicas, tenants under priority 1 shed loudly),
+        ``fleet_response_timeout_s`` (per-request silence ceiling
+        driving ejection), ``fleet_deadline_ms`` (per-batch deadline
+        that rides the wire so replicas drop abandoned work), and the
+        ReplicaHealth eject/readmit knobs ``fleet_eject_after`` /
+        ``fleet_probe_interval_s`` / ``fleet_probe_timeout_s``.  The
+        replicas score on the runner workflow's device (the card for
+        ``OpWorkflow()``).
+        ``fleet_autoscale`` raises ``NotImplementedError``: the
+        autoscaler is not ported (ROADMAP.md queue 1, item 12).
+        Exports the one-document fleet status + router counters to
+        ``<metrics_location>/fleet_metrics.json``."""
+        import threading
+
+        from ..fleet import FleetController
+        from ..local.scorer import FUSED_BACKENDS
+        from ..registry import ModelRegistry
+        from ..serving import records_from_dataset
+
+        cp = params.custom_params
+        root = cp.get("registry_root")
+        spec = cp.get("fleet_workflow")
+        if not root or not spec:
+            raise ValueError(
+                "fleet run requires custom_params['registry_root'] and "
+                "['fleet_workflow'] (module:function)"
+            )
+        if cp.get("fleet_autoscale"):
+            raise _not_ported("the fleet run's fleet_autoscale knob "
+                              "(fleet/autoscaler.py)")
+        backend = cp.get("serving_fused_backend")
+        if backend and backend not in FUSED_BACKENDS:
+            raise ValueError(
+                f"serving_fused_backend must be one of {FUSED_BACKENDS}, "
+                f"got {backend!r}")
+        registry = ModelRegistry(root)
+        published = None
+        if params.model_location and cp.get(
+                "registry_publish", registry.stable is None):
+            model = self._load_model(params)
+            published = registry.publish(model)
+            if registry.stable is None:
+                registry.promote(published.version, to="stable")
+        worker_args = []
+        if cp.get("serving_buckets"):
+            worker_args += ["--buckets", ",".join(
+                str(b) for b in cp["serving_buckets"])]
+        if cp.get("serving_drift_policy"):
+            worker_args += ["--drift-policy",
+                            str(cp["serving_drift_policy"])]
+        if backend:
+            worker_args += ["--fused-backend", str(backend)]
+        router_kw = {
+            "max_in_flight_per_replica": int(
+                cp.get("fleet_max_in_flight", 4)),
+            "max_queue": int(cp.get("fleet_max_queue", 256)),
+        }
+        if cp.get("fleet_tenant_quota") is not None:
+            router_kw["tenant_quota"] = float(cp["fleet_tenant_quota"])
+        if cp.get("fleet_quorum") is not None:
+            router_kw["quorum"] = int(cp["fleet_quorum"])
+        if cp.get("fleet_tenant_priority") is not None:
+            router_kw["tenant_priority"] = dict(
+                cp["fleet_tenant_priority"])
+        if cp.get("fleet_response_timeout_s") is not None:
+            router_kw["response_timeout_s"] = float(
+                cp["fleet_response_timeout_s"])
+        reader = self._reader("score")
+        if reader is not None:
+            raw = reader.generate_dataset(self.workflow.raw_features,
+                                          params.reader_params)
+        else:
+            raw = self.workflow.generate_raw_data()
+        records = records_from_dataset(
+            raw, [f for f in self.workflow.raw_features
+                  if not f.is_response])
+        step = max(int(cp.get("fleet_batch_rows", 512)), 1)
+        batches = [records[lo:lo + step]
+                   for lo in range(0, len(records), step)]
+        health_kw = {}
+        if cp.get("fleet_eject_after") is not None:
+            health_kw["eject_after"] = int(cp["fleet_eject_after"])
+        if cp.get("fleet_probe_interval_s") is not None:
+            health_kw["probe_interval_s"] = float(
+                cp["fleet_probe_interval_s"])
+        if cp.get("fleet_probe_timeout_s") is not None:
+            health_kw["probe_timeout_s"] = float(
+                cp["fleet_probe_timeout_s"])
+        controller = FleetController(
+            root, str(spec),
+            n_replicas=int(cp.get("fleet_replicas", 2)),
+            work_dir=cp.get("fleet_work_dir"),
+            fleet_dir=cp.get("fleet_dir") or os.environ.get(
+                "TX_OBS_FLEET_DIR"),
+            router_kw=router_kw,
+            worker_args=worker_args,
+            transport=str(cp.get("fleet_transport", "unix")),
+            device=self.workflow.device,
+            **health_kw,
+        )
+        deadline_ms = cp.get("fleet_deadline_ms")
+        deadline_ms = None if deadline_ms is None else float(deadline_ms)
+        rolling_report = None
+        with controller:
+            n_threads = max(int(cp.get("fleet_concurrency", 4)), 1)
+            lock = threading.Lock()
+            idx = {"i": 0}
+            counts = {"ok": 0, "failed": 0}
+            errors: list[str] = []
+
+            def pump() -> None:
+                while True:
+                    with lock:
+                        i = idx["i"]
+                        if i >= len(batches):
+                            return
+                        idx["i"] = i + 1
+                    try:
+                        res = controller.router.score_batch(
+                            batches[i], timeout_s=120.0,
+                            deadline_ms=deadline_ms)
+                        with lock:
+                            counts["ok"] += len(res)
+                    except Exception as e:  # noqa: BLE001 - batch isolation
+                        with lock:
+                            counts["failed"] += len(batches[i])
+                            errors.append(f"{type(e).__name__}: {e}")
+
+            # half the traffic lands before the rolling deploy, half
+            # after, when one is requested - the deploy runs mid-load
+            threads = [threading.Thread(target=pump, daemon=True)
+                       for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            if cp.get("fleet_deploy_version"):
+                rolling_report = controller.rolling_deploy(
+                    str(cp["fleet_deploy_version"]))
+            deadline = time.monotonic() + float(
+                cp.get("fleet_pump_timeout_s", 3600.0))
+            for t in threads:
+                t.join(timeout=max(deadline - time.monotonic(), 0.05))
+            still_running = [t for t in threads if t.is_alive()]
+            if still_running:
+                # counts harvested below would silently under-report;
+                # say so loudly in the exported metrics instead
+                errors.append(
+                    f"{len(still_running)} pump thread(s) still "
+                    f"running at fleet_pump_timeout_s - row counts "
+                    f"are partial")
+            rows_ok, rows_failed = counts["ok"], counts["failed"]
+            status = controller.status()
+        metrics = {
+            "run_type": "fleet",
+            "registry_root": root,
+            "replicas": int(cp.get("fleet_replicas", 2)),
+            "rows_submitted": len(records),
+            "rows_ok": rows_ok,
+            "rows_failed": rows_failed,
+            "errors": errors[:16],
+            "published_version":
+                published.version if published else None,
+            "rolling_deploy": rolling_report,
+            "status": status,
+        }
+        if params.metrics_location:
+            from ..obs import write_json_artifact
+
+            os.makedirs(params.metrics_location, exist_ok=True)
+            write_json_artifact(
+                os.path.join(params.metrics_location,
+                             "fleet_metrics.json"), metrics)
+        return OpWorkflowRunnerResult(run_type="fleet", metrics=metrics)
 
     def _continuous(self, params: OpParams) -> OpWorkflowRunnerResult:
         """The ``continuous`` run type: a BOUNDED run of the
