@@ -1386,11 +1386,12 @@ def head_family(model) -> str:
 
 
 def serve_one(kernels, tag: str, model, rebuild, records: list, data,
-              tmp: str, bin_errs: list) -> dict:
+              tmp: str, bin_errs: list, profiled: bool = True) -> dict:
     """Save ``model``, load it into ``rebuild()``, serve ``records`` through
     the loaded model's ``score_function()`` on the card (torch-fused) and
     on the host (numpy-fused) at every SERVE_BATCHES size, counted and
-    held; returns what the result lines need."""
+    held, and with ``profiled`` one call of the largest batch under the
+    profiler; returns what the result lines need."""
     from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
 
     path = os.path.join(tmp, tag)
@@ -1505,10 +1506,11 @@ def serve_one(kernels, tag: str, model, rebuild, records: list, data,
         scorer.score_batch(big)
         return time.perf_counter() - t0
 
-    wall_s, by_name = profile(one_call)
-    out["profiled"] = {"wall_ms": 1e3 * wall_s, "device_ms": log_profile(
-        f"serve {tag}", 1e3 * wall_s, by_name, 6,
-        what=f"score_batch of {len(big)} records")}
+    if profiled:
+        wall_s, by_name = profile(one_call)
+        out["profiled"] = {"wall_ms": 1e3 * wall_s, "device_ms": log_profile(
+            f"serve {tag}", 1e3 * wall_s, by_name, 6,
+            what=f"score_batch of {len(big)} records")}
     for m, st in sorted(scorer.fused.bucket_stats.items()):
         log(f"[serve {tag}] bucket {m}: first call {st['compile_ms']:.3f} ms"
             f" (device program {st['first_exec_ms']:.3f} ms)")
@@ -2524,6 +2526,10 @@ def fleet_step(kernels, tmp: str, serve_csv: str, records: list,
             f"{FLEET_REPLICAS} workers up ({(used['up'] - used['before']) / FLEET_REPLICAS:.0f}"
             f" B a worker), {used['routed']} B after the traffic")
 
+        # -- [bulk] while the three workers are up ------------------------
+        out["bulk"] = bulk_step(kernels, tmp, serve_csv, records, want, fc,
+                                bin_errs)
+
         # -- the SIGKILL drill ----------------------------------------------
         victim = fc._replicas["replica-1"]
         kill: dict = {}
@@ -2589,6 +2595,10 @@ def fleet_step(kernels, tmp: str, serve_csv: str, records: list,
             "to plain; replica-1 as of its last shipped view): "
             + ", ".join(f"{k} {w['k2_launches']}"
                         for k, w in out["workers"].items()))
+
+        # -- [autoscale] on the same controller ----------------------------
+        out["autoscale"] = autoscale_step(kernels, records, want, batches,
+                                          starts, fc, bin_errs)
     finally:
         watching.set()
         fc.stop()
@@ -2615,10 +2625,571 @@ def fleet_step(kernels, tmp: str, serve_csv: str, records: list,
         log_bins_times(f"[fleet] {tuple(x.shape)} x {edges.shape[1]} edges "
                        f"-> {dtype} ({launches[m]} launches in the workers)",
                        b)
+    # the autoscaler's new workers served at the same shapes
+    grown: dict = {}
+    for w in out["autoscale"]["surge"]["workers"].values():
+        for key, n in w["k2_shapes"].items():
+            m = int(key.split("x")[0])
+            grown[m] = grown.get(m, 0) + n
+    assert set(grown) <= set(k2_inputs), (sorted(grown), sorted(k2_inputs))
+    for b in out["k2_shapes"]:
+        b["autoscale_launches"] = grown.get(b["shape"][0], 0)
+    # [bulk]'s local chunks, timed at their shapes
+    bulk = out["bulk"]
+    bulk["k2_shapes"] = []
+    for m, (x, edges, dtype) in sorted(bulk.pop("k2_inputs").items()):
+        b = time_bins(kernels, x, edges, dtype)
+        b["bulk_launches"] = sum(v.get(m, 0) for v in bulk["k2"].values())
+        bulk["k2_shapes"].append(b)
+        log_bins_times(f"[bulk] {tuple(x.shape)} x {edges.shape[1]} edges "
+                       f"-> {dtype} ({b['bulk_launches']} launches here)", b)
     out["k2_launches"] = sum(w["k2_launches"] for w in out["workers"].values())
     out["wall_s"] = time.perf_counter() - t_step
     log(f"[fleet] step wall {out['wall_s']:.1f} s")
     return out
+
+
+# -- [bulk]: exactly-once bulk scoring on the card --------------------------------
+
+#: [bulk]: [serve]'s held-out CSV in BULK_SHARDS shard files of
+#: consecutive rows, scored with ``chunk_rows`` BULK_CHUNK_ROWS (a CSV
+#: shard is read in 16 MB chunks, so each of these shards arrives as one
+#: chunk: ``chunk_rows`` sizes record-oriented shards)
+BULK_SHARDS, BULK_CHUNK_ROWS = 4, 4096
+#: the kill drill: the child dies once the second shard's output is
+#: durable, before its journal receipt
+BULK_KILL_FAULT = "bulk.output_crash:on=2"
+
+
+def write_csv_shards(path: str, out_dir: str, n: int) -> list:
+    """``path``'s rows in ``n`` CSV files of consecutive rows, each with
+    the header; returns their paths in order."""
+    with open(path) as f:
+        header, *lines = f.read().splitlines(keepends=True)
+    os.makedirs(out_dir, exist_ok=True)
+    step = -(-len(lines) // n)
+    paths = []
+    for k in range(n):
+        p = os.path.join(out_dir, f"part-{k}.csv")
+        with open(p, "w") as f:
+            f.write(header)
+            f.writelines(lines[k * step:(k + 1) * step])
+        paths.append(p)
+    return paths
+
+
+def bulk_rows(blob: bytes, keys: list) -> np.ndarray:
+    """A bulk job's output lines (one Prediction each) -> [n, k] float64
+    in ``keys`` order (the output's keys are sorted; ``score_function``
+    rows are in the prediction's own order)."""
+    rows = [next(iter(json.loads(line).values()))
+            for line in blob.splitlines()]
+    return np.array([[r[k] for k in keys] for r in rows], dtype=np.float64)
+
+
+def cli_json(argv: list) -> tuple:
+    """(exit code, JSON document) of ``cli.main(argv)`` in this process."""
+    import io
+
+    from transmogrifai_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return rc, json.loads(buf.getvalue())
+
+
+def bulk_step(kernels, tmp: str, serve_csv: str, records: list,
+              want: np.ndarray, fc, bin_errs: list) -> dict:
+    """``[bulk]``, inside ``[fleet]`` while its three workers are up:
+    [serve]'s held-out CSV in BULK_SHARDS shards through
+    ``BulkScoringJob`` on [serve]'s saved forest (v1), on the card's
+    torch-fused route, every K2 launch of this process held against
+    plain; a child on the card that loads v1 through
+    ``fleet_forest_workflow`` and dies by ``BULK_KILL_FAULT``, and this
+    process's resume of its job; the same shards through the fleet
+    (``router=fc``); ``cli bulk status`` and ``cli fleet status``.  Every
+    output row is held at 0 ULP against ``want`` (``score_function()``'s
+    rows over ``records``).  Returns the result lines' pieces."""
+    from transmogrifai_tpu_torch.bulk import (
+        BulkJournal,
+        BulkScoringJob,
+        concatenated_output,
+    )
+    from transmogrifai_tpu_torch.faults import DEFAULT_KILL_EXIT
+    from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
+    from transmogrifai_tpu_torch.testkit.drills import (
+        BULK_KILL_CHILD_TEMPLATE,
+        drill_env,
+    )
+    from transmogrifai_tpu_torch.utils.uid import reset_uids
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflowModel
+
+    t_step = time.perf_counter()
+    out: dict = {"walls": {}}
+    shards = write_csv_shards(serve_csv, os.path.join(tmp, "bulk_in"),
+                              BULK_SHARDS)
+    forest_dir = os.path.join(tmp, "forest")
+    # the output lines name the result feature, and its name carries the
+    # stages' uids: load v1 into the workflow a fresh process (the kill
+    # child) builds first, so the two write the same bytes
+    reset_uids()
+    wf = serve_front(serve_csv, OpRandomForestClassifier(**SERVE_FOREST))
+    wf.device = fc.device
+    model = OpWorkflowModel.load(forest_dir, wf)
+    assert model.device == fc.device
+    keys = list(next(iter(
+        model.score_function().score_batch(records[:1])[0].values())))
+
+    def held(kept) -> dict:
+        """Each K2 call of ``kept`` against plain; launches by rows."""
+        by_rows: dict = {}
+        for args in kept["bin_matrix"]:
+            assert args[0].device.type == fc.device, args[0].device
+            bin_errs.append(check_bins(kernels, *args))
+            m = int(args[0].shape[0])
+            by_rows[m] = by_rows.get(m, 0) + 1
+        return by_rows
+
+    # -- 1: the uninterrupted job, local, on the card -------------------
+    job_dir = os.path.join(tmp, "bulk_job")
+    kernels.reset_launches()
+    with kernel_inputs(kernels) as kept:
+        t0 = time.perf_counter()
+        summary = BulkScoringJob(model, job_dir, shards,
+                                 chunk_rows=BULK_CHUNK_ROWS,
+                                 fused_backend="torch").run()
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    assert summary["scorer_backend"] == "torch", summary["scorer_backend"]
+    led = summary["ledger"]
+    assert led["balanced"] and led["complete"], led
+    assert led["rows_in"] == led["rows_out"] + led["rows_quarantined"]
+    assert led["rows_out"] == len(records) and led["rows_quarantined"] == 0
+    blob = concatenated_output(job_dir)
+    got = bulk_rows(blob, keys)
+    assert got.shape == want.shape and np.array_equal(got, want), (
+        f"[bulk] rows differ from score_function(), up to "
+        f"{max_ulps(got, want):g} ULP")
+    assert launches["fused_moments"] == 0, launches
+    assert launches["bin_matrix"] == len(kept["bin_matrix"]) >= BULK_SHARDS
+    k2 = {"local": held(kept)}
+    k2_inputs = {int(a[0].shape[0]): a for a in kept["bin_matrix"]}
+    del kept
+    out["local"] = {"rows": led["rows_out"], "wall_s": wall,
+                    "rows_per_s": led["rows_out"] / wall,
+                    "job_rows_per_s": summary["rows_per_s"],
+                    "launches": launches["bin_matrix"],
+                    "bytes": len(blob)}
+    log(f"[bulk] {len(records)} held-out rows in {BULK_SHARDS} CSV shards "
+        f"through BulkScoringJob on the card ({summary['scorer_backend']}-"
+        f"fused, chunk_rows {BULK_CHUNK_ROWS}): {wall:.3f} s, "
+        f"{out['local']['rows_per_s']:.0f} rows/s; ledger rows_in "
+        f"{led['rows_in']} == rows_out {led['rows_out']} + quarantined "
+        f"{led['rows_quarantined']}; every row 0 ULP from score_function(); "
+        f"K2 launched {launches['bin_matrix']} times at rows "
+        f"{k2['local']}, each equal to plain")
+
+    # -- 2: the kill drill: a child on the card dies, this process resumes
+    kill_dir = os.path.join(tmp, "bulk_kill")
+    script = os.path.join(tmp, "bulk_kill_child.py")
+    with open(script, "w") as f:
+        f.write(BULK_KILL_CHILD_TEMPLATE.format(
+            repo=os.path.dirname(os.path.abspath(__file__)),
+            fault=BULK_KILL_FAULT, n=0, job_dir=kill_dir, shards=shards,
+            chunk=BULK_CHUNK_ROWS, device=fc.device, model_dir=forest_dir,
+            factory=FLEET_WORKFLOW))
+    env = dict(drill_env(), **{FLEET_CSV_ENV: serve_csv})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script], env=env, timeout=600,
+                          capture_output=True, text=True)
+    child_s = time.perf_counter() - t0
+    assert proc.returncode == DEFAULT_KILL_EXIT, (
+        f"[bulk] the kill child exited {proc.returncode}: "
+        f"{proc.stderr[-3000:]}")
+    killed = BulkJournal.load(kill_dir)
+    states = killed.states()
+    assert states["committed"] == 1 and states["assigned"] == 1, states
+    assert os.path.exists(killed.output_path(1))
+    kernels.reset_launches()
+    with kernel_inputs(kernels) as kept:
+        t0 = time.perf_counter()
+        resumed = BulkScoringJob(model, kill_dir,
+                                 fused_backend="torch").run()
+        resume_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    assert resumed["resumed"] is True
+    (resume,) = resumed["resumes"]
+    assert resume["recovered_states"] == {"1": "assigned"}, resume
+    assert resume["rescored_shards"] == [1], resume
+    # no shard committed twice: the child's committed shard 0 is never
+    # scored again, the resume scores the three it did not commit
+    assert resumed["shards_scored_this_run"] == BULK_SHARDS - 1
+    assert launches["bin_matrix"] == len(kept["bin_matrix"])
+    k2["resume"] = held(kept)
+    del kept
+    assert concatenated_output(kill_dir) == blob, \
+        "[bulk] the resumed output is not byte-equal to the uninterrupted run"
+    rled = resumed["ledger"]
+    assert rled["balanced"] and rled["rows_out"] == len(records), rled
+    done = BulkJournal.load(kill_dir)
+    assert done.states()["committed"] == BULK_SHARDS
+    assert all(done.verify_output(s) for s in done.shard_ids())
+    out["kill"] = {"child_s": child_s, "child_exit": proc.returncode,
+                   "states_at_kill": states, "resume_s": resume_s,
+                   "rescored_shards": resume["rescored_shards"],
+                   "launches": launches["bin_matrix"]}
+    log(f"[bulk] kill drill: a child on the card loaded v1 through "
+        f"{FLEET_WORKFLOW} and died by {BULK_KILL_FAULT} (exit "
+        f"{proc.returncode}, {child_s:.3f} s) with journal states {states}; "
+        f"this process resumed in {resume_s:.3f} s, re-scoring shard(s) "
+        f"{resume['rescored_shards']} and scoring {BULK_SHARDS - 1} "
+        f"uncommitted shards (none committed twice); the output is "
+        f"byte-equal to the uninterrupted run; K2 {launches['bin_matrix']} "
+        f"launches, each equal to plain")
+
+    # -- 3: the same shards through the fleet ---------------------------
+    before = fc.router.snapshot()
+    views_before = fleet_views(fc)
+    fleet_dir = os.path.join(tmp, "bulk_fleet")
+    t0 = time.perf_counter()
+    fsum = BulkScoringJob(model, fleet_dir, shards, router=fc,
+                          chunk_rows=BULK_CHUNK_ROWS).run()
+    fleet_s = time.perf_counter() - t0
+    fled = fsum["ledger"]
+    assert fled["balanced"] and fled["rows_out"] == len(records), fled
+    frows = bulk_rows(concatenated_output(fleet_dir), keys)
+    assert np.array_equal(frows, got), (
+        f"[bulk] fleet rows differ from the local run's, up to "
+        f"{max_ulps(frows, got):g} ULP")
+    snap = fc.router.snapshot()
+    assert snap["rows_ok"] - before["rows_ok"] == len(records)
+    assert snap["requests_failed"] == before["requests_failed"]
+    by_inst = {k: v["requests_ok"] for k, v in snap["replicas"].items()}
+    views = wait_fleet_views(fc, sorted(by_inst), {
+        k: views_before[k]["held"] + n - before["replicas"][k]["requests_ok"]
+        for k, n in by_inst.items()})
+    worker_k2 = {}
+    for inst in sorted(by_inst):
+        v = views[inst]
+        assert v["held"] == v["launches"], (inst, v)
+        assert v["mismatches"] == 0 and v["max_abs_err"] == 0, (inst, v)
+        bin_errs.append(v["max_abs_err"])
+        worker_k2[inst] = v["launches"] - views_before[inst]["launches"]
+    rows_by = {k: v["rows_ok"] - before["replicas"][k]["rows_ok"]
+               for k, v in snap["replicas"].items()}
+    out["fleet"] = {"wall_s": fleet_s, "rows_per_s": len(records) / fleet_s,
+                    "rows_by_replica": rows_by, "k2_launches": worker_k2}
+    log(f"[bulk] the same shards through the fleet's {len(by_inst)} "
+        f"workers: {fleet_s:.3f} s, {out['fleet']['rows_per_s']:.0f} rows/s; "
+        f"rows by replica {rows_by}; every row equal to the local run's; "
+        f"K2 launches in the workers {worker_k2}, each equal to plain")
+
+    # -- 4: the operator's view --------------------------------------------
+    rc, doc = cli_json(["bulk", "status", job_dir])
+    assert rc == 0 and doc["n_shards"] == BULK_SHARDS, (rc, doc)
+    assert doc["states"]["committed"] == BULK_SHARDS
+    assert doc["ledger"] == led, (doc["ledger"], led)
+    rc, kdoc = cli_json(["bulk", "status", kill_dir])
+    assert rc == 0 and kdoc["resume_count"] == 1
+    assert kdoc["rescored_shards"] == [1]
+    # the controller rewrites its status document every monitor tick
+    deadline = time.monotonic() + 30.0
+    while True:
+        rc, fdoc = cli_json(["fleet", "status", "--path", fc.control_dir])
+        router = fdoc.get("status", {}).get("router", {})
+        if rc == 0 and router.get("rows_ok") == snap["rows_ok"]:
+            break
+        assert time.monotonic() < deadline, (rc, router, snap["rows_ok"])
+        time.sleep(0.1)
+    assert set(fdoc["status"]["replicas"]) == set(fc.member_instances())
+    log(f"[bulk] cli bulk status: {doc['states']}, ledger rows_in "
+        f"{doc['ledger']['rows_in']}, the kill job's resume_count "
+        f"{kdoc['resume_count']}; cli fleet status: router rows_ok "
+        f"{router['rows_ok']} over replicas "
+        f"{sorted(fdoc['status']['replicas'])}, equal to the router's")
+    out["k2"] = k2
+    out["k2_inputs"] = k2_inputs
+    out["wall_s"] = time.perf_counter() - t_step
+    log(f"[bulk] step wall {out['wall_s']:.1f} s")
+    return out
+
+
+# -- [autoscale]: the capacity control loop over the card's workers ---------------
+
+#: [autoscale]: the fleet between AUTOSCALE_MIN and AUTOSCALE_MAX serving
+#: workers, one decision window every AUTOSCALE_INTERVAL_S driven from the
+#: step's own loop; a low target utilization sizes the one scale-up
+#: straight to the maximum
+AUTOSCALE_MIN, AUTOSCALE_MAX = 2, 4
+AUTOSCALE_INTERVAL_S, AUTOSCALE_TARGET_UTIL = 0.1, 0.25
+#: the surge's client threads, the live retune's probe records and each
+#: stage's deadline
+AUTOSCALE_CLIENTS, AUTOSCALE_PROBE_ROWS = 12, 2048
+AUTOSCALE_DEADLINE_S = 120.0
+
+
+def autoscale_step(kernels, records: list, want: np.ndarray, batches: list,
+                   starts: list, fc, bin_errs: list) -> dict:
+    """``[autoscale]``, on ``[fleet]``'s controller after its SIGKILL drill
+    (two workers serving, the killed one a gave-up member):
+    ``FleetAutoscaler(min 2, max 4)`` with live probe records and no
+    ``measure_fn``, ``step()`` driven here.  Under a FleetPump surge one
+    scale-up brings the fleet to four workers on the card, whose rows are
+    0 ULP from ``score_function()`` and whose K2 launches are held
+    against plain in the workers; with no load, scale-down decisions
+    drain it back to two, no request dropped and the row ledger exact;
+    then under a tight p99 objective (a real SLO engine over the workers'
+    shipped metrics) one A/B retune of the micro-batch knobs, its winner
+    applied on every member.  Returns the result lines' pieces."""
+    from transmogrifai_tpu_torch.fleet import FleetAutoscaler
+    from transmogrifai_tpu_torch.obs.slo import SLObjective, SLOEngine
+
+    t_step = time.perf_counter()
+    out: dict = {"decisions": []}
+    scaler = FleetAutoscaler(
+        fc, min_replicas=AUTOSCALE_MIN, max_replicas=AUTOSCALE_MAX,
+        interval_s=AUTOSCALE_INTERVAL_S, up_consecutive=2,
+        down_consecutive=2, cooldown_windows=1,
+        target_utilization=AUTOSCALE_TARGET_UTIL, retune_enabled=False,
+        probe_records=records[:AUTOSCALE_PROBE_ROWS],
+        probe_timeout_s=120.0, drain_timeout_s=60.0)
+
+    def window(stage: str):
+        t0 = time.perf_counter()
+        d = scaler.step()
+        if d is not None:
+            wall = time.perf_counter() - t0
+            row = {"stage": stage, "action": d.action,
+                   "outcome": d.outcome, "reason": d.reason,
+                   "members_before": d.members_before,
+                   "members_after": d.members_after, "target": d.target,
+                   "wall_s": wall,
+                   "utilization": d.evidence.get("utilization")}
+            out["decisions"].append(row)
+            log(f"[autoscale] {stage}: {d.action} ({d.outcome}; "
+                f"{d.reason}) members {d.members_before} -> "
+                f"{d.members_after}, target {d.target}, utilization "
+                f"{d.evidence.get('utilization')}, decision wall "
+                f"{wall:.3f} s")
+        return d
+
+    def live() -> list:
+        return sorted(h.instance for h in fc.router.live_replicas())
+
+    start_live = live()
+    assert len(start_live) == AUTOSCALE_MIN, start_live
+    snap0 = fc.router.snapshot()
+
+    # -- 1: the surge: a pass of the held-out records (at least 8
+    # batches a client) from AUTOSCALE_CLIENTS clients, during which one
+    # scale-up goes to the
+    # maximum (the new workers come up as the pass drains); then one more
+    # pass over the grown fleet, its windows held at the maximum -------
+    grown: dict = {}
+
+    def surge(pump) -> None:
+        while pump.done() < pump.total:
+            d = window("surge")
+            if d is not None and d.action == "scale_up":
+                grown["decision"] = d
+                return
+            time.sleep(AUTOSCALE_INTERVAL_S)
+
+    def at_max(pump) -> None:
+        while pump.done() < pump.total:
+            window("surge")
+            time.sleep(AUTOSCALE_INTERVAL_S)
+
+    t0 = time.perf_counter()
+    pumped = FleetPump(fc, batches, AUTOSCALE_CLIENTS,
+                       total=max(len(batches), 8 * AUTOSCALE_CLIENTS)
+                       ).run(surge)
+    assert "decision" in grown, "[autoscale] the surge never scaled up"
+    more = FleetPump(fc, batches, AUTOSCALE_CLIENTS,
+                     total=len(batches)).run(at_max)
+    surge_s = time.perf_counter() - t0
+    up = grown["decision"]
+    added = up.evidence["added"]
+    assert len(live()) == AUTOSCALE_MAX, live()
+    assert len(added) == AUTOSCALE_MAX - len(start_live), up.evidence
+    assert [d["action"] for d in out["decisions"]].count("scale_up") == 1
+    reqs = pumped["requests"] + more["requests"]
+    errors = [r for *_, r in reqs if isinstance(r, BaseException)]
+    assert not errors, f"[autoscale] {len(errors)} requests failed"
+    rows_by_inst: dict = {}
+    for b, _ta, _tb, res in reqs:
+        got = serve_rows(res.results)
+        ref = want[starts[b]:starts[b] + len(batches[b])]
+        assert np.array_equal(got, ref), (
+            f"[autoscale] batch {b} on {res.instance}: up to "
+            f"{max_ulps(got, ref):g} ULP from score_function()")
+        rows_by_inst[res.instance] = (rows_by_inst.get(res.instance, 0)
+                                      + len(batches[b]))
+    surge_rows = sum(len(batches[b]) for b, *_ in reqs)
+    for inst in added:
+        doc = fc.router.control(inst, "status", timeout_s=60.0)
+        assert doc["device"] == fc.device, (inst, doc["device"])
+        assert rows_by_inst.get(inst, 0) > 0, (inst, rows_by_inst)
+    snap = fc.router.snapshot()
+    by_inst = {k: v["requests_ok"] for k, v in snap["replicas"].items()}
+    views = wait_fleet_views(fc, added, by_inst)
+    new_workers = {}
+    for inst in added:
+        v = views[inst]
+        assert v["held"] == v["launches"] >= 1, (inst, v)
+        assert v["mismatches"] == 0 and v["max_abs_err"] == 0, (inst, v)
+        bin_errs.append(v["max_abs_err"])
+        new_workers[inst] = {"pid": v["pid"], "k2_launches": v["launches"],
+                             "k2_shapes": v["shapes"],
+                             "rows": rows_by_inst[inst],
+                             "memory_allocated": v["memory_allocated"]}
+    out["surge"] = {"wall_s": surge_s, "requests": len(reqs),
+                    "rows": surge_rows, "rows_per_s": surge_rows / surge_s,
+                    "scale_up_wall_s": next(
+                        d["wall_s"] for d in out["decisions"]
+                        if d["action"] == "scale_up"),
+                    "rows_by_replica": rows_by_inst, "added": added,
+                    "workers": new_workers}
+    log(f"[autoscale] surge: {len(reqs)} batches ({surge_rows} rows: two "
+        f"passes) from {AUTOSCALE_CLIENTS} clients in {surge_s:.3f} s; one "
+        f"scale_up "
+        f"brought {added} up on the card (each reports device {fc.device}) in "
+        f"{out['surge']['scale_up_wall_s']:.3f} s, {len(live())} workers "
+        f"serving; rows by replica {rows_by_inst}, every row 0 ULP from "
+        f"score_function(); the new workers' K2 launches "
+        + ", ".join(f"{k} {w['k2_launches']} at {w['k2_shapes']}"
+                    for k, w in new_workers.items())
+        + ", each equal to plain")
+
+    # -- 2: no load: scale-down drains back to the minimum ---------------
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + AUTOSCALE_DEADLINE_S
+    while len(live()) > AUTOSCALE_MIN:
+        assert time.monotonic() < deadline, (
+            f"[autoscale] the idle fleet never shrank: {live()}")
+        window("idle")
+        time.sleep(AUTOSCALE_INTERVAL_S)
+    idle_s = time.perf_counter() - t0
+    downs = [d for d in out["decisions"] if d["action"] == "scale_down"]
+    assert downs, out["decisions"]
+    assert live() == start_live, (live(), start_live)
+    snap = fc.router.snapshot()
+    assert snap["rows_ok"] - snap0["rows_ok"] == surge_rows, (
+        snap["rows_ok"], snap0["rows_ok"], surge_rows)
+    assert snap["requests_failed"] == snap0["requests_failed"]
+    out["idle"] = {"wall_s": idle_s, "scale_downs": len(downs),
+                   "live": live()}
+    log(f"[autoscale] no load: {len(downs)} scale_down decision(s) in "
+        f"{idle_s:.3f} s drained the fleet back to {live()}; no request "
+        f"dropped, the router's rows_ok moved by exactly the surge's "
+        f"{surge_rows} rows")
+
+    # -- 3: a tight p99 objective burns: one live A/B retune --------------
+    scaler.retune_enabled = True
+    engine = fc.slo_engine
+    fc.slo_engine = SLOEngine(
+        [SLObjective(name="serving-p99-latency", kind="threshold",
+                     metric="serving.latency_ms.p99", objective=1e-3,
+                     windows_s=(300.0, 60.0))],
+        doc_fn=fc.aggregator.merged_metrics_docs, register=False)
+    retune: dict = {}
+
+    def burn(pump) -> None:
+        deadline = time.monotonic() + AUTOSCALE_DEADLINE_S
+        while time.monotonic() < deadline:
+            d = window("burn")
+            if d is not None and d.action == "retune":
+                retune["decision"] = d
+                break
+            time.sleep(AUTOSCALE_INTERVAL_S)
+        pump.finish(0)
+
+    try:
+        t0 = time.perf_counter()
+        pumped = FleetPump(fc, batches, 2).run(burn)
+        retune_s = time.perf_counter() - t0
+    finally:
+        fc.slo_engine = engine
+    assert "decision" in retune, "[autoscale] no retune under the burn"
+    d = retune["decision"]
+    assert d.outcome in ("tuned", "baseline_held"), d.outcome
+    assert not [r for *_, r in pumped["requests"]
+                if isinstance(r, BaseException)]
+    members = sorted(fc.member_instances())
+    assert d.evidence["applied_on"] == live(), (d.evidence["applied_on"],
+                                                live())
+    kd = d.evidence["knob_decision"]
+    cap = (kd["winner"]["max_batch_size"] if d.outcome == "tuned" else None)
+    for inst in live():
+        knobs = fc.router.control(inst, "status", timeout_s=60.0)["knobs"]
+        assert knobs["max_batch_size"] == cap, (inst, knobs, cap)
+    out["retune"] = {"outcome": d.outcome, "winner": kd["winner"],
+                     "baseline": kd.get("baseline"), "wall_s": retune_s,
+                     "decision_wall_s": out["decisions"][-1]["wall_s"],
+                     "applied_on": d.evidence["applied_on"],
+                     "probes": kd.get("probes")}
+    log(f"[autoscale] p99 objective 0.001 ms burning over the workers' "
+        f"shipped metrics: one retune, {d.outcome}, winner {kd['winner']} "
+        f"(baseline {kd.get('baseline')}) applied on {live()} (members "
+        f"{members}) in {out['decisions'][-1]['wall_s']:.3f} s")
+    out["scaler"] = scaler.snapshot()
+    out["wall_s"] = time.perf_counter() - t_step
+    log(f"[autoscale] step wall {out['wall_s']:.1f} s")
+    return out
+
+
+# -- [cli]: the project generator, host only ---------------------------------------
+
+def cli_step(tmp: str, serve_csv: str) -> dict:
+    """``[cli]``: ``cli.main(["gen", ...])`` on [serve]'s README CSV, the
+    generated ``build_workflow()`` imported and checked to build a port
+    workflow on the card, and every generated source AST-checked to
+    import no module of the JAX package.  Nothing is trained here."""
+    import ast
+    import importlib.util
+
+    from transmogrifai_tpu_torch.workflow.workflow import OpWorkflow
+
+    t0 = time.perf_counter()
+    proj = os.path.join(tmp, "gen_project")
+    from transmogrifai_tpu_torch import cli
+
+    rc = cli.main(["gen", "--input", serve_csv, "--response", "survived",
+                   "--name", "SmokeApp", "--output", proj])
+    assert rc == 0
+    imported = set()
+    for name in sorted(os.listdir(proj)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(proj, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else
+                    [node.module or ""]
+                    if isinstance(node, ast.ImportFrom) else [])
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in ("transmogrifai_tpu", "jax"), (name, m)
+                imported.add(m)
+    assert any(m.startswith("transmogrifai_tpu_torch") for m in imported)
+    spec = importlib.util.spec_from_file_location(
+        "smoke_generated_main", os.path.join(proj, "main.py"))
+    main_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(main_mod)
+    wf, prediction, evaluator = main_mod.build_workflow()
+    assert isinstance(wf, OpWorkflow) and wf.device == "cuda", wf.device
+    assert type(wf).__module__.startswith("transmogrifai_tpu_torch.")
+    wall = time.perf_counter() - t0
+    files = sorted(os.listdir(proj))
+    log(f"[cli] cli gen on [serve]'s CSV wrote {files}; the generated "
+        f"build_workflow() builds a {type(wf).__name__} of "
+        f"{type(wf).__module__} on {wf.device} ({type(evaluator).__name__}); "
+        f"its sources import {len(imported)} modules, none of the JAX "
+        f"package; {wall:.3f} s")
+    return {"files": files, "device": wf.device, "wall_s": wall,
+            "imports": sorted(imported)}
 
 
 def serve_phase(kernels, readme_model, bin_errs: list,
@@ -2659,9 +3230,12 @@ def serve_phase(kernels, readme_model, bin_errs: list,
         log(f"[serve] {len(records)} held-out records from a CSV of seed "
             f"{SERVE_SEED}; fields {names}")
         build = readme_build or (lambda path: readme_example(path)[0])
+        # the README model's profiled call was cut to make room for
+        # [bulk] and [autoscale] (7.5 s of the profiler's first start and
+        # read); the forest's and the GBT's stay
         out["readme"] = serve_one(
             kernels, "readme", readme_model, lambda: build(serve_csv),
-            records, data, tmp, bin_errs)
+            records, data, tmp, bin_errs, profiled=False)
         for tag, cls, params in (("forest", OpRandomForestClassifier,
                                   SERVE_FOREST),
                                  ("gbt", OpGBTClassifier, SERVE_GBT)):
@@ -2685,10 +3259,12 @@ def serve_phase(kernels, readme_model, bin_errs: list,
         out["fleet"] = fleet_step(kernels, tmp, serve_csv, records,
                                   out["forest"]["rows"], deploy["serve"],
                                   bin_errs)
+        cli_out = cli_step(tmp, serve_csv)
     fleet = out.pop("fleet")
     for v in out.values():
         del v["rows"]
     out["fleet"] = fleet
+    out["cli"] = cli_out
     # K2 at the serving shapes: the served forest's own inputs
     shapes = []
     for m in SERVE_BATCHES:
@@ -5768,6 +6344,15 @@ def serve_by_path(serve: dict, k: str) -> dict:
     # to none there)
     out.update({f"fleet_{inst}": w["k2_launches"] if k == "bin_matrix"
                 else 0 for inst, w in serve["fleet"]["workers"].items()})
+    # [bulk]: this process's uninterrupted job and its resume of the
+    # killed job (the fleet path's launches are in the fleet workers'
+    # counts above); [autoscale]: the workers it added
+    bulk = serve["fleet"]["bulk"]
+    out.update({f"bulk_{what}": sum(bulk["k2"][what].values())
+                if k == "bin_matrix" else 0 for what in ("local", "resume")})
+    out.update({f"autoscale_{inst}": w["k2_launches"]
+                if k == "bin_matrix" else 0 for inst, w in
+                serve["fleet"]["autoscale"]["surge"]["workers"].items()})
     return out
 
 
@@ -6372,6 +6957,7 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
         "serve_path_shapes": serve["k2_shapes"],
         "deploy_path_shapes": serve["deploy"]["k2_shapes"],
         "fleet_path_shapes": serve["fleet"]["k2_shapes"],
+        "bulk_path_shapes": serve["fleet"]["bulk"]["k2_shapes"],
         "fused_train_path_shapes": sel_shape_rows("bin_matrix",
                                                   fused["shapes"]),
         "fused_train_existing_launches": fused["existing_launches"][

@@ -50,6 +50,10 @@ from torch_parity import (
     tiny_pipeline,
 )
 
+from transmogrifai_tpu_torch.testkit.drills import (
+    CONTINUOUS_REFIT_CRASH_TEMPLATE,
+)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -332,26 +336,9 @@ def test_false_positive_trigger_promotes_healthy_refit(tmp_path):
     assert c["forced"] is False and c["verdict"] in ("clear", "suppressed")
 
 
-REFIT_CRASHER = """
-import os, sys
-sys.path.insert(0, {repo!r}); sys.path.insert(0, {tests!r})
-sys.modules["jax"] = None  # the torch package never needs it
-import torch
-torch.set_num_threads(1)
-from test_torch_continuous import _factory
-from torch_parity import PORT
-from transmogrifai_tpu_torch.continuous import ContinuousTrainer
-from transmogrifai_tpu_torch.faults import injection
-trainer = ContinuousTrainer(
-    {watch!r}, {root!r}, _factory(PORT),
-    drift_threshold=0.05, consecutive_windows=1, cooldown_windows=0,
-    min_window_rows=8, refit_rows=256, train_fused=False,
-)
-injection.configure({fault!r})            # arm the crash
-trainer.run_cycle()                       # dies at continuous.refit_crash
-os._exit(0)                               # unreachable when armed
-"""
-
+#: the refit-crash child: the port's testkit template (the tiny drill
+#: factory on the CPU, the same stages as ``_factory``)
+REFIT_CRASHER = CONTINUOUS_REFIT_CRASH_TEMPLATE
 
 def test_refit_crash_leaves_old_stable_and_next_cycle_recovers(tmp_path):
     reg_root = str(tmp_path / "registry")

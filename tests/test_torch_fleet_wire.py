@@ -597,10 +597,14 @@ def test_health_views_extracts_fleet_health_from_metrics_doc():
 @pytest.mark.parametrize("name", ["FleetAutoscaler", "ScaleGovernor",
                                   "AutoscaleDecision"])
 def test_autoscaler_names_raise_naming_item_12(name):
+    """The autoscaler's names, once raises, are importable from the port's
+    ``fleet`` and listed in its ``__all__`` as in the reference's; an
+    unknown name is still an ``AttributeError``."""
     fleet = mod(PORT, "fleet")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        getattr(fleet, name)
-    assert name not in fleet.__all__
+    obj = getattr(fleet, name)
+    assert obj is getattr(mod(PORT, "fleet.autoscaler"), name)
+    assert name in fleet.__all__
+    assert name in mod(REF, "fleet").__all__
     with pytest.raises(AttributeError):
         getattr(fleet, "NoSuchName")
 

@@ -32,6 +32,11 @@ import pytest
 from torch_mesh_world import REPO, check_result, run_world
 from torch_parity import PORT, mod
 
+from transmogrifai_tpu_torch.testkit.drills import (
+    MESH_BOOTSTRAP_CHILD_TEMPLATE,
+    MESH_PEER_CHILD_TEMPLATE,
+)
+
 faults = mod(PORT, "faults.injection")
 dist = mod(PORT, "parallel.distributed")
 resilience = mod(PORT, "parallel.resilience")
@@ -194,20 +199,8 @@ def test_nested_guards_run_inline():
 
 # -- peer health: hang-once / die-once child drills --------------------------
 
-PEER_CHILD = """
-import os, sys, time
-sys.modules["jax"] = None
-sys.path.insert(0, {repo!r})
-from transmogrifai_tpu_torch.parallel.resilience import PeerHealth
-ph = PeerHealth({hb_dir!r}, process_id={peer_id})
-for _ in range({beats}):
-    ph.beat()
-    time.sleep({interval})
-if {mode!r} == "die":
-    os._exit({exit_code})
-time.sleep(600)  # hang: alive but no longer beating
-"""
-
+#: the peer child: the port's testkit template
+PEER_CHILD = MESH_PEER_CHILD_TEMPLATE
 
 def _child_env() -> dict:
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -344,30 +337,14 @@ def test_initialize_bootstrap_deadline_with_injected_absent_coordinator(
     assert snap["bootstrap_timeouts"] == 1
 
 
-BOOTSTRAP_CHILD = """
-import os, sys
-sys.modules["jax"] = None
-sys.path.insert(0, {repo!r})
-from transmogrifai_tpu_torch.parallel.distributed import (
-    MeshBootstrapError, initialize)
-try:
-    initialize(coordinator_address={addr!r}, num_processes=2, process_id=1,
-               backend="gloo")
-except MeshBootstrapError as e:
-    print("MESH_BOOTSTRAP_ERROR:", str(e)[:160], flush=True)
-    os._exit(42)  # _exit: a half-dialled rendezvous must not block exit
-except Exception as e:
-    print("OTHER_ERROR:", type(e).__name__, str(e)[:160], flush=True)
-    os._exit(43)
-print("NO_ERROR", flush=True)
-os._exit(0)
-"""
-
+#: the bootstrap child (rank 1 of 2 on gloo): the port's testkit template
+BOOTSTRAP_CHILD = MESH_BOOTSTRAP_CHILD_TEMPLATE
 
 def _run_bootstrap_child(tmp_path, addr: str, env_extra: dict,
                          timeout: int = 120):
     script = tmp_path / "bootstrap.py"
-    script.write_text(BOOTSTRAP_CHILD.format(repo=REPO, addr=addr))
+    script.write_text(BOOTSTRAP_CHILD.format(repo=REPO, addr=addr,
+                                             process_id=1))
     return subprocess.run(
         [sys.executable, str(script)], env=dict(_child_env(), **env_extra),
         timeout=timeout, capture_output=True, text=True,

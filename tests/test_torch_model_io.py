@@ -31,6 +31,7 @@ from torch_parity import PORT, REF, SERVE_FAMILIES, mixed_pipeline, mod, \
 from transmogrifai_tpu_torch.faults import injection as faults
 from transmogrifai_tpu_torch.interop import load_reference_artifact
 from transmogrifai_tpu_torch.serialization import model_io
+from transmogrifai_tpu_torch.testkit.drills import CRASH_SAVER_TEMPLATE
 from transmogrifai_tpu_torch.serialization.model_io import (
     ARRAYS_NPZ,
     LAST_GOOD_SUFFIX,
@@ -373,20 +374,9 @@ def test_roundtrip_scores_match_after_swap_save(tmp_path):
     assert _port_scores(m2, data) == before
 
 
-CRASH_SAVER = """
-import os, sys
-sys.path.insert(0, {repo!r}); sys.path.insert(0, {tests!r})
-sys.modules["jax"] = None  # the torch package never needs it
-from test_torch_model_io import tiny_pipeline
-wf, _ = tiny_pipeline()
-model = wf.train()
-model.save({path!r})                      # clean v1
-from transmogrifai_tpu_torch.faults import injection
-injection.configure({fault!r})            # arm the crash
-model.save({path!r})                      # dies at the injected point
-os._exit(0)                               # unreachable when armed
-"""
-
+#: the kill-during-save child: the port's testkit template (the tiny
+#: drill pipeline on the CPU, the same stages as ``tiny_pipeline``)
+CRASH_SAVER = CRASH_SAVER_TEMPLATE
 
 @pytest.mark.parametrize("point", [
     "io.save_model.crash", "io.save_model.crash_window",

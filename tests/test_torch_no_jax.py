@@ -3,6 +3,7 @@ JAX package, its entry points run on CUDA unless told otherwise, and its
 kernel wrapper has no fallback path."""
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -165,6 +166,68 @@ def test_no_jax_or_reference_import(path):
         top = name.split(".")[0]
         assert top != "jax" and top != "jaxlib", f"{path} imports {name}"
         assert top != "transmogrifai_tpu", f"{path} imports {name}"
+
+
+def _source_imports(src: str) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+def _assert_port_only(src: str, where: str) -> None:
+    """``src`` imports the port and neither jax nor the JAX package, and
+    names no ``transmogrifai_tpu`` module even in a string."""
+    imports = _source_imports(src)
+    for name in imports:
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "transmogrifai_tpu"), \
+            f"{where} imports {name}"
+    assert not re.search(r"\btransmogrifai_tpu\b(?!_torch)", src), where
+    assert "JAX_PLATFORMS" not in src, where
+
+
+class _AnyKey(dict):
+    """format_map values for a template's keys: a placeholder each."""
+
+    def __missing__(self, key):
+        return "1"
+
+
+_TEMPLATES = sorted(
+    n for n in dir(mod(PORT, "testkit.drills")) if n.endswith("_TEMPLATE"))
+
+
+@pytest.mark.parametrize("name", _TEMPLATES)
+def test_drill_templates_import_only_the_port(name):
+    """Each child template imports ``transmogrifai_tpu_torch`` only (the
+    ones that import the package at all), with jax made unimportable
+    first."""
+    tpl = getattr(mod(PORT, "testkit.drills"), name)
+    src = str.format_map(tpl, _AnyKey(tpl.defaults))
+    _assert_port_only(src, name)
+    if any(n.startswith(PORT) for n in _source_imports(src)):
+        assert 'sys.modules["jax"] = None' in src, name
+
+
+def test_generated_project_imports_only_the_port(tmp_path):
+    """``cli gen`` emits a project whose sources import the port only."""
+    csv_path = tmp_path / "data.csv"
+    csv_path.write_text("y,a,c\n" + "".join(
+        f"{i % 2},{i * 0.5},{'uvw'[i % 3]}\n" for i in range(40)))
+    out = tmp_path / "app"
+    mod(PORT, "cli").generate(str(csv_path), "y", "App", str(out))
+    sources = sorted(out.glob("*.py"))
+    assert {p.name for p in sources} == {
+        "main.py", "score.py", "serve.py", "test_smoke.py"}
+    for p in sources:
+        src = p.read_text()
+        _assert_port_only(src, p.name)
+        assert any(n.startswith(PORT) for n in _source_imports(src)) \
+            or p.name == "test_smoke.py", p.name
 
 
 @pytest.mark.parametrize(

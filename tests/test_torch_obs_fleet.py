@@ -29,6 +29,12 @@ import pytest
 
 from torch_parity import PORT, REF, mod, tiny_pipeline
 
+from transmogrifai_tpu_torch.testkit.drills import (
+    FLEET_DEPLOY_CHILD_TEMPLATE,
+    FLEET_DRILL_CHILD_TEMPLATE,
+    FLEET_SHIPPER_CHILD_TEMPLATE,
+)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -269,20 +275,8 @@ def test_instance_identity_sanitized_for_labels_and_filenames(tmp_path):
     assert 'instance="evil_name_.._.._x"' in text
 
 
-SHIPPER = CHILD_PRELUDE + """
-import time
-from transmogrifai_tpu_torch.obs import metrics_registry, ship_now, span
-ticks = metrics_registry().counter("drill.ticks")
-print("SHIPPER_READY", os.getpid(), flush=True)
-deadline = time.monotonic() + {duration}
-while time.monotonic() < deadline:
-    with span("shipper.tick", pid=os.getpid()):
-        ticks.inc()
-    ship_now({agg_dir!r})
-    time.sleep({interval})
-os._exit(0)
-"""
-
+#: the shipper child: the port's testkit template
+SHIPPER = FLEET_SHIPPER_CHILD_TEMPLATE
 
 def test_concurrent_shippers_sigkill_one_mid_write(tmp_path):
     """Three port processes ship into one aggregation dir while the
@@ -333,29 +327,9 @@ def test_concurrent_shippers_sigkill_one_mid_write(tmp_path):
             p.stdout.close()
 
 
-GRANDCHILD = CHILD_PRELUDE + """
-from transmogrifai_tpu_torch.obs import ship_now, span
-with span("deploy.child", pid=os.getpid()):
-    pass
-ship_now({agg_dir!r})
-os._exit(0)
-"""
-
-DISPATCHED = CHILD_PRELUDE + """
-import subprocess
-from transmogrifai_tpu_torch.obs import child_env, ship_now, span
-from transmogrifai_tpu_torch.workflow.supervisor import beat
-beat({heartbeat!r})
-with span("child.work", pid=os.getpid()):
-    subprocess.run([sys.executable, "-c", {grand!r}], env=child_env(),
-                   check=True, timeout=120)
-ship_now({agg_dir!r})
-if not os.path.exists({marker!r}):
-    open({marker!r}, "w").close()
-    os._exit({first_exit})
-os._exit(0)
-"""
-
+#: the deploy grandchild and the supervised child: the port's templates
+GRANDCHILD = FLEET_DEPLOY_CHILD_TEMPLATE
+DISPATCHED = FLEET_DRILL_CHILD_TEMPLATE
 
 def test_e2e_supervised_fleet_drill(tmp_path):
     """A supervised run of port children (one re-dispatch after a

@@ -46,6 +46,9 @@ from torch_parity import (
 from transmogrifai_tpu_torch.faults import injection as faults
 from transmogrifai_tpu_torch.faults.injection import InjectedFault
 from transmogrifai_tpu_torch.parallel.kernels import KernelError
+from transmogrifai_tpu_torch.testkit.drills import (
+    REGISTRY_CRASH_PUBLISHER_TEMPLATE,
+)
 from transmogrifai_tpu_torch.registry import (
     DeploymentController,
     ModelRegistry,
@@ -306,25 +309,8 @@ def test_describe_is_one_consistent_view(tmp_path):
 
 # -- the publish crash window (registry.publish_crash) -------------------------------
 
-PUBLISH_CRASHER = """
-import os, sys
-sys.path.insert(0, {repo!r}); sys.path.insert(0, {tests!r})
-sys.modules["jax"] = None  # the torch package never needs it
-import torch
-torch.set_num_threads(1)
-from torch_parity import PORT, tiny_pipeline
-from transmogrifai_tpu_torch.registry import ModelRegistry
-wf, _data, _records, _name = tiny_pipeline(PORT)
-model = wf.train()
-reg = ModelRegistry({root!r})
-v1 = reg.publish(model, metrics={{"auroc": 0.9}})
-reg.promote(v1.version, to="stable")
-from transmogrifai_tpu_torch.faults import injection
-injection.configure({fault!r})            # arm the crash
-reg.publish(model)                        # dies at the injected point
-os._exit(0)                               # unreachable when armed
-"""
-
+#: the publish-crash child: the port's testkit template
+PUBLISH_CRASHER = REGISTRY_CRASH_PUBLISHER_TEMPLATE
 
 def test_publish_crash_leaves_registry_at_prior_version(tmp_path):
     root = str(tmp_path / "reg")

@@ -352,43 +352,71 @@ def test_slo_path_wires_the_deploy_rollback_policy(tmp_path):
     assert os.path.exists(tmp_path / "metrics" / "slo_report.json")
 
 
-# -- the unported pieces raise naming ROADMAP item 12 ------------------------------
+# -- the once-unported pieces: each run type asks for what it needs ----------------
 
 @pytest.mark.parametrize("run_type", ["fleet", "continuous", "bulk"])
-def test_unported_run_types_raise_naming_item_12(run_type, tmp_path):
-    """``bulk`` raises naming item 12, as does the fleet run's
-    ``fleet_autoscale`` knob; ``fleet`` and ``continuous`` are ported and,
-    as in the reference, ask for what they need (the fleet run for its
-    registry root and worker factory, with the reference's message)."""
+def test_unported_run_types_raise_naming_item_12(run_type, tmp_path,
+                                                 monkeypatch):
+    """Every run type is ported, and as in the reference each asks for
+    what it needs with the reference's message: the fleet run for its
+    registry root and worker factory, the continuous run for its watch
+    dir, the bulk run for its job dir.  The fleet run's
+    ``fleet_autoscale`` knob attaches an autoscaler whose columns land in
+    the fleet status document."""
     wf, _data, _pred = _build()
+    ref_wf = tiny_pipeline(REF)[0]
+    ref_runner = mod(REF, "workflow.runner").OpWorkflowRunner(ref_wf)
+    ref_params = mod(REF, "workflow.params").OpParams
     if run_type == "continuous":
         with pytest.raises(ValueError, match="watch_dir"):
             OpWorkflowRunner(wf).run(run_type, OpParams())
         return
-    if run_type == "fleet":
-        ref_wf = tiny_pipeline(REF)[0]
-        for cp in ({}, {"registry_root": str(tmp_path / "r")},
-                   {"fleet_workflow": "m:f"}):
-            with pytest.raises(ValueError) as got:
-                OpWorkflowRunner(wf).run(run_type, OpParams(
-                    custom_params=dict(cp)))
-            with pytest.raises(ValueError) as want:
-                mod(REF, "workflow.runner").OpWorkflowRunner(ref_wf).run(
-                    run_type, mod(REF, "workflow.params").OpParams(
-                        custom_params=dict(cp)))
-            assert str(got.value) == str(want.value)
-            assert "registry_root" in str(got.value)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            OpWorkflowRunner(wf).run(run_type, OpParams(custom_params={
-                "registry_root": str(tmp_path / "r"),
-                "fleet_workflow": "m:f", "fleet_autoscale": True}))
-        with pytest.raises(ValueError, match="serving_fused_backend"):
-            OpWorkflowRunner(wf).run(run_type, OpParams(custom_params={
-                "registry_root": str(tmp_path / "r"),
-                "fleet_workflow": "m:f", "serving_fused_backend": "xla"}))
+    if run_type == "bulk":
+        with pytest.raises(ValueError) as got:
+            OpWorkflowRunner(wf).run(run_type, OpParams())
+        with pytest.raises(ValueError) as want:
+            ref_runner.run(run_type, ref_params())
+        assert str(got.value) == str(want.value)
+        assert "bulk_job_dir" in str(got.value)
         return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        OpWorkflowRunner(wf).run(run_type, OpParams())
+    for cp in ({}, {"registry_root": str(tmp_path / "r")},
+               {"fleet_workflow": "m:f"}):
+        with pytest.raises(ValueError) as got:
+            OpWorkflowRunner(wf).run(run_type, OpParams(
+                custom_params=dict(cp)))
+        with pytest.raises(ValueError) as want:
+            ref_runner.run(run_type, ref_params(custom_params=dict(cp)))
+        assert str(got.value) == str(want.value)
+        assert "registry_root" in str(got.value)
+    with pytest.raises(ValueError, match="serving_fused_backend"):
+        OpWorkflowRunner(wf).run(run_type, OpParams(custom_params={
+            "registry_root": str(tmp_path / "r"),
+            "fleet_workflow": "m:f", "serving_fused_backend": "xla"}))
+    from torch_fleet import PORT_TINY_SPEC, WORKER_ENV
+
+    for k, v in WORKER_ENV.items():
+        monkeypatch.setenv(k, v)
+    reset_uids(PORT)
+    tiny_wf = tiny_pipeline(PORT)[0]
+    tiny_wf.train().save(str(tmp_path / "model"))
+    res = OpWorkflowRunner(tiny_wf).run(run_type, OpParams(
+        model_location=str(tmp_path / "model"),
+        custom_params={
+            "registry_root": str(tmp_path / "r"),
+            "fleet_workflow": PORT_TINY_SPEC,
+            "fleet_replicas": 2, "fleet_work_dir": str(tmp_path / "fleet"),
+            "fleet_batch_rows": 16, "fleet_concurrency": 2,
+            "fleet_autoscale": True, "fleet_min_replicas": 2,
+            "fleet_max_replicas": 3,
+            "fleet_autoscale_interval_s": 0.1,
+            "fleet_target_utilization": 0.6}))
+    m = res.metrics
+    assert m["rows_ok"] == m["rows_submitted"] and m["errors"] == []
+    scaler = m["status"]["autoscaler"]
+    assert scaler["min_replicas"] == 2 and scaler["max_replicas"] == 3
+    assert scaler["alive"] is False and scaler["crashed"] is False
+    assert scaler["decisions_total"] >= 1  # the adoption at least
+    assert scaler["errors"] == 0
 
 
 @pytest.mark.parametrize("run_type,knob", [

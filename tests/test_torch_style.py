@@ -14,11 +14,12 @@ package ``transmogrifai_tpu_torch/``:
   JAX package's ``test_model_artifacts_written_only_via_serialization_
   and_registry``).
 
-The fleet (``fleet/``) is held to the same broad-except rule, to the
-JAX package's bounded-wait gate (``test_no_unbounded_blocking_waits_
-under_parallel_and_workflow``: every ``.join()``/``.wait()``/``.get()``/
-``.recv()`` passes a timeout) and to the device-fault rule of the
-training operations.
+The fleet (``fleet/``, its autoscaler included) and the bulk job
+(``bulk/``) are held to the same broad-except rule, to the JAX package's
+bounded-wait gate (``test_no_unbounded_blocking_waits_under_parallel_
+and_workflow``: every ``.join()``/``.wait()``/``.get()``/``.recv()``
+passes a timeout) and to the device-fault rule of the training
+operations.
 """
 import ast
 import pathlib
@@ -87,11 +88,13 @@ def test_serving_and_workflow_broad_excepts_leave_a_trace():
 
 
 def test_fleet_broad_excepts_leave_a_trace():
-    """Every broad ``except`` under fleet/ re-raises, uses the bound
-    exception, or records telemetry or a log entry: a replica, router or
-    controller failure is never swallowed silently."""
-    handlers = list(_broad_handlers(("fleet",)))
-    assert len(handlers) >= 10  # router, worker and controller loops
+    """Every broad ``except`` under fleet/ and bulk/ re-raises, uses the
+    bound exception, or records telemetry or a log entry: a replica,
+    router, controller, autoscaler or bulk failure is never swallowed
+    silently."""
+    handlers = list(_broad_handlers(("fleet", "bulk")))
+    # router, worker and controller loops, and the autoscaler's four
+    assert len(handlers) >= 14
     offenders = [f"{p}:{h.lineno}" for p, h in handlers
                  if not _handler_is_accounted(h)]
     assert not offenders, offenders
@@ -113,11 +116,13 @@ def _unbounded_waits(tree) -> list:
 
 
 def test_no_unbounded_blocking_waits_under_fleet():
-    """Under fleet/ every blocking wait passes a timeout: a SIGKILLed
-    replica or a wedged router peer must never block dispatch, failover
-    or worker shutdown forever (every fleet wait runs in 50 ms quanta)."""
-    files = sorted((ROOT / "fleet").rglob("*.py"))
-    assert len(files) == 6
+    """Under fleet/ and bulk/ every blocking wait passes a timeout: a
+    SIGKILLed replica or a wedged router peer must never block dispatch,
+    failover, worker shutdown, the autoscaler's loop or a bulk job's
+    fleet window forever (every fleet wait runs in 50 ms quanta)."""
+    files = sorted((ROOT / "fleet").rglob("*.py")) \
+        + sorted((ROOT / "bulk").rglob("*.py"))
+    assert len(files) == 10
     offenders, seen = [], 0
     for p in files:
         tree = ast.parse(p.read_text(encoding="utf-8"))
@@ -126,7 +131,9 @@ def test_no_unbounded_blocking_waits_under_fleet():
                     and n.func.attr in _BLOCKING_METHODS
                     for n in ast.walk(tree))
         offenders += [f"{p}:{n}" for n in _unbounded_waits(tree)]
-    assert seen >= 20  # the gate is not vacuous
+    # the gate is not vacuous: the fleet core's calls, the autoscaler's
+    # 21 and the bulk job's 30
+    assert seen >= 71
     assert not offenders, offenders
     # the gate's own check: a bare wait is caught, a bounded one is not
     assert _unbounded_waits(ast.parse(
@@ -283,14 +290,15 @@ def test_fleet_reads_snapshots_only_via_torn_safe_loader():
 
 #: the training-operations modules whose catch-alls must pass a device
 #: fault through (``parallel.kernels.is_device_fault``)
-_DEVICE_FAULT_SCOPE = (("autotune",), ("continuous",), ("fleet",),
-                       ("readers", "pipeline.py"),
+_DEVICE_FAULT_SCOPE = (("autotune",), ("bulk",), ("continuous",),
+                       ("fleet",), ("readers", "pipeline.py"),
                        ("selector", "validator.py"))
 
 
 def test_training_ops_catch_alls_pass_device_faults_through():
-    """Every broad ``except`` of the autotuner, the continuous trainer,
-    the fleet, the sharded pipeline and the validator either re-raises
+    """Every broad ``except`` of the autotuner, the bulk job, the
+    continuous trainer, the fleet (its autoscaler included), the sharded
+    pipeline and the validator either re-raises
     unconditionally or consults ``is_device_fault``: a device fault is
     never scored as a failed rung, a losing probe, a failed refit, a
     degraded fused dispatch or a per-request replica error."""
@@ -308,7 +316,7 @@ def test_training_ops_catch_alls_pass_device_faults_through():
                              for n in node.body)
             if "is_device_fault" not in names and not bare_raise:
                 offenders.append(f"{p}:{node.lineno}")
-    # rung, fused dispatch, probe, pipeline worker and the fleet's
-    # channel, router, worker and controller
-    assert seen >= 20
+    # rung, fused dispatch, probe, pipeline worker, the fleet's channel,
+    # router, worker and controller, and the autoscaler's four
+    assert seen >= 24
     assert not offenders, offenders

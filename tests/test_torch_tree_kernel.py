@@ -102,6 +102,96 @@ def test_chunked_histogram_matches_one_shot(monkeypatch):
     assert float(one[..., 0].sum()) == N * D
 
 
+@pytest.mark.parametrize("chunk,block_elems",
+                         [(1 << 13, 1 << 26), (5, 1 << 26), (5, 3 * 4 * 60)])
+def test_occupied_nodes_histogram_is_the_full_levels(monkeypatch, chunk,
+                                                     block_elems):
+    """The CPU's occupied-node histogram (``n_nodes``: a level of 64
+    slots, 3 of them holding rows) is the full level's rows of those
+    nodes bit for bit, on non-integer stats, however its rows go into
+    chunks and blocks; the empty slots of the full level are zeros."""
+    rng = np.random.RandomState(3)
+    n, d, L, B = 3000, 4, 64, 32
+    bins = torch.from_numpy(rng.randint(0, B, (n, d)).astype(np.int8))
+    node = torch.from_numpy(rng.choice([3, 17, 40], n))
+    sw = torch.from_numpy(rng.rand(n, 3).astype(np.float32))
+    monkeypatch.setattr(port, "_HIST_CHUNK_ROWS", chunk)
+    monkeypatch.setattr(port, "_HIST_BLOCK_ELEMS", block_elems)
+    full = port._level_hist(bins, node, sw, L, B)
+    occ, local = torch.unique(node, return_inverse=True)
+    compact = port._level_hist(bins, local, sw, L, B, n_nodes=len(occ))
+    assert torch.equal(compact, full[occ])
+    empty = torch.ones(L, dtype=torch.bool)
+    empty[occ] = False
+    assert not full[empty].any()
+
+
+@pytest.mark.parametrize("kind,C,minipn", [("gini", 3, 1.0),
+                                           ("variance", 3, 2.0)])
+def test_deep_tree_on_few_rows_matches_reference(kind, C, minipn):
+    """Depth 9 over 60 rows, where a deep level's slots are mostly empty
+    and the CPU builds only the occupied ones: the heap equals the JAX
+    package's full-level heap (gini exactly, variance within 1e-5)."""
+    bins, stats, w = _inputs(kind, C, seed=11)
+    bins, stats, w = bins[:60], stats[:60], w[:60]
+    mask = np.ones(D, bool)
+    want = [np.asarray(h) for h in ref.fit_tree(
+        bins, stats, w, mask, 9, B, kind, C, minipn, 0.0)]
+    got = [h.numpy() for h in port.fit_tree(
+        torch.from_numpy(bins).to(torch.int8), torch.from_numpy(stats),
+        torch.from_numpy(w), torch.from_numpy(mask), 9, B, kind, C,
+        minipn, 0.0)]
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], want[i])
+    assert not got[2][:7].all()  # it split
+    if kind == "gini":
+        np.testing.assert_array_equal(got[3], want[3])
+    else:
+        np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,C,minipn,minig,masked", [
+    ("gini", 3, 1.0, 0.0, False), ("gini", 3, 3.0, 0.01, True),
+    ("variance", 4, 1.0, 0.0, False), ("variance", 3, 2.0, 0.0, True)])
+def test_occupied_only_fit_equals_the_full_level(monkeypatch, kind, C,
+                                                 minipn, minig, masked):
+    """The CPU's occupied-node path and the full level give the same heap
+    bits, empty slots included, at a depth where most slots are empty
+    (with and without per-node feature masks).  An empty slot keeps the
+    heap's initial entry, so this fails if ``fit_tree``'s initial
+    ``heap_feature``/``heap_thr``/``heap_leaf``/``heap_value`` stop being
+    what the full level writes there."""
+    bins, stats, w = _inputs(kind, C, seed=5)
+    bins, stats, w = bins[:90], stats[:90], w[:90]
+    depth = 8
+    node_mask = None
+    if masked:
+        rng = np.random.RandomState(2)
+        node_mask = torch.from_numpy(rng.rand(2**depth - 1, D) < 0.6)
+    args = (torch.from_numpy(bins).to(torch.int8), torch.from_numpy(stats),
+            torch.from_numpy(w), torch.ones(D, dtype=torch.bool), depth, B,
+            kind, C, minipn, minig, node_mask)
+    assert port._occupied_only(torch.device("cpu"), None, minipn)
+    occupied = port.fit_tree(*args)
+    monkeypatch.setattr(port, "_occupied_only", lambda *a: False)
+    full = port.fit_tree(*args)
+    leaf = full[2].numpy()
+    assert not leaf[:7].all() and leaf[2**depth - 1:].sum() > 100
+    for a, b in zip(occupied, full):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dev,rows,minipn,want", [
+    ("cpu", None, 1.0, True), ("cpu", None, 0.0, False),
+    ("cpu", object(), 1.0, False), ("cuda", None, 1.0, False)])
+def test_occupied_only_is_the_cpus_alone(dev, rows, minipn, want):
+    """The occupied-node path is taken on the CPU with no mesh reducer
+    and a positive ``min_instances_per_node``, and nowhere else: the
+    card and a mesh keep the full level, and at 0 an empty slot's full-
+    level entry would not be the heap's initial one."""
+    assert port._occupied_only(torch.device(dev), rows, minipn) is want
+
+
 @pytest.mark.parametrize(
     "chunk,block_elems",
     [(1 << 13, 1 << 26), (5, 1 << 26), (5, 3 * 4 * 600)],

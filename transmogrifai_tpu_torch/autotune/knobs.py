@@ -31,6 +31,7 @@ which the runner records in run metrics and serving telemetry.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
@@ -284,3 +285,12 @@ def propose_pipeline_knobs(
     return {"workers": int(new_workers),
             "buffer_chunks": int(new_buffer)}
 
+
+
+def measure_wall(fn: Callable[[], object]) -> float:
+    """Tiny probe helper: wall seconds of one call (perf_counter).  On
+    the card ``fn`` should end on a host read (``.item()``, ``.cpu()``)
+    or a ``torch.cuda.synchronize()``, or the wall stops at the launch."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0

@@ -54,9 +54,11 @@ worker, before the guarded step) and ``parallel/distributed.py``
 the registry and canary points in ``registry/``, the continuous and
 drift points in ``continuous/trainer.py``; the reader points also fire
 inside the sharded pipeline's worker shards (``readers/pipeline.py``).
-The engine accepts every point name of the JAX package (bulk and fleet
-too); their call sites come with the subsystems that hold them
-(ROADMAP.md queue 1, item 12).
+The engine accepts every point name of the JAX package; the fleet
+points fire in ``fleet/`` (``autoscaler.crash`` in the autoscaler's
+loop), the bulk points in ``bulk/`` (``bulk.journal_torn``,
+``bulk.commit_crash``, ``bulk.output_crash``) and in the replica worker
+(``bulk.replica_die_midshard``).
 """
 from .injection import (
     DEFAULT_KILL_EXIT,

@@ -37,10 +37,21 @@ SIGKILL), ``fleet.router_stall`` (the dispatcher wedges for a beat),
 responds), ``fleet.slow_peer``, ``channel.corrupt_frame``,
 ``fleet.reconnect_storm``.
 
-Not ported yet: the autoscaler (``FleetAutoscaler``, ``ScaleGovernor``,
-``AutoscaleDecision``); each of those names raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 12).
+The :mod:`.autoscaler` closes the capacity loop: a
+:class:`FleetAutoscaler` control loop grows and shrinks the replica
+count against offered load (SLO burn as the trigger, cost-model
+sizing, hysteresis via :class:`ScaleGovernor`), with probe-gated
+admission, drain-based retirement and a live A/B knob retune over the
+workers' ``retune`` verb; every :class:`AutoscaleDecision` carries its
+evidence.  New replicas come up on the fleet's device like the first
+ones.  Its fault point ``autoscaler.crash`` kills the control loop
+only; the data plane keeps serving.
 """
+from .autoscaler import (
+    AutoscaleDecision,
+    FleetAutoscaler,
+    ScaleGovernor,
+)
 from .channel import (
     ChannelClosedError,
     ChannelProtocolError,
@@ -80,24 +91,13 @@ from .router import (
 )
 from .worker import ReplicaWorker
 
-#: the autoscaler's names, which the port does not have yet
-UNPORTED = ("AutoscaleDecision", "FleetAutoscaler", "ScaleGovernor")
-
-
-def __getattr__(name: str):
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"transmogrifai_tpu_torch.fleet.{name}: the fleet autoscaler is "
-            "not ported yet (ROADMAP.md queue 1, item 12)")
-    raise AttributeError(
-        f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
+    "AutoscaleDecision",
     "BrownoutShedError",
     "ChannelClosedError",
     "ChannelProtocolError",
     "ChannelTimeoutError",
+    "FleetAutoscaler",
     "FleetBatch",
     "FleetChannel",
     "FleetController",
@@ -114,6 +114,7 @@ __all__ = [
     "ReplicaHandle",
     "ReplicaHealth",
     "ReplicaWorker",
+    "ScaleGovernor",
     "UnhostedModelError",
     "UnknownModelError",
     "decode_records",

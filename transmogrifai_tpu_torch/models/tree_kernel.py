@@ -35,6 +35,12 @@ which adds in row order on any number of threads (``index_put_`` there
 does not), so the CPU's partials are the card's.  The same inputs give
 the same bits from run to run.
 
+On the CPU a level builds only its occupied nodes (``_level_nodes``):
+a deep level of a small fit holds far fewer rows than its 2^l slots, so
+this takes the CPU fits' cost from the slots to the rows.  The card
+keeps the full level.  The heaps are the same bits either way; the
+conditions are in ``_occupied_only``.
+
 A forest's trees draw per-node random feature subsets: at each level
 the split search of every node sees only the features of its row of a
 Bernoulli mask that the JAX package draws from its threefry generator
@@ -160,7 +166,8 @@ def _hist_chunk_rows(L: int, B: int) -> int:
     return max(_HIST_CHUNK_ROWS, L * B // _HIST_PARTIAL_RATIO)
 
 
-def _level_hist(bins, node_of_row, stats_w, L: int, B: int, rows=None):
+def _level_hist(bins, node_of_row, stats_w, L: int, B: int, rows=None,
+                n_nodes=None):
     """Per-level histogram [L, d, B, C] by one segment sum over all
     (row, feature) pairs - segment id = ((node * d) + j) * B + bin - in a
     fixed order on every device (see the module docstring): each chunk of
@@ -168,10 +175,13 @@ def _level_hist(bins, node_of_row, stats_w, L: int, B: int, rows=None):
     in chunk order, and the blocks that ``_HIST_BLOCK_ELEMS`` bounds in
     block order.  The card and the CPU chunk alike, so both add the same
     partials.  ``rows``: the mesh's row reducer, which adds the ranks'
-    histograms in rank order (an empty block contributes zeros)."""
+    histograms in rank order (an empty block contributes zeros).
+    ``n_nodes``: build only this many nodes, ``node_of_row`` indexing
+    them, with the chunks and blocks of the full level of ``L``."""
     n, d = bins.shape
     C = stats_w.shape[1]
     S = L * d * B
+    S_out = S if n_nodes is None else n_nodes * d * B
     chunk = _hist_chunk_rows(L, B)
     chunks_per_block = max(1, _HIST_BLOCK_ELEMS // (S * C))
     block = max(1, min(_HIST_BLOCK_ELEMS // d, chunks_per_block * chunk))
@@ -181,22 +191,23 @@ def _level_hist(bins, node_of_row, stats_w, L: int, B: int, rows=None):
         nr, bb, sw = (t[i: i + block] for t in (node_of_row, bins, stats_w))
         nrows = nr.shape[0]
         K = -(-nrows // chunk)
-        chunk_base = torch.arange(nrows, device=bins.device) // chunk * S
+        chunk_base = torch.arange(nrows, device=bins.device) // chunk * S_out
         seg = (chunk_base[:, None] + (nr[:, None] * d + cols[None, :]) * B
                + bb.long()).reshape(-1)
         flat = sw[:, None, :].expand(nrows, d, C).reshape(-1, C)
-        part = torch.zeros((K * S, C), dtype=sw.dtype, device=sw.device)
+        part = torch.zeros((K * S_out, C), dtype=sw.dtype, device=sw.device)
         if sw.device.type == "cpu":
             part.index_add_(0, seg, flat)
         else:
             part.index_put_((seg,), flat, accumulate=True)
-        part = part[:S] if K == 1 else part.view(K, S, C).sum(dim=0)
+        part = part[:S_out] if K == 1 else part.view(K, S_out, C).sum(dim=0)
         hist = part if hist is None else hist + part
     if hist is None:
-        hist = torch.zeros((S, C), dtype=stats_w.dtype, device=stats_w.device)
+        hist = torch.zeros((S_out, C), dtype=stats_w.dtype,
+                           device=stats_w.device)
     if rows is not None:
         hist = rows.sum_ranked(hist)
-    return hist.reshape(L, d, B, C)
+    return hist.reshape(S_out // (d * B), d, B, C)
 
 
 def _impurity(stats: torch.Tensor, kind: str):
@@ -213,6 +224,36 @@ def _impurity(stats: torch.Tensor, kind: str):
         p = stats[..., 1:] / safe_w[..., None]
         imp = 1.0 - (p * p).sum(dim=-1)
     return imp * w, w
+
+
+def _occupied_only(dev: torch.device, rows, min_instances_per_node) -> bool:
+    """Whether ``fit_tree`` builds only each level's occupied nodes (the
+    nodes that hold a row) instead of the full level - a second path of
+    the learner, kept for the CPU's deep fits on few rows (ROADMAP.md
+    lists it, under the level histogram, as a fork to retire).
+
+    The occupied nodes' histograms, split searches and heap entries are
+    the full level's: ``_level_hist`` sizes its chunks and blocks from
+    the full level and adds the same rows in the same order.  An empty
+    slot is right only because ``fit_tree`` initialises its heap to what
+    the full level writes there when ``min_instances_per_node`` is
+    positive: zero statistics, so no split is valid - feature 0,
+    threshold ``max_bins``, a leaf, value 0.  A change to those initial
+    values breaks it (``test_torch_tree_kernel.py`` holds both paths
+    equal).  Not on the card, where finding the occupied nodes syncs
+    with the host at every level, nor under a mesh row reducer, whose
+    ranks hold different occupied nodes."""
+    return dev.type == "cpu" and rows is None and min_instances_per_node > 0
+
+
+def _level_nodes(node_of_row: torch.Tensor, L: int, occupied_only: bool):
+    """The nodes a level builds: ``(local, slots, n_nodes)`` - each row's
+    index among them, their heap slots and their count."""
+    base = L - 1  # heap offset of this level
+    if not occupied_only:
+        return node_of_row, slice(base, base + L), L
+    occ, local = torch.unique(node_of_row, return_inverse=True)
+    return local, base + occ, int(occ.shape[0])
 
 
 def fit_tree(
@@ -251,16 +292,18 @@ def fit_tree(
 
     node_of_row = torch.zeros((n,), dtype=torch.int64, device=dev)
     stats_w = stats_row * w_row[:, None]  # [n, C]
+    occupied_only = _occupied_only(dev, rows, min_instances_per_node)
 
     for level in range(max_depth + 1):
         L = 2**level
-        base = L - 1  # heap offset of this level
+        local, slots, n_nodes = _level_nodes(node_of_row, L, occupied_only)
         # ---- histograms: one segment sum over all (row, feature) pairs --
-        hist = _level_hist(bins, node_of_row, stats_w, L, B, rows)
+        hist = _level_hist(bins, local, stats_w, L, B, rows,
+                           n_nodes=n_nodes)
 
-        node_stats = hist[:, 0, :, :].sum(dim=1)  # [L, C] total per node
+        node_stats = hist[:, 0, :, :].sum(dim=1)  # [nodes, C] per node
         node_imp, node_w = _impurity(node_stats, impurity_kind)
-        heap_value[base: base + L] = node_stats
+        heap_value[slots] = node_stats
 
         if level == max_depth:
             break
@@ -276,14 +319,14 @@ def fit_tree(
         )
         level_mask = feat_mask[None, :]
         if node_mask is not None:
-            level_mask = level_mask & node_mask[base: base + L]
+            level_mask = level_mask & node_mask[slots]
         valid = (
             level_mask[:, :, None]
             & (left_w >= min_instances_per_node)
             & (right_w >= min_instances_per_node)
         )
         gain = torch.where(valid, gain, torch.full_like(gain, -torch.inf))
-        flat_gain = gain.reshape(L, d * B)
+        flat_gain = gain.reshape(n_nodes, d * B)
         # torch.argmax, like jnp.argmax, takes the first maximum
         best_flat = torch.argmax(flat_gain, dim=1)                 # [L]
         best_gain = torch.gather(flat_gain, 1, best_flat[:, None])[:, 0]
@@ -292,16 +335,18 @@ def fit_tree(
 
         splittable = (best_gain >= min_info_gain) & torch.isfinite(best_gain)
         zero = torch.zeros_like(best_feat)
-        heap_feature[base: base + L] = torch.where(splittable, best_feat, zero)
-        heap_thr[base: base + L] = torch.where(
-            splittable, best_bin, torch.full_like(best_bin, B))
-        heap_leaf[base: base + L] = ~splittable
+        # an indexed store does not cast as a sliced one does
+        heap_feature[slots] = torch.where(
+            splittable, best_feat, zero).to(torch.int32)
+        heap_thr[slots] = torch.where(
+            splittable, best_bin, torch.full_like(best_bin, B)).to(torch.int32)
+        heap_leaf[slots] = ~splittable
 
         # ---- route rows -------------------------------------------------
-        row_feat = best_feat[node_of_row]                  # [n]
+        row_feat = best_feat[local]                        # [n]
         row_bin = torch.gather(bins, 1, row_feat[:, None])[:, 0].long()
-        row_split = splittable[node_of_row]
-        go_right = row_split & (row_bin > best_bin[node_of_row])
+        row_split = splittable[local]
+        go_right = row_split & (row_bin > best_bin[local])
         # rows under an already-leaf node keep going "left" into a shadow
         # child that inherits the parent stats -> harmless (prediction
         # stops at the first is_leaf node on the path)

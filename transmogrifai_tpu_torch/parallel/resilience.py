@@ -32,9 +32,8 @@ tier, as ``workflow/supervisor.py`` owns it for whole training runs:
 * :class:`MeshTelemetry` - every detection, retry, shrink and bootstrap
   event, in the snapshot/JSON-export shape of the serving telemetry,
   surfaced in ``utils/tracing`` stage metrics and the model's
-  ``summary_json()``.  (The reference also ships the obs plane to
-  ``TX_OBS_FLEET_DIR`` on each such event; ``obs/fleet`` comes with
-  ROADMAP.md queue 1, item 12.)
+  ``summary_json()``; each detection, shrink and bootstrap timeout also
+  ships the process's obs plane to ``TX_OBS_FLEET_DIR`` at once.
 
 Fault points (``faults/injection.py``, armed via ``TX_FAULTS``):
 ``collective.delay`` (straggler: the step stalls ``delay`` seconds),
@@ -73,6 +72,25 @@ _MAX_EVENTS = 256
 _MAX_SAMPLES = 4096
 
 _HEARTBEAT_RE = re.compile(r"^peer-(\d+)\.heartbeat$")
+
+
+def _ship_degradation() -> None:
+    """Push this process's obs plane to the fleet aggregation dir
+    (``TX_OBS_FLEET_DIR``) the moment a degradation event lands:
+    detections, shrinks, and bootstrap timeouts are exactly the signals
+    a fleet aggregator must not learn about one heartbeat late (rollback
+    signals aggregate across replicas).  Best-effort: a full disk must
+    degrade the *report* of degradation, never the recovery itself."""
+    agg_dir = os.environ.get("TX_OBS_FLEET_DIR")
+    if not agg_dir:
+        return
+    try:
+        from ..obs import fleet as _fleet
+
+        _fleet.ship_now(agg_dir)
+    except OSError as e:
+        log.warning("%s fleet ship after degradation event failed: %s",
+                    LOG_PREFIX, e)
 
 _tls = threading.local()
 
@@ -278,6 +296,7 @@ class MeshTelemetry:
             "%s; dead peers: %s)", LOG_PREFIX, label, deadline_s,
             classification, list(dead_peers),
         )
+        _ship_degradation()
 
     def record_retry(self, label: str, ok: bool, deadline_s: float) -> None:
         with self._lock:
@@ -308,6 +327,7 @@ class MeshTelemetry:
                 "%s collective %r recomputed on survivor mesh in %.3fs",
                 LOG_PREFIX, label, overhead_s,
             )
+        _ship_degradation()
 
     def set_model_version(self, version: Optional[str],
                           generation: Optional[int] = None) -> None:
@@ -325,6 +345,7 @@ class MeshTelemetry:
                 event="bootstrap_timeout", address=str(address),
                 timeout_s=round(timeout_s, 3),
             )
+        _ship_degradation()
 
     # -- reporting ----------------------------------------------------------
     def events_json(self, since_epoch: Optional[float] = None) -> list[dict]:

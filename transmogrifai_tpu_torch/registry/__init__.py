@@ -26,7 +26,7 @@ Runner: the ``deploy`` run type.  Port of
 ``transmogrifai_tpu/registry/``: on a CUDA model every generation warms
 and scores on the card (the torch device program, kernel K2 in every
 tree head), and a device fault is never degraded away.  The operator
-CLI waits for ``cli.py`` (ROADMAP.md queue 1, item 12).
+CLI is ``python -m transmogrifai_tpu_torch.cli registry ...``.
 """
 from .deployment import DeploymentController, Generation, route_key
 from .rollback import RollbackDecision, RollbackPolicy

@@ -45,9 +45,9 @@ run takes the pipelined sharded reader (``ingest_shards``) and the
 successive-halving ``autotune`` knobs, the serve run the
 ``serving_autotune`` A/B knob probes, and every run ships the process's
 observability plane into ``fleet_dir`` / ``TX_OBS_FLEET_DIR``.  The
-``bulk`` run type and the fleet run's ``fleet_autoscale`` knob raise
-``NotImplementedError`` until their subsystems are ported (ROADMAP.md
-queue 1, item 12).
+fleet run attaches the autoscaler with ``fleet_autoscale``, and the
+``bulk`` run type scores sharded files through an exactly-once
+:class:`~..bulk.BulkScoringJob` on the model's device.
 """
 from __future__ import annotations
 
@@ -61,17 +61,6 @@ from typing import Any, Callable, Iterable, Optional
 from ..types.dataset import Dataset
 from .params import OpParams
 from .workflow import OpWorkflow, OpWorkflowModel
-
-#: the run types whose subsystems wait for ROADMAP.md queue 1, item 12
-UNPORTED_RUN_TYPES = ("bulk",)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet "
-        "(ROADMAP.md queue 1, item 12)"
-    )
-
 
 @dataclass
 class OpWorkflowRunnerResult:
@@ -152,8 +141,6 @@ class OpWorkflowRunner:
         from .dag import compute_dag
 
         run_type = run_type.lower().replace("-", "_")
-        if run_type in UNPORTED_RUN_TYPES:
-            raise _not_ported(f"the {run_type!r} run type")
         dag = compute_dag(self.workflow.result_features)
         params.apply_to_dag(dag)
         # declarative SLOs: custom_params {"slo_path": FILE} loads the
@@ -188,6 +175,8 @@ class OpWorkflowRunner:
                     result = self._fleet(params)
                 elif run_type == "continuous":
                     result = self._continuous(params)
+                elif run_type == "bulk":
+                    result = self._bulk(params)
                 else:
                     raise ValueError(f"unknown run type {run_type!r}")
         finally:
@@ -689,8 +678,10 @@ class OpWorkflowRunner:
         ``fleet_probe_interval_s`` / ``fleet_probe_timeout_s``.  The
         replicas score on the runner workflow's device (the card for
         ``OpWorkflow()``).
-        ``fleet_autoscale`` raises ``NotImplementedError``: the
-        autoscaler is not ported (ROADMAP.md queue 1, item 12).
+        ``fleet_autoscale`` attaches a :class:`~..fleet.FleetAutoscaler`
+        for the run (``fleet_min_replicas`` / ``fleet_max_replicas``,
+        ``fleet_autoscale_interval_s``, ``fleet_target_utilization``);
+        the replicas it adds come up on the same device.
         Exports the one-document fleet status + router counters to
         ``<metrics_location>/fleet_metrics.json``."""
         import threading
@@ -708,9 +699,6 @@ class OpWorkflowRunner:
                 "fleet run requires custom_params['registry_root'] and "
                 "['fleet_workflow'] (module:function)"
             )
-        if cp.get("fleet_autoscale"):
-            raise _not_ported("the fleet run's fleet_autoscale knob "
-                              "(fleet/autoscaler.py)")
         backend = cp.get("serving_fused_backend")
         if backend and backend not in FUSED_BACKENDS:
             raise ValueError(
@@ -784,7 +772,22 @@ class OpWorkflowRunner:
         deadline_ms = cp.get("fleet_deadline_ms")
         deadline_ms = None if deadline_ms is None else float(deadline_ms)
         rolling_report = None
+        autoscaler = None
         with controller:
+            if cp.get("fleet_autoscale"):
+                from ..fleet import FleetAutoscaler
+
+                autoscaler = FleetAutoscaler(
+                    controller,
+                    min_replicas=int(cp.get("fleet_min_replicas", 1)),
+                    max_replicas=int(cp.get("fleet_max_replicas", 8)),
+                    interval_s=float(
+                        cp.get("fleet_autoscale_interval_s", 0.5)),
+                    target_utilization=float(
+                        cp.get("fleet_target_utilization", 0.7)),
+                )
+                autoscaler.start()
+
             n_threads = max(int(cp.get("fleet_concurrency", 4)), 1)
             lock = threading.Lock()
             idx = {"i": 0}
@@ -831,6 +834,8 @@ class OpWorkflowRunner:
                     f"running at fleet_pump_timeout_s - row counts "
                     f"are partial")
             rows_ok, rows_failed = counts["ok"], counts["failed"]
+            if autoscaler is not None:
+                autoscaler.stop()
             status = controller.status()
         metrics = {
             "run_type": "fleet",
@@ -853,6 +858,56 @@ class OpWorkflowRunner:
                 os.path.join(params.metrics_location,
                              "fleet_metrics.json"), metrics)
         return OpWorkflowRunnerResult(run_type="fleet", metrics=metrics)
+
+    def _bulk(self, params: OpParams) -> OpWorkflowRunnerResult:
+        """The ``bulk`` run type: a checkpointed, exactly-once
+        batch-inference job - sharded input files stream through the
+        input pipeline straight into the fused scoring program on the
+        model's device (torch-fused on the card, numpy-fused for a
+        ``device="cpu"`` model), each shard's output committing through
+        the atomic journal so a killed run resumes from the last
+        committed shard with zero duplicated or lost rows.  Knobs
+        (custom_params): ``bulk_inputs`` (list of shard paths; optional
+        when ``bulk_job_dir`` already holds a journal to resume),
+        ``bulk_job_dir`` (default <write_location>/bulk), ``bulk_fmt``,
+        ``bulk_errors``, ``bulk_chunk_rows``, ``bulk_workers``,
+        ``bulk_buffer_chunks``, ``bulk_fused_backend`` (numpy|torch)."""
+        from ..bulk import BulkScoringJob
+        from ..readers.pipeline import DEFAULT_CHUNK_ROWS, DEFAULT_WORKERS
+
+        cp = params.custom_params
+        job_dir = cp.get("bulk_job_dir") or (
+            os.path.join(params.write_location, "bulk")
+            if params.write_location else None)
+        if not job_dir:
+            raise ValueError("bulk run needs custom_params "
+                             "{'bulk_job_dir': DIR} or write_location")
+        backend = cp.get("bulk_fused_backend")
+        if backend and backend not in ("numpy", "torch"):
+            raise ValueError(
+                f"bulk_fused_backend must be 'numpy' or 'torch', "
+                f"got {backend!r}")
+        inputs = cp.get("bulk_inputs")
+        model = self._load_model(params)
+        job = BulkScoringJob(
+            model, str(job_dir),
+            [str(p) for p in inputs] if inputs else None,
+            fmt=cp.get("bulk_fmt"),
+            errors=str(cp.get("bulk_errors", "quarantine")),
+            chunk_rows=int(cp.get("bulk_chunk_rows", DEFAULT_CHUNK_ROWS)),
+            workers=int(cp.get("bulk_workers", DEFAULT_WORKERS)),
+            buffer_chunks=int(cp.get("bulk_buffer_chunks", 8)),
+            fused_backend=backend,
+        )
+        metrics = dict(job.run(), run_type="bulk")
+        if params.metrics_location:
+            from ..obs import write_json_artifact
+
+            os.makedirs(params.metrics_location, exist_ok=True)
+            write_json_artifact(
+                os.path.join(params.metrics_location,
+                             "bulk_metrics.json"), metrics)
+        return OpWorkflowRunnerResult(run_type="bulk", metrics=metrics)
 
     def _continuous(self, params: OpParams) -> OpWorkflowRunnerResult:
         """The ``continuous`` run type: a BOUNDED run of the
@@ -971,8 +1026,8 @@ def main(argv=None) -> int:
         description="transmogrifai_tpu_torch workflow runner")
     p.add_argument("--run-type", required=True,
                    choices=["train", "score", "features", "evaluate",
-                            "serve", "deploy", "continuous",
-                            *UNPORTED_RUN_TYPES])
+                            "serve", "deploy", "fleet", "continuous",
+                            "bulk"])
     p.add_argument("--params", help="path to OpParams JSON")
     p.add_argument("--workflow", required=True,
                    help="module:function returning (workflow, evaluator, readers...)")
