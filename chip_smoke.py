@@ -8,6 +8,12 @@ plain torch version on the card, then trains and scores the ported main
 paths at the repo's scale on the card and on the CPU, and checks that the
 two agree:
 
+* each kernel at the shapes of its routes redesigned for small inputs and
+  wide rows (``[redesign]``: K1 at 1M x 538 and 10k x 4 243, K2 at the
+  serving batches and the small bucketizer, fold and LOCO shapes), beside
+  its yardstick, the empty launch of its own grid (``*_floor``) and its
+  time before the redesign; ``--kernels-only`` runs the build, the kernel
+  check and this alone;
 * the passenger AutoML workflow, transmogrify -> SanityChecker ->
   OpLogisticRegression -> AuROC, on 1M rows (kernel ``fused_moments``);
 * the tree slice, transmogrify(label=...) (one decision-tree bucketizer per
@@ -383,6 +389,44 @@ def moments_bound_ms(n: int, d: int) -> float:
     return 1e3 * max(bytes_ / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
 
 
+#: the kernels' cold ms before their redesign for Hopper's small inputs and
+#: wide rows, at the shapes it targets, as PERF.md's kernel table recorded
+#: them (a range where the table gives one for a span of shapes): text for
+#: the [kernel] log lines beside this run's times, never a number of the
+#: kernels line, which holds only what this run measured (and the bound)
+BEFORE_MS = {
+    ("fused_moments", (1_000_000, 538)): 2.9315,
+    ("fused_moments", (10_000, 4243)): 3.1435,
+    ("fused_moments", (10_000_000, 39)): 0.5580,
+    ("bin_matrix", (1, 7)): 0.0053,
+    ("bin_matrix", (8, 7)): 0.0049,
+    ("bin_matrix", (32, 7)): 0.0049,
+    ("bin_matrix", (128, 7)): 0.0049,
+    ("bin_matrix", (16_384, 7)): 0.0075,
+    ("bin_matrix", (8_952, 1)): 0.0069,
+    ("bin_matrix", (54_000, 1)): (0.0072, 0.0076),
+    ("bin_matrix", (90_000, 1)): (0.0072, 0.0076),
+    ("bin_matrix", (180_000, 1)): (0.0073, 0.0076),
+    ("bin_matrix", (10_000, 15)): 0.0079,
+    ("bin_matrix", (30_000, 9)): 0.0082,
+    ("bin_matrix", (60_000, 9)): 0.0086,
+    ("bin_matrix", (180_000, 9)): 0.0106,
+    ("bin_matrix", (10_000_000, 39)): 0.9123,
+}
+
+def before_ms(kname: str, shape):
+    """The kernel's recorded cold ms before the redesign at ``shape``, or
+    None."""
+    return BEFORE_MS.get((kname, tuple(int(v) for v in shape)))
+
+
+def floor_ms(floor, *args) -> float:
+    """Device ms a call of the kernel's empty-launch floor (``*_floor``:
+    an empty kernel at the kernel's own grid, threads and dynamic shared
+    memory), warm: it reads nothing."""
+    return timed(floor, [args])["ms"]
+
+
 def time_moments(kernels, x, y) -> dict:
     """The kernel, its plain version and the read-bandwidth anchor
     ``x.sum(0)``, each cold and warm (``measure``)."""
@@ -425,30 +469,31 @@ def check_bins(kernels, x: torch.Tensor, edges: torch.Tensor, dtype) -> int:
 
 
 def time_bins(kernels, x: torch.Tensor, edges: torch.Tensor, dtype,
-              causes: bool = False) -> dict:
-    """The kernel, its plain version and the library yardstick, each cold
-    and warm (``measure``): torch.searchsorted over the sorted edge rows
-    of a pre-transposed NaN-free x (it ranks a NaN x at 0, so it is a
-    yardstick, not a substitute).  With ``causes``, what tells compares
-    from bytes: the
-    kernel on the same x against the edge rows reversed (not sorted, so
-    every element takes the linear count) and ``x.to(torch.int8)``, a pass
-    that moves the same bytes and compares nothing."""
+              causes: bool = False, plain: bool = True) -> dict:
+    """The kernel, its plain version (unless not ``plain``) and the
+    library yardstick, each cold and warm (``measure``): torch.searchsorted
+    over the sorted edge rows of a pre-transposed NaN-free x (it ranks a
+    NaN x at 0, so it is a yardstick, not a substitute).  With ``causes``,
+    what tells compares from bytes: the kernel on the same x against the
+    edge rows reversed (not sorted, so every element takes the linear
+    count) and ``x.to(torch.int8)``, a pass that moves the same bytes and
+    compares nothing."""
     n, d = x.shape
     assert not bool(torch.isnan(x).any()) and not bool(torch.isnan(edges).any())
     xt = x.T.contiguous()
     out_bytes = 1 if dtype == torch.int8 else 4
     k = measure(kernels.bin_matrix, x, edges, dtype)
-    plain = measure(kernels.bin_matrix_plain, x, edges, dtype)
     lib = measure(lambda e, a: torch.searchsorted(e, a, side="left"), edges, xt)
     del xt
     out = {
         "shape": [n, d], "edges": int(edges.shape[1]), **k,
-        "plain_ms": plain["ms"], "plain_ms_warm": plain["ms_warm"],
         "library_ms": lib["ms"], "library_ms_warm": lib["ms_warm"],
         "library_host_us": lib["host_us"],
         "bound_ms": bin_bound_ms(n, d, int(edges.shape[1]), out_bytes),
     }
+    if plain:
+        p = measure(kernels.bin_matrix_plain, x, edges, dtype)
+        out.update(plain_ms=p["ms"], plain_ms_warm=p["ms_warm"])
     if causes:
         rev = edges.flip(1).contiguous()
         out["reversed_edges_ms"] = measure(kernels.bin_matrix, x, rev, dtype)["ms"]
@@ -456,23 +501,38 @@ def time_bins(kernels, x: torch.Tensor, edges: torch.Tensor, dtype,
     return out
 
 
+def before_note(kname: str, t: dict) -> str:
+    """The empty-launch floor where the timing has one, and the recorded
+    time before the redesign (BEFORE_MS) where there is one for its
+    shape."""
+    note = ""
+    if t.get("floor_ms") is not None:
+        note += f"; empty launch {t['floor_ms']:.4f}"
+    b = before_ms(kname, t["shape"])
+    if b is not None:
+        b = f"{b[0]:.4f}-{b[1]:.4f}" if isinstance(b, (list, tuple)) else f"{b:.4f}"
+        note += f"; recorded before the redesign {b} cold"
+    return note
+
+
 def log_moments_times(where: str, m: dict) -> None:
     log(f"[kernel] fused_moments {where}: {m['ms']:.4f} ms cold "
         f"({100 * m['bound_ms'] / m['ms']:.0f}% of the {m['bound_ms']:.4f} ms "
         f"bound), {m['ms_warm']:.4f} warm, host {m['host_us']:.1f} us a call; "
         f"x.sum(0) {m['anchor_ms']:.4f} cold, {m['anchor_ms_warm']:.4f} warm; "
-        f"plain {m['plain_ms']:.4f} cold")
+        f"plain {m['plain_ms']:.4f} cold{before_note('fused_moments', m)}")
 
 
 def log_bins_times(where: str, b: dict) -> None:
     causes = (f"; reversed edges (linear count) {b['reversed_edges_ms']:.4f}, "
               f"x.to(int8) {b['cast_ms']:.4f}" if "cast_ms" in b else "")
+    plain = f"; plain {b['plain_ms']:.4f} cold" if "plain_ms" in b else ""
     log(f"[kernel] bin_matrix {where}: {b['ms']:.4f} ms cold "
         f"({100 * b['bound_ms'] / b['ms']:.0f}% of the {b['bound_ms']:.4f} ms "
         f"bound), {b['ms_warm']:.4f} warm, host {b['host_us']:.1f} us a call; "
         f"torch.searchsorted {b['library_ms']:.4f} cold, "
-        f"{b['library_ms_warm']:.4f} warm, host {b['library_host_us']:.1f} us; "
-        f"plain {b['plain_ms']:.4f} cold{causes}")
+        f"{b['library_ms_warm']:.4f} warm, host {b['library_host_us']:.1f} us"
+        f"{plain}{causes}{before_note('bin_matrix', b)}")
 
 
 def ptxas_report(log_text: str) -> list:
@@ -2157,14 +2217,17 @@ class FleetK2Hold:
             assert getattr(mod, w.__name__) is w, name
 
             def shim(*args, _w=w):
-                got = _w(*args)
-                want = self.kernels.bin_matrix_plain(*args)
-                err = int((got.int() - want.int()).abs().max()) \
-                    if got.numel() else 0
-                x, edges, dtype = args[0], args[1], args[2]
-                key = (f"{x.shape[0]}x{x.shape[1]}x{edges.shape[1]}:"
-                       f"{str(dtype).replace('torch.', '')}")
+                # the launch and its hold under one lock: a snapshot (the
+                # ObsShipper's thread) never falls between the wrapper's
+                # launch count and the hold, which a SIGKILL would freeze
                 with self.lock:
+                    got = _w(*args)
+                    want = self.kernels.bin_matrix_plain(*args)
+                    err = int((got.int() - want.int()).abs().max()) \
+                        if got.numel() else 0
+                    x, edges, dtype = args[0], args[1], args[2]
+                    key = (f"{x.shape[0]}x{x.shape[1]}x{edges.shape[1]}:"
+                           f"{str(dtype).replace('torch.', '')}")
                     self.held += 1
                     self.mismatches += int(err != 0 or got.dtype != dtype)
                     self.max_abs_err = max(self.max_abs_err, err)
@@ -6411,7 +6474,166 @@ def vectors_only_main() -> int:
     return 0
 
 
+def kernel_header(kernels) -> tuple:
+    """Builds the kernels and logs the card, the versions and each
+    kernel's registers and shared memory.  Returns (the card's name and
+    power limit as nvidia-smi gives them, ptxas rows by kernel)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    t0 = time.perf_counter()
+    kernels.build()
+    build_s = time.perf_counter() - t0
+    log(f"[header] card: {smi}")
+    log(f"[header] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    log(f"[header] kernels built in {build_s:.1f} s: {', '.join(kernels.KERNELS)}")
+    ptxas = {}
+    for kname in kernels.KERNELS:
+        ptxas[kname] = ptxas_report(kernels.BUILD_LOG.get(kname, ""))
+        for row in ptxas[kname] or [{"function": "(built earlier: no report)"}]:
+            log(f"[build] {kname}: {row['function']}: {row.get('registers')} "
+                f"registers, {row.get('static_smem_bytes')} bytes static "
+                f"shared memory, {row.get('spill_bytes')} bytes spilled")
+    return smi, ptxas
+
+
+def kernel_check(kernels, dev, errs: list, bin_errs: list) -> tuple:
+    """Each kernel against its plain version at the check's shapes (small
+    and wide ones, row-offset views, the repo's 10M x 39 scale), K1
+    bit-identical from run to run, and both timed at the scale.  Appends
+    the errors to ``errs`` and ``bin_errs``; returns (K1's, K2's timing at
+    the scale)."""
+    from transmogrifai_tpu_torch.examples.synthetic import synthetic_design_matrix
+    from transmogrifai_tpu_torch.models.trees import _sampled_bin_edges
+
+    rng = np.random.RandomState(0)
+    cases = []
+    for n, d in ((1, 1), (513, 129), (1000, 37), (1500, 1100), (2049, 513),
+                 (33, 4244)):
+        x = (rng.randn(n, d) * 3.0 + 1.0).astype(np.float32)
+        if d == 37:
+            x[::7, 5] = np.nan
+        cases.append((x, rng.rand(n).astype(np.float32)))
+    for n, text_dims in (((1 << 22) + 3, 4), (SCALE_SHAPE[0], 32)):
+        x, yv, _ = synthetic_design_matrix(n, seed=1, text_dims=text_dims)
+        cases.append((x, yv.astype(np.float32)))
+    for x_np, y_np in cases:
+        x = torch.from_numpy(x_np).to(dev)
+        y = torch.from_numpy(y_np).to(dev)
+        # the matrix, then row-offset views that start off 16-byte alignment
+        for off in (0, 1, 3) if x.shape[0] > 3 else (0,):
+            err = check_moments(kernels, x[off:], y[off:])
+            errs.append(err)
+            log(f"[kernel] fused_moments {tuple(x.shape)}[{off}:]: matches "
+                f"plain, max abs err {err['max_abs_err']:.3g}, "
+                f"max rel err {err['max_rel_err']:.3g}")
+    assert tuple(x.shape) == SCALE_SHAPE
+    first = [t.clone() for t in kernels.fused_moments(x, y)]
+    again = kernels.fused_moments(x, y)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+        "fused_moments is not bit-identical from run to run"
+    at_scale = time_moments(kernels, x, y)
+    log_moments_times(f"at {SCALE_SHAPE}", at_scale)
+
+    # bin_matrix: the small shapes, then the repo's scale with the tree
+    # learner's own edges (a seeded host sample, max_bins 32, int8 out)
+    for xb_np, eb_np, dtype in bin_cases(rng):
+        xb = torch.from_numpy(xb_np).to(dev)
+        eb = torch.from_numpy(eb_np).to(dev)
+        for off in (0, 1, 3) if xb.shape[0] > 3 else (0,):
+            bin_errs.append(check_bins(kernels, xb[off:], eb, dtype))
+            log(f"[kernel] bin_matrix {tuple(xb.shape)}[{off}:] x "
+                f"{eb.shape[1]} edges -> {dtype}: equal to plain, "
+                "bit-identical twice")
+    edges = torch.from_numpy(np.ascontiguousarray(
+        _sampled_bin_edges(x_np, BIN_MAX_BINS, 42))).to(dev)
+    bin_errs.append(check_bins(kernels, x, edges, torch.int8))
+    bins_at_scale = time_bins(kernels, x, edges, torch.int8, causes=True)
+    log_bins_times(f"at {SCALE_SHAPE} x {edges.shape[1]} edges -> int8",
+                   bins_at_scale)
+    return at_scale, bins_at_scale
+
+
+#: the shapes of the routes redesigned for small inputs and wide rows
+#: (PERF.md's kernel table): K1 at the full schema's and the type
+#: lattice's widths; K2 at the serving and fleet batches, a bulk chunk,
+#: the small bucketizers, LOCO's passes and the folds, and the tree
+#: slice's first depth-group shape
+REDESIGN_MOMENTS = ((1_000_000, 538), (10_000, 4243))
+REDESIGN_BINS = ((1, 7), (8, 7), (32, 7), (128, 7), (16_384, 7), (8_952, 1),
+                 (54_000, 1), (90_000, 1), (180_000, 1), (10_000, 15),
+                 (30_000, 9), (60_000, 9), (180_000, 9))
+
+
+def redesign_phase(kernels, dev, errs: list, bin_errs: list) -> dict:
+    """K1 and K2 at REDESIGN_MOMENTS and REDESIGN_BINS (seeded normal data;
+    K2 with the tree learner's edges, int8 bins): each held against its
+    plain version, then timed beside its yardstick, its empty-launch floor
+    and its time before the redesign.  K1's plain version is timed here
+    too (its target is to beat it); K2's is timed at these shapes by the
+    paths that give them.  Returns kernel name -> rows."""
+    from transmogrifai_tpu_torch.models.trees import _sampled_bin_edges
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    out = {"fused_moments": [], "bin_matrix": []}
+    for n, d in REDESIGN_MOMENTS:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        y = torch.rand(n, generator=gen, device=dev)
+        err = check_moments(kernels, x, y)
+        errs.append(err)
+        out["fused_moments"].append({
+            **time_moments(kernels, x, y), **err,
+            "floor_ms": floor_ms(kernels.fused_moments_floor, x, y)})
+        log_moments_times(f"[redesign] at {(n, d)} (matches plain, max abs "
+                          f"err {err['max_abs_err']:.3g})",
+                          out["fused_moments"][-1])
+        del x, y
+    rng = np.random.RandomState(18)
+    for n, d in REDESIGN_BINS:
+        x_np = rng.randn(n, d).astype(np.float32)
+        edges = torch.from_numpy(np.ascontiguousarray(
+            _sampled_bin_edges(x_np, BIN_MAX_BINS, 42))).to(dev)
+        x = torch.from_numpy(x_np).to(dev)
+        bin_errs.append(check_bins(kernels, x, edges, torch.int8))
+        out["bin_matrix"].append({
+            **time_bins(kernels, x, edges, torch.int8, plain=False),
+            "max_abs_err": bin_errs[-1],
+            "floor_ms": floor_ms(kernels.bin_matrix_floor, x, edges,
+                                 torch.int8)})
+        log_bins_times(f"[redesign] at {(n, d)} x {edges.shape[1]} edges -> "
+                       "int8 (equal to plain, bit-identical twice)",
+                       out["bin_matrix"][-1])
+    return out
+
+
+def kernels_only_main() -> int:
+    """``--kernels-only``: the kernels' build, the kernel check and the
+    redesigned routes' shapes alone: a quick check of both kernels while
+    they change.  Prints the card and one JSON object of the timings."""
+    from transmogrifai_tpu_torch.parallel import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi, ptxas = kernel_header(kernels)
+    errs, bin_errs = [], []
+    at_scale, bins_at_scale = kernel_check(kernels, dev, errs, bin_errs)
+    redesign = redesign_phase(kernels, dev, errs, bin_errs)
+    print(smi)
+    print(json.dumps({"ptxas": ptxas, "fused_moments_at_scale": at_scale,
+                      "bin_matrix_at_scale": bins_at_scale,
+                      "redesign": redesign}))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] == "--kernels-only":
+        return kernels_only_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--serve-only":
         return serve_only_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--vectors-only":
@@ -6459,7 +6681,6 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
               families_cpu_child: subprocess.Popen) -> int:
     from transmogrifai_tpu_torch.examples.synthetic import (
         BAYES_AUROC_OBSERVED,
-        synthetic_design_matrix,
         synthetic_passengers,
         synthetic_passengers_labelled,
     )
@@ -6471,16 +6692,9 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
 
     # -- 1. header and build ------------------------------------------------
-    t0 = time.perf_counter()
-    kernels.build()
-    build_s = time.perf_counter() - t0
+    smi, ptxas = kernel_header(kernels)
     # the CSV scanner's host library: built by the port's own bridge into
     # its _build/, never over the JAX package's native/libtxkernels.so
     native_so = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -6491,69 +6705,14 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
     native_s = time.perf_counter() - t0
     assert lib is not None and lib._name == native_bridge.lib_path(), \
         "the port's native CSV scanner did not build"
-    log(f"[header] card: {smi}")
-    log(f"[header] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}")
-    log(f"[header] kernels built in {build_s:.1f} s: {', '.join(kernels.KERNELS)}")
     log(f"[header] the CSV scanner's host library "
         f"{os.path.relpath(native_bridge.lib_path())} built and loaded in "
         f"{native_s:.1f} s")
-    ptxas = {}
-    for kname in kernels.KERNELS:
-        ptxas[kname] = ptxas_report(kernels.BUILD_LOG.get(kname, ""))
-        for row in ptxas[kname] or [{"function": "(built earlier: no report)"}]:
-            log(f"[build] {kname}: {row['function']}: {row.get('registers')} "
-                f"registers, {row.get('static_smem_bytes')} bytes static "
-                f"shared memory, {row.get('spill_bytes')} bytes spilled")
 
-    # -- 2. kernel check ----------------------------------------------------
-    rng = np.random.RandomState(0)
-    cases = []
-    for n, d in ((1, 1), (513, 129), (1000, 37), (1500, 1100)):
-        x = (rng.randn(n, d) * 3.0 + 1.0).astype(np.float32)
-        if d == 37:
-            x[::7, 5] = np.nan
-        cases.append((x, rng.rand(n).astype(np.float32)))
-    for n, text_dims in (((1 << 22) + 3, 4), (SCALE_SHAPE[0], 32)):
-        x, yv, _ = synthetic_design_matrix(n, seed=1, text_dims=text_dims)
-        cases.append((x, yv.astype(np.float32)))
-    errs = []
-    for x_np, y_np in cases:
-        x = torch.from_numpy(x_np).to(dev)
-        y = torch.from_numpy(y_np).to(dev)
-        # the matrix, then row-offset views that start off 16-byte alignment
-        for off in (0, 1, 3) if x.shape[0] > 3 else (0,):
-            err = check_moments(kernels, x[off:], y[off:])
-            errs.append(err)
-            log(f"[kernel] fused_moments {tuple(x.shape)}[{off}:]: matches "
-                f"plain, max abs err {err['max_abs_err']:.3g}, "
-                f"max rel err {err['max_rel_err']:.3g}")
-    assert tuple(x.shape) == SCALE_SHAPE
-    first = [t.clone() for t in kernels.fused_moments(x, y)]
-    again = kernels.fused_moments(x, y)
-    assert all(torch.equal(a, b) for a, b in zip(first, again)), \
-        "fused_moments is not bit-identical from run to run"
-    at_scale = time_moments(kernels, x, y)
-    log_moments_times(f"at {SCALE_SHAPE}", at_scale)
-
-    # bin_matrix: the small shapes, then the repo's scale with the tree
-    # learner's own edges (a seeded host sample, max_bins 32, int8 out)
-    bin_errs = []
-    for xb_np, eb_np, dtype in bin_cases(rng):
-        xb = torch.from_numpy(xb_np).to(dev)
-        eb = torch.from_numpy(eb_np).to(dev)
-        for off in (0, 1, 3) if xb.shape[0] > 3 else (0,):
-            bin_errs.append(check_bins(kernels, xb[off:], eb, dtype))
-            log(f"[kernel] bin_matrix {tuple(xb.shape)}[{off}:] x "
-                f"{eb.shape[1]} edges -> {dtype}: equal to plain, "
-                "bit-identical twice")
-    edges = torch.from_numpy(np.ascontiguousarray(
-        _sampled_bin_edges(x_np, BIN_MAX_BINS, 42))).to(dev)
-    bin_errs.append(check_bins(kernels, x, edges, torch.int8))
-    bins_at_scale = time_bins(kernels, x, edges, torch.int8, causes=True)
-    log_bins_times(f"at {SCALE_SHAPE} x {edges.shape[1]} edges -> int8",
-                   bins_at_scale)
-    del x, y, first, again, cases, edges, x_np
+    # -- 2. kernel check, and the redesigned routes' shapes -------------------
+    errs, bin_errs = [], []
+    at_scale, bins_at_scale = kernel_check(kernels, dev, errs, bin_errs)
+    redesign = redesign_phase(kernels, dev, errs, bin_errs)
 
     # -- 3. the LR slice on the card, counted -----------------------------------
     data = synthetic_passengers(SLICE_ROWS, seed=42, with_text=False)
@@ -6918,6 +7077,7 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
         "ops_path_shapes": sel_shape_rows("fused_moments", ops["shapes"]),
         "at_scale": at_scale,
         "other_shapes": other_moments,
+        "redesign_shapes": redesign["fused_moments"],
     }, {
         "name": "bin_matrix",
         "route": "cuda",
@@ -6967,6 +7127,7 @@ def card_main(multiclass_cpu_child: subprocess.Popen,
         "ops_path_shapes": sel_shape_rows("bin_matrix", ops["shapes"]),
         "at_scale": bins_at_scale,
         "other_shapes": other_bins,
+        "redesign_shapes": redesign["bin_matrix"],
     }]}
     assert file_digest(native_so) == native_before, \
         "native/libtxkernels.so changed during the run"

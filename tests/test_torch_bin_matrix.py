@@ -154,3 +154,12 @@ def test_bin_matrix_on_another_device_raises():
     em = torch.from_numpy(edges).to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tk.bin_matrix(xm, em, torch.int8)
+
+
+def test_bin_matrix_on_route_launches_on_the_card_only():
+    """The forced-route seam has no plain version: on a CPU tensor it
+    raises, as the empty-launch floors do."""
+    x = torch.zeros((4, 3))
+    edges = torch.zeros((3, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.bin_matrix_on_route(x, edges, torch.int8, "small")

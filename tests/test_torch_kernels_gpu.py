@@ -71,21 +71,46 @@ def _assert_moments_match(got, want):
     "n,d,off",
     [(1, 1, 0), (1, 39, 0), (17, 4, 1), (33, 9, 3), (4097, 39, 1),
      (70_001, 1, 3), (70_001, 9, 0), (70_001, 11, 1), (257, 257, 1),
-     (129, 1100, 3), (1_000_003, 15, 0)],
+     (129, 1100, 3), (1_000_003, 15, 0),
+     # the d > 256 route: each side of a slab boundary (257 -> 2 x 129,
+     # 511 and 512 -> 2 x 256, 513 -> 3 x 171, 538 -> 3 x 180, 4 244 ->
+     # 17 x 250), one row, three rows, more than 2^16 rows
+     (1, 257, 0), (3, 511, 1), (3, 512, 0), (1, 513, 3), (1, 538, 0),
+     (33, 538, 1), (70_001, 538, 3), (3, 4244, 1), (2049, 4244, 0),
+     (70_001, 513, 0)],
 )
 def test_fused_moments_kernel_redesign_cases(cuda, n, d, off):
     """One row, rows just past a multiple of 16, more than 2^16 rows, d on
-    either side of the block's 256 lanes, and row-offset views x[off:],
-    y[off:] that start off 16-byte alignment."""
+    either side of the block's 256 lanes and of the wide route's slab
+    boundaries, and row-offset views x[off:], y[off:] that start off
+    16-byte alignment."""
     x, y = _inputs(n + off, d, 7 * n + d, cuda, d // 2 if d > 2 else None)
     _assert_moments_match(tk.fused_moments(x[off:], y[off:]),
                           tk.fused_moments_plain(x[off:], y[off:]))
 
 
-@pytest.mark.parametrize("n", [1, 4097, 300_007, (1 << 20) + 3])
-def test_fused_moments_kernel_is_deterministic(cuda, n):
-    """Bit-identical from run to run, whichever block finishes last."""
-    x, y = _inputs(n, 39, 1, cuda, nan_col=3)
+@pytest.mark.parametrize("n,d,off", [(3, 257, 0), (1000, 513, 1),
+                                     (70_001, 538, 3), (10_000, 4244, 1)])
+def test_fused_moments_kernel_nan_in_the_last_slab(cuda, n, d, off):
+    """A NaN column in the wide route's last slab (and one in its first):
+    min and max come out NaN there and nowhere else, the sums NaN-equal to
+    the plain version's."""
+    x, y = _inputs(n + off, d, n + d, cuda, nan_col=d - 2)
+    x[1::5, 0] = float("nan")
+    got = tk.fused_moments(x[off:], y[off:])
+    _assert_moments_match(got, tk.fused_moments_plain(x[off:], y[off:]))
+    x_min = got[5].cpu().numpy()
+    assert np.isnan(x_min[[0, d - 2]]).all()
+    assert not np.isnan(np.delete(x_min, [0, d - 2])).any()
+
+
+@pytest.mark.parametrize("n,d", [(1, 39), (4097, 39), (300_007, 39),
+                                 ((1 << 20) + 3, 39), (3, 513),
+                                 (70_001, 538), (10_000, 4244)])
+def test_fused_moments_kernel_is_deterministic(cuda, n, d):
+    """Bit-identical from run to run, whichever block finishes last (on
+    the wide route, whichever row block of each slab)."""
+    x, y = _inputs(n, d, 1, cuda, nan_col=3)
     first = [t.clone() for t in tk.fused_moments(x, y)]
     for _ in range(3):
         again = tk.fused_moments(x, y)
@@ -120,30 +145,55 @@ def test_fused_moments_kernel_at_wide_main_path_shapes(cuda, n, d):
 
 def test_fused_moments_kernel_blocks_without_a_tile(cuda):
     """A matrix of fewer tiles than the persistent grid has blocks: the
-    blocks left without a tile still count in, their identity partials
-    change nothing."""
+    grid takes one block a tile (one block when the aligned body is empty),
+    and the combine sees that many partials; tile counts on each side of
+    the card's persistent grid of two and three blocks an SM."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for n, d in ((100, 9), (1000, 39), (3, 1)):
         assert -(-n * d // 4096) < sms
         x, y = _inputs(n, d, n, cuda, nan_col=0)
         _assert_moments_match(tk.fused_moments(x, y),
                               tk.fused_moments_plain(x, y))
+    for tiles in (2 * sms - 1, 2 * sms, 2 * sms + 1, 3 * sms + 1):
+        x, y = _inputs(tiles * 1024, 4, tiles, cuda, nan_col=1)
+        _assert_moments_match(tk.fused_moments(x, y),
+                              tk.fused_moments_plain(x, y))
 
 
-def test_fused_moments_kernel_leaves_its_counter_at_zero(cuda):
-    """The one-launch combine counts blocks on a counter that the last
-    block resets: after each call it is 0, so the next call on the stream
-    combines again (two calls in a row agree)."""
-    x, y = _inputs(200_003, 11, 5, cuda)
+def test_fused_moments_kernel_scratch_grows_across_routes(cuda):
+    """A stream's scratch is kept from launch to launch and grows when a
+    plan needs more: narrow, wide, wider and narrow again on one stream,
+    each equal to plain."""
+    stream = torch.cuda.current_stream().cuda_stream
+    sizes = []
+    for n, d in ((1000, 9), (70_001, 538), (10_000, 4244), (300, 39)):
+        x, y = _inputs(n, d, d, cuda, nan_col=1)
+        _assert_moments_match(tk.fused_moments(x, y),
+                              tk.fused_moments_plain(x, y))
+        partial, counter = tk._scratch[(cuda.index, stream)]
+        sizes.append((partial.numel(), counter.numel()))
+    assert sizes == sorted(sizes) and sizes[-1] == sizes[-2]
+    assert partial.numel() >= 7 * 4244
+
+
+@pytest.mark.parametrize("n,d", [(200_003, 11), (70_001, 538),
+                                 (10_000, 4244)])
+def test_fused_moments_kernel_leaves_its_counter_at_zero(cuda, n, d):
+    """The one-launch combine counts blocks on a counter (on the wide
+    route one a column slab and one a group of its row blocks) that the
+    last block resets: after each call every counter is 0, so the next call
+    on the stream combines again (two calls in a row agree)."""
+    x, y = _inputs(n, d, 5, cuda)
     first = tk.fused_moments(x, y)
     stream = torch.cuda.current_stream().cuda_stream
-    counter = tk._counters[(cuda.index, stream)]
+    counter = tk._scratch[(cuda.index, stream)][1]
+    assert counter.numel() >= -(-d // 256)
     torch.cuda.synchronize()
-    assert int(counter.item()) == 0
+    assert not counter.any()
     second = tk.fused_moments(x, y)
     torch.cuda.synchronize()
-    assert int(counter.item()) == 0
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert not counter.any()
+    assert all(_nan_equal(a, b) for a, b in zip(first, second))
 
 
 def test_fused_moments_kernel_rejects_bad_input(cuda):
@@ -211,13 +261,18 @@ def _special_edges(x, edges):
 @pytest.mark.parametrize(
     "n,d,off",
     [(1, 1, 0), (17, 4, 1), (33, 9, 3), (4097, 39, 1), (70_001, 1, 3),
-     (257, 257, 0), (17, 1100, 1), (1_000_003, 9, 2)],
+     (257, 257, 0), (17, 1100, 1), (1_000_003, 9, 2),
+     # the small route: the serving batches, with row offsets; one tile
+     # exactly (4 096 aligned words), and one word past it
+     (1, 7, 0), (1, 7, 1), (8, 7, 1), (32, 7, 3), (128, 7, 1),
+     (16_384, 7, 2), (512, 8, 0), (4096, 1, 0), (4097, 1, 0)],
 )
 def test_bin_matrix_kernel_redesign_cases(cuda, n, d, off, kind):
     """One row, rows just past a multiple of 16, more than 2^16 rows, one
-    column, rows wider than the block's lanes, row-offset views x[off:],
-    and edge rows that are unsorted, duplicated, NaN inside, +-inf, -0.0:
-    bins equal to the plain version in both dtypes, twice."""
+    column, rows wider than the block's lanes, the serving batches, one
+    tile exactly, row-offset views x[off:], and edge rows that are
+    unsorted, duplicated, NaN inside, +-inf, -0.0: bins equal to the plain
+    version in both dtypes, twice."""
     x, edges = _bin_inputs(n + off, d, 31, 3 * n + d, cuda)
     if kind == "special":
         x, edges = _special_edges(x, edges)
@@ -227,14 +282,61 @@ def test_bin_matrix_kernel_redesign_cases(cuda, n, d, off, kind):
         assert torch.equal(tk.bin_matrix(x[off:], edges, dtype), got)
 
 
+#: the small route's limit in csrc/bin_matrix.cu (kSmallStageWords): the
+#: edge-table words its blocks, one a 1 024-word tile, stage in all
+_SMALL_STAGE_WORDS = 8 << 20
+
+
 def test_bin_matrix_kernel_blocks_without_a_tile(cuda):
-    """Fewer 16 KB tiles than the persistent grid has blocks."""
+    """Fewer 16 KB tiles than the card has SMs: the small route, a block a
+    4 KB tile; tile counts on each side of one to four blocks an SM; and
+    row counts on each side of the small route's limits, where the ring
+    route takes over with its grid capped at one block a tile: at 39
+    columns the edge-table words staged in all, at 538 columns one wave
+    of resident blocks (three an SM, at 71 KB of table each), with fewer
+    tiles than the ring's persistent grid has blocks."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for n, d in ((100, 9), (5000, 39), (3, 1)):
         assert -(-n * d // 4096) < sms
         x, edges = _bin_inputs(n, d, 31, n, cuda)
         assert torch.equal(tk.bin_matrix(x, edges, torch.int8),
                            tk.bin_matrix_plain(x, edges, torch.int8))
+    stage_rows = (_SMALL_STAGE_WORDS // (39 * 33)) * 1024 // 39
+    wave_rows = 3 * sms * 1024 // 538
+    for d, rows in ((39, stage_rows), (538, wave_rows)):
+        for n in (rows - 1, rows, rows + 1, rows + 2):
+            x, edges = _bin_inputs(n + 1, d, 31, n, cuda)
+            for view in (x[1:], x[:-1]):
+                assert torch.equal(tk.bin_matrix(view, edges, torch.int8),
+                                   tk.bin_matrix_plain(view, edges,
+                                                       torch.int8))
+    for k in (1, 2, 3, 4):
+        for tiles in (k * sms - 1, k * sms, k * sms + 1):
+            x, edges = _bin_inputs(tiles * 512, 8, 31, tiles, cuda)
+            assert torch.equal(tk.bin_matrix(x[1:], edges, torch.int8),
+                               tk.bin_matrix_plain(x[1:], edges, torch.int8))
+            assert torch.equal(tk.bin_matrix(x, edges, torch.int32),
+                               tk.bin_matrix_plain(x, edges, torch.int32))
+
+
+@pytest.mark.parametrize("n,d,off", [(1, 7, 0), (129, 7, 1), (5000, 39, 3),
+                                     (760, 538, 1), (300_001, 9, 2)])
+def test_bin_matrix_on_route_gives_the_same_bins_on_either_route(cuda, n, d,
+                                                                 off):
+    """Either route forced, on each side of the plan's limits and with row
+    offsets: bins equal to plain in both dtypes, and no launch counted; a
+    forced route on a column-tiled plan raises."""
+    x, edges = _bin_inputs(n + off, d, 31, n + d, cuda)
+    before = tk.bin_matrix.launches
+    for route in ("ring", "small"):
+        for dtype in (torch.int8, torch.int32):
+            assert torch.equal(
+                tk.bin_matrix_on_route(x[off:], edges, dtype, route),
+                tk.bin_matrix_plain(x[off:], edges, dtype))
+    assert tk.bin_matrix.launches == before
+    x, edges = _bin_inputs(64, 1024, 254, 4, cuda)
+    with pytest.raises(tk.KernelError, match="column-tiled"):
+        tk.bin_matrix_on_route(x, edges, torch.int32, "small")
 
 
 def test_bin_matrix_kernel_edge_tables_shrink_and_grow(cuda):
@@ -245,6 +347,23 @@ def test_bin_matrix_kernel_edge_tables_shrink_and_grow(cuda):
         x, edges = _bin_inputs(4099, d, 31, d, cuda)
         assert torch.equal(tk.bin_matrix(x, edges, torch.int32),
                            tk.bin_matrix_plain(x, edges, torch.int32))
+
+
+def test_empty_launch_floors_launch_without_counting(cuda):
+    """The floors launch an empty kernel with each kernel's plan (small,
+    ring and column-tiled K2 routes; K1's tile and slab routes), count no
+    launch and write nothing."""
+    before = (tk.fused_moments.launches, tk.bin_matrix.launches)
+    for n, d in ((1, 1), (4097, 39), (1000, 538)):
+        x, y = _inputs(n, d, 3, cuda)
+        tk.fused_moments_floor(x, y)
+    for n, d, n_edges in ((1, 7, 31), (1_000_003, 9, 31), (2000, 1024, 254)):
+        x, edges = _bin_inputs(n, d, n_edges, 4, cuda)
+        tk.bin_matrix_floor(x, edges, torch.int32)
+    torch.cuda.synchronize()
+    assert (tk.fused_moments.launches, tk.bin_matrix.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.bin_matrix_floor(x.cpu(), edges.cpu(), torch.int32)
 
 
 def test_bin_matrix_kernel_rejects_bad_input(cuda):

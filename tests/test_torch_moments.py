@@ -58,13 +58,16 @@ def test_fused_moments_matches_pallas(n, d, nan_col):
 @pytest.mark.parametrize(
     "n,d,off",
     [(1, 1, 0), (1, 39, 0), (17, 4, 1), (33, 9, 3), (4097, 39, 1),
-     (70_001, 1, 3), (70_001, 9, 0), (257, 257, 1), (129, 1100, 3)],
+     (70_001, 1, 3), (70_001, 9, 0), (257, 257, 1), (129, 1100, 3),
+     (1, 538, 0), (33, 4244, 1), (2049, 513, 3), (3, 512, 1)],
 )
 def test_fused_moments_redesign_cases(n, d, off):
     """The shapes the kernel treats apart - one row, rows just past a
     multiple of 16, more than 2^16 rows, d on either side of the block's
-    256 lanes - on row-offset views x[off:] (a storage offset the kernel
-    takes without copying), with a NaN column where d allows."""
+    256 lanes and of the wide route's column slabs (512 is two slabs of
+    256, 513 three of 171, 538 three of 180, 4 244 seventeen of 250) - on
+    row-offset views x[off:] (a storage offset the kernel takes without
+    copying), with a NaN column where d allows."""
     x, y = _inputs(n + off, d, seed=7 * n + d, nan_col=d // 2 if d > 2 else None)
     x, y = x[off:], y[off:]
     want = pk.fused_moments(x, y, force_pallas=True)
@@ -94,6 +97,49 @@ def test_fused_moments_shapes_and_types():
         tk.fused_moments(torch.from_numpy(x), torch.from_numpy(y[:-1]))
     with pytest.raises(ValueError):
         tk.fused_moments(torch.zeros((0, 3)), torch.zeros(0))
+
+
+class _ScratchEntry:
+    """A stand-in for the moments C entry: it needs ``need`` (partial
+    doubles, counters) and, like the entry, reports them without
+    launching where the buffers it is given are shorter."""
+
+    def __init__(self, need):
+        self.need, self.calls, self.launches = need, 0, 0
+
+    def tx_fused_moments(self, *args):
+        self.calls += 1
+        partial_doubles, n_counters = args[5], args[7]
+        if partial_doubles < self.need[0] or n_counters < self.need[1]:
+            args[10]._obj.value, args[11]._obj.value = self.need
+            return tk._MOMENTS_ERR_SCRATCH
+        self.launches += 1
+        return 0
+
+
+@pytest.mark.parametrize("needs,calls", [
+    ([(70, 1)], [2]),
+    ([(70, 1), (70, 1), (14, 1)], [2, 1, 1]),
+    ([(7 * 300, 4), (70, 8), (7 * 400, 2)], [2, 2, 2]),
+])
+def test_moments_scratch_grows_to_the_plan_and_is_kept(monkeypatch, needs,
+                                                       calls):
+    """The wrapper keeps a stream's scratch and crosses into the C entry
+    once a launch while the scratch is large enough; a launch that needs
+    more is told so without launching, and the scratch grows (never
+    shrinks) to the larger need before it launches once."""
+    monkeypatch.setattr(tk, "_scratch", {})
+    x, y = torch.zeros((4, 2)), torch.zeros(4)
+    out = torch.empty(12)
+    most = [0, 0]
+    for need, want_calls in zip(needs, calls):
+        lib = _ScratchEntry(need)
+        assert tk._launch_moments(lib, x, y, out, stream=7) == 0
+        assert (lib.calls, lib.launches) == (want_calls, 1)
+        most = [max(most[0], need[0]), max(most[1], need[1])]
+        partial, counter = tk._scratch[(x.device.index, 7)]
+        assert (partial.numel(), counter.numel()) == tuple(most)
+        assert partial.dtype == torch.float64 and not counter.any()
 
 
 def test_library_path_covers_included_headers(tmp_path, monkeypatch):

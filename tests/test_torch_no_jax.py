@@ -158,7 +158,7 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_reference_import(path):

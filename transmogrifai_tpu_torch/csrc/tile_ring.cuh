@@ -9,9 +9,9 @@
 //     callers stage a 16-byte-aligned body and treat the few words before
 //     and after it apart.
 //   * the launch plan: the card's SM count and how many blocks of a kernel
-//     fit on an SM at a given dynamic shared-memory size, with the opt-in
-//     above 48 KB, cached per (device, kernel, size) so that a launch pays
-//     for the queries once.
+//     fit on an SM at a given block size and dynamic shared-memory size,
+//     with the opt-in above 48 KB, cached per (device, kernel, threads,
+//     size) so that a launch pays for the queries once.
 //
 // The ring protocol (one producer thread, every thread a consumer):
 //
@@ -120,11 +120,12 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, size_t smem_max,
   struct Entry {
     int device;
     const void* kernel;
+    int threads;
     size_t smem;
     int grid;
   };
   static std::mutex lock;
-  static Entry cache[64];
+  static Entry cache[256];
   static int used = 0;
   int device = 0;
   int rc = (int)cudaGetDevice(&device);
@@ -134,7 +135,7 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, size_t smem_max,
     std::lock_guard<std::mutex> guard(lock);
     for (int i = 0; i < used; ++i) {
       if (cache[i].device == device && cache[i].kernel == key &&
-          cache[i].smem == smem) {
+          cache[i].threads == threads && cache[i].smem == smem) {
         *grid = cache[i].grid;
         return 0;
       }
@@ -155,7 +156,7 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, size_t smem_max,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *grid = per_sm * sms;
   std::lock_guard<std::mutex> guard(lock);
-  if (used < 64) cache[used++] = Entry{device, key, smem, *grid};
+  if (used < 256) cache[used++] = Entry{device, key, threads, smem, *grid};
   return 0;
 }
 

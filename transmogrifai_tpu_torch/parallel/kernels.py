@@ -29,6 +29,14 @@ Kernels:
   every tree head in the device-fused scoring program
   (``models/trees.predict_arrays_torch``), once per scored batch.
 
+Each kernel also has a ``*_floor`` function (``fused_moments_floor``,
+``bin_matrix_floor``): an empty kernel launched with the kernel's own
+grid, threads and dynamic shared memory for the same arguments, which a
+timing puts beside the kernel to tell the launch from the work.  It
+computes nothing and counts no launch.  ``bin_matrix_on_route`` launches
+K2 with its ring or small route forced, whichever its plan would choose,
+to time the two beside each other; it counts no launch either.
+
 NaN in ``bin_matrix``: a NaN x takes the count of the column's non-NaN
 edges, as the host binning does (numpy's ``searchsorted`` and the C++
 ``tx_bin_data`` both sort NaN last).  The JAX package's traceable mirror
@@ -59,17 +67,20 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: kernel name -> (source under csrc/, C entry point, its argtypes)
+#: kernel name -> (source under csrc/, {C entry point: its argtypes}); each
+#: ``*_floor`` entry launches an empty kernel with the kernel's own grid,
+#: threads and dynamic shared memory (what the launch alone costs)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
-    "fused_moments": (
-        "fused_moments.cu", "tx_fused_moments",
-        (_P, _P, _L, _I, _P, _L, _P, _P, _P),
-    ),
-    "bin_matrix": (
-        "bin_matrix.cu", "tx_bin_matrix",
-        (_P, _P, _L, _I, _I, _I, _P, _P),
-    ),
+    "fused_moments": ("fused_moments.cu", {
+        "tx_fused_moments": (_P, _P, _L, _I, _P, _L, _P, _I, _P, _P,
+                             ctypes.POINTER(_L), ctypes.POINTER(_I)),
+        "tx_fused_moments_floor": (_P, _P, _L, _I, _P),
+    }),
+    "bin_matrix": ("bin_matrix.cu", {
+        "tx_bin_matrix": (_P, _P, _L, _I, _I, _I, _P, _I, _P),
+        "tx_bin_matrix_floor": (_P, _L, _I, _I, _I, _P),
+    }),
 }
 
 _lock = threading.Lock()
@@ -170,15 +181,15 @@ def _load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             path = build([name])[name]
-            _, entry, argtypes = KERNELS[name]
+            entries = KERNELS[name][1]
             try:
                 lib = ctypes.CDLL(str(path))
-                fn = getattr(lib, entry)
+                fns = {entry: getattr(lib, entry) for entry in entries}
             except (OSError, AttributeError) as e:
-                raise KernelError(
-                    f"cannot load {entry} from {path}: {e}") from e
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+                raise KernelError(f"cannot load {name} from {path}: {e}") from e
+            for entry, fn in fns.items():
+                fn.argtypes = list(entries[entry])
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -196,31 +207,46 @@ def reset_launches() -> None:
 #: float64 and combines the partials in float64, so the widened copy stays
 #: bounded.  The kernel combines in float64 by design and needs no chunks.
 _CHUNK_ROWS = 1 << 22
-#: the kernel's scratch: one [7, d] float64 partial for each block of its
-#: persistent grid, at most this many blocks an SM (the C entry plans the
-#: grid within it) and at most _SCRATCH_DOUBLES_MAX doubles in all
-_BLOCKS_PER_SM = 2
-_SCRATCH_DOUBLES_MAX = 1 << 27
-_sm_counts: dict[int, int] = {}
-#: (device index, stream handle) -> the kernel's one-launch combine
-#: counter, which every launch leaves at 0 for the next on its stream
-_counters: dict[tuple[int, int], torch.Tensor] = {}
+#: (device index, stream handle) -> the kernel's float64 partial scratch
+#: and its combine counters, as large as the largest plan on the stream
+#: needed; every launch leaves the counters at 0 for the next on its stream
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+#: the C entry's code for scratch shorter than its plan needs (kErrScratch
+#: in csrc/fused_moments.cu)
+_MOMENTS_ERR_SCRATCH = -1
 
 
-def _moments_scratch(device: torch.device, d: int, stream: int):
-    """(partial scratch [blocks, 7, d] float64, combine counter) for a
-    launch of the moments kernel on ``device`` and ``stream``."""
-    sms = _sm_counts.get(device.index)
-    if sms is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_counts[device.index] = sms
-    blocks = max(1, min(_BLOCKS_PER_SM * sms, _SCRATCH_DOUBLES_MAX // (7 * d)))
-    counter = _counters.get((device.index, stream))
-    if counter is None:
-        counter = torch.zeros(1, dtype=torch.int32, device=device)
-        _counters[(device.index, stream)] = counter
-    partial = torch.empty((blocks, 7, d), dtype=torch.float64, device=device)
-    return partial, counter
+def _launch_moments(lib, x: torch.Tensor, y: torch.Tensor, out: torch.Tensor,
+                    stream: int) -> int:
+    """Launch the moments kernel on x, y into ``out`` on ``stream`` with
+    the stream's scratch.  Where the scratch is shorter than the C entry's
+    plan for these inputs, the entry says what it needs without launching;
+    the scratch grows to that and the launch is made again.  Returns the C
+    entry's code."""
+    n, d = x.shape
+    key = (x.device.index, stream)
+    if key not in _scratch:
+        _scratch[key] = (
+            torch.empty(0, dtype=torch.float64, device=x.device),
+            torch.zeros(0, dtype=torch.int32, device=x.device))
+    need_partial, need_counters = _L(0), _I(0)
+    for _ in range(2):  # the plan for the same inputs needs no more twice
+        partial, counter = _scratch[key]
+        rc = lib.tx_fused_moments(
+            x.data_ptr(), y.data_ptr(), n, d, partial.data_ptr(),
+            partial.numel(), counter.data_ptr(), counter.numel(),
+            out.data_ptr(), stream, ctypes.byref(need_partial),
+            ctypes.byref(need_counters))
+        if rc != _MOMENTS_ERR_SCRATCH:
+            return rc
+        if need_partial.value > partial.numel():
+            partial = torch.empty(need_partial.value, dtype=torch.float64,
+                                  device=x.device)
+        if need_counters.value > counter.numel():
+            counter = torch.zeros(need_counters.value, dtype=torch.int32,
+                                  device=x.device)
+        _scratch[key] = (partial, counter)
+    return rc
 
 
 def _combine_moments_f64(parts):
@@ -303,13 +329,9 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
     n, d = x.shape
     lib = _load("fused_moments")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        partial, counter = _moments_scratch(x.device, d, stream)
         out = torch.empty(5 * d + 2, dtype=torch.float32, device=x.device)
-        rc = lib.tx_fused_moments(
-            x.data_ptr(), y.data_ptr(), n, d, partial.data_ptr(),
-            partial.numel(), counter.data_ptr(), out.data_ptr(), stream,
-        )
+        rc = _launch_moments(lib, x, y, out,
+                             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise KernelError(f"fused_moments kernel launch failed: CUDA error {rc}")
     fused_moments.launches += 1
@@ -319,6 +341,27 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
 
 
 fused_moments.launches = 0
+
+
+def _require_cuda(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} launches on a CUDA tensor, not {x.device}")
+
+
+def fused_moments_floor(x: torch.Tensor, y: torch.Tensor) -> None:
+    """Launch an empty kernel with :func:`fused_moments`' grid, threads and
+    dynamic shared memory for these inputs, on the current stream: what the
+    launch alone costs, to time beside the kernel.  Computes nothing and is
+    not counted in ``fused_moments.launches``."""
+    _check_moments_args(x, y)
+    _require_cuda(x, "fused_moments_floor")
+    lib = _load("fused_moments")
+    with torch.cuda.device(x.device):
+        rc = lib.tx_fused_moments_floor(
+            x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise KernelError(f"fused_moments_floor launch failed: CUDA error {rc}")
 
 
 def fused_moments_sharded(x, y, mesh, device=None):
@@ -386,8 +429,11 @@ def fused_moments_sharded(x, y, mesh, device=None):
 _BIN_CHUNK_ELEMS = 1 << 27
 _BIN_DTYPES = (torch.int8, torch.int32)
 #: the C entry's codes for a launch plan that does not fit (kErrEdges,
-#: kErrGrid in csrc/bin_matrix.cu, which plans the grid)
-_BIN_ERR_EDGES, _BIN_ERR_GRID = -1, -2
+#: kErrGrid in csrc/bin_matrix.cu, which plans the grid) and for a route
+#: forced on its column-tiled plan (kErrRoute)
+_BIN_ERR_EDGES, _BIN_ERR_GRID, _BIN_ERR_ROUTE = -1, -2, -3
+#: the C entry's route argument: the plan's own, or the one forced
+_BIN_ROUTES = {None: -1, "ring": 0, "small": 1}
 
 
 def bin_matrix_plain(x: torch.Tensor, edges: torch.Tensor,
@@ -452,6 +498,18 @@ def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
         return bin_matrix_plain(x, edges, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"bin_matrix: unsupported device {x.device}")
+    out = _launch_bins(x, edges, out_dtype, None)
+    bin_matrix.launches += 1
+    return out
+
+
+bin_matrix.launches = 0
+
+
+def _launch_bins(x: torch.Tensor, edges: torch.Tensor, out_dtype: torch.dtype,
+                 route) -> torch.Tensor:
+    """Launch the binning kernel on CUDA x and edges on the current stream,
+    on the plan's route (``route`` None) or the one named."""
     if not (x.is_contiguous() and edges.is_contiguous()):
         raise ValueError("bin_matrix takes contiguous x and edges")
     n, d = x.shape
@@ -462,7 +520,8 @@ def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tx_bin_matrix(
             x.data_ptr(), edges.data_ptr(), n, d, n_edges,
-            int(out_dtype == torch.int8), out.data_ptr(), stream,
+            int(out_dtype == torch.int8), out.data_ptr(), _BIN_ROUTES[route],
+            stream,
         )
     if rc == _BIN_ERR_EDGES:
         raise KernelError(
@@ -471,13 +530,45 @@ def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
         )
     if rc == _BIN_ERR_GRID:
         raise KernelError(f"bin_matrix: {n} x {d} exceeds the kernel's grid")
+    if rc == _BIN_ERR_ROUTE:
+        raise KernelError(
+            f"bin_matrix: {n} x {d} with {n_edges} edges takes the "
+            f"column-tiled kernel, not the {route} route")
     if rc != 0:
         raise KernelError(f"bin_matrix kernel launch failed: CUDA error {rc}")
-    bin_matrix.launches += 1
     return out
 
 
-bin_matrix.launches = 0
+def bin_matrix_on_route(x: torch.Tensor, edges: torch.Tensor,
+                        out_dtype: torch.dtype, route: str) -> torch.Tensor:
+    """:func:`bin_matrix` on CUDA tensors with its ``"ring"`` or
+    ``"small"`` route forced, whichever the launch plan would choose: to
+    time the two routes beside each other where the plan picks one.  The
+    same bins; counts no launch; raises :class:`KernelError` where the
+    edge table takes the column-tiled kernel."""
+    _check_bin_args(x, edges, out_dtype)
+    _require_cuda(x, "bin_matrix_on_route")
+    if route not in ("ring", "small"):
+        raise ValueError(f"bin_matrix_on_route: no route {route!r}")
+    return _launch_bins(x, edges, out_dtype, route)
+
+
+def bin_matrix_floor(x: torch.Tensor, edges: torch.Tensor,
+                     out_dtype: torch.dtype = torch.int32) -> None:
+    """Launch an empty kernel with :func:`bin_matrix`'s grid, threads and
+    dynamic shared memory for these arguments, on the current stream: what
+    the launch alone costs, to time beside the kernel.  Computes nothing
+    and is not counted in ``bin_matrix.launches``."""
+    _check_bin_args(x, edges, out_dtype)
+    _require_cuda(x, "bin_matrix_floor")
+    lib = _load("bin_matrix")
+    with torch.cuda.device(x.device):
+        rc = lib.tx_bin_matrix_floor(
+            x.data_ptr(), x.shape[0], x.shape[1], edges.shape[1],
+            int(out_dtype == torch.int8),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise KernelError(f"bin_matrix_floor launch failed: CUDA error {rc}")
 
 #: every kernel wrapper, whose launch counts a run resets and reads
 WRAPPERS = (fused_moments, bin_matrix)
