@@ -501,6 +501,11 @@ def test_bulk_metrics_view_rides_the_scrape(bulk_env, tmp_path):
             bulk_env["ref_model"], bulk_env["ref_dir"]).snapshot())
     finally:
         reset_metrics_registry()
+        # the process-wide tracer's views join the fresh registry, as they
+        # were in the one this test replaced; later tests scrape them
+        from transmogrifai_tpu_torch.obs.trace import reset_tracer
+
+        reset_tracer()
 
 
 def test_cli_bulk_status_prints_the_journal(bulk_env, capsys):

@@ -79,6 +79,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import trace as _obs_trace
 from ..utils.threefry import bernoulli, fold_in, prng_key
 
 #: the fewest rows of one partial histogram (a level of L nodes and B bins
@@ -278,81 +279,94 @@ def fit_tree(
     may use, row i for heap node i (``node_subset_masks``: the JAX
     package's ``rng_key`` and ``feature_subset_p < 1``); None lets every
     node use ``feat_mask``.  ``rows``: the mesh's row reducer when
-    ``bins`` holds one rank's rows (see the module docstring)."""
-    n, d = bins.shape
-    C = n_stats
-    M = 2 ** (max_depth + 1) - 1
-    B = max_bins
-    dev = bins.device
+    ``bins`` holds one rank's rows (see the module docstring).
 
-    heap_feature = torch.zeros((M,), dtype=torch.int32, device=dev)
-    heap_thr = torch.full((M,), B, dtype=torch.int32, device=dev)  # all left
-    heap_leaf = torch.ones((M,), dtype=torch.bool, device=dev)
-    heap_value = torch.zeros((M, C), dtype=stats_row.dtype, device=dev)
+    The fit runs inside one ``tree.fit`` span whose attributes are the
+    shapes its level work is counted from: rows ``n``, columns ``d``,
+    ``bins``, ``stats`` channels, ``depth`` (levels less one) and
+    ``bin_bytes``.  The span neither synchronises the card nor reads from
+    it, so it closes when the last level is enqueued."""
+    with _obs_trace.span(
+        "tree.fit", n=int(bins.shape[0]), d=int(bins.shape[1]),
+        bins=int(max_bins), stats=int(n_stats), depth=int(max_depth),
+        bin_bytes=bins.element_size(),
+    ):
+        n, d = bins.shape
+        C = n_stats
+        M = 2 ** (max_depth + 1) - 1
+        B = max_bins
+        dev = bins.device
 
-    node_of_row = torch.zeros((n,), dtype=torch.int64, device=dev)
-    stats_w = stats_row * w_row[:, None]  # [n, C]
-    occupied_only = _occupied_only(dev, rows, min_instances_per_node)
+        heap_feature = torch.zeros((M,), dtype=torch.int32, device=dev)
+        # every node starts as a leaf sending all rows left
+        heap_thr = torch.full((M,), B, dtype=torch.int32, device=dev)
+        heap_leaf = torch.ones((M,), dtype=torch.bool, device=dev)
+        heap_value = torch.zeros((M, C), dtype=stats_row.dtype, device=dev)
 
-    for level in range(max_depth + 1):
-        L = 2**level
-        local, slots, n_nodes = _level_nodes(node_of_row, L, occupied_only)
-        # ---- histograms: one segment sum over all (row, feature) pairs --
-        hist = _level_hist(bins, local, stats_w, L, B, rows,
-                           n_nodes=n_nodes)
+        node_of_row = torch.zeros((n,), dtype=torch.int64, device=dev)
+        stats_w = stats_row * w_row[:, None]  # [n, C]
+        occupied_only = _occupied_only(dev, rows, min_instances_per_node)
 
-        node_stats = hist[:, 0, :, :].sum(dim=1)  # [nodes, C] per node
-        node_imp, node_w = _impurity(node_stats, impurity_kind)
-        heap_value[slots] = node_stats
+        for level in range(max_depth + 1):
+            L = 2**level
+            local, slots, n_nodes = _level_nodes(node_of_row, L, occupied_only)
+            # ---- histograms: one segment sum over all (row, feature) pairs --
+            hist = _level_hist(bins, local, stats_w, L, B, rows,
+                               n_nodes=n_nodes)
 
-        if level == max_depth:
-            break
+            node_stats = hist[:, 0, :, :].sum(dim=1)  # [nodes, C] per node
+            node_imp, node_w = _impurity(node_stats, impurity_kind)
+            heap_value[slots] = node_stats
 
-        # ---- split search -----------------------------------------------
-        left = torch.cumsum(hist, dim=2)            # [L, d, B, C]
-        total = node_stats[:, None, None, :]
-        right = total - left
-        left_imp, left_w = _impurity(left, impurity_kind)
-        right_imp, right_w = _impurity(right, impurity_kind)
-        gain = (node_imp[:, None, None] - left_imp - right_imp) / torch.clamp(
-            node_w[:, None, None], min=1e-12
-        )
-        level_mask = feat_mask[None, :]
-        if node_mask is not None:
-            level_mask = level_mask & node_mask[slots]
-        valid = (
-            level_mask[:, :, None]
-            & (left_w >= min_instances_per_node)
-            & (right_w >= min_instances_per_node)
-        )
-        gain = torch.where(valid, gain, torch.full_like(gain, -torch.inf))
-        flat_gain = gain.reshape(n_nodes, d * B)
-        # torch.argmax, like jnp.argmax, takes the first maximum
-        best_flat = torch.argmax(flat_gain, dim=1)                 # [L]
-        best_gain = torch.gather(flat_gain, 1, best_flat[:, None])[:, 0]
-        best_feat = torch.div(best_flat, B, rounding_mode="floor")
-        best_bin = best_flat % B
+            if level == max_depth:
+                break
 
-        splittable = (best_gain >= min_info_gain) & torch.isfinite(best_gain)
-        zero = torch.zeros_like(best_feat)
-        # an indexed store does not cast as a sliced one does
-        heap_feature[slots] = torch.where(
-            splittable, best_feat, zero).to(torch.int32)
-        heap_thr[slots] = torch.where(
-            splittable, best_bin, torch.full_like(best_bin, B)).to(torch.int32)
-        heap_leaf[slots] = ~splittable
+            # ---- split search -----------------------------------------------
+            left = torch.cumsum(hist, dim=2)            # [L, d, B, C]
+            total = node_stats[:, None, None, :]
+            right = total - left
+            left_imp, left_w = _impurity(left, impurity_kind)
+            right_imp, right_w = _impurity(right, impurity_kind)
+            gain = (node_imp[:, None, None] - left_imp - right_imp) \
+                / torch.clamp(node_w[:, None, None], min=1e-12)
+            level_mask = feat_mask[None, :]
+            if node_mask is not None:
+                level_mask = level_mask & node_mask[slots]
+            valid = (
+                level_mask[:, :, None]
+                & (left_w >= min_instances_per_node)
+                & (right_w >= min_instances_per_node)
+            )
+            gain = torch.where(valid, gain, torch.full_like(gain, -torch.inf))
+            flat_gain = gain.reshape(n_nodes, d * B)
+            # torch.argmax, like jnp.argmax, takes the first maximum
+            best_flat = torch.argmax(flat_gain, dim=1)                 # [L]
+            best_gain = torch.gather(flat_gain, 1, best_flat[:, None])[:, 0]
+            best_feat = torch.div(best_flat, B, rounding_mode="floor")
+            best_bin = best_flat % B
 
-        # ---- route rows -------------------------------------------------
-        row_feat = best_feat[local]                        # [n]
-        row_bin = torch.gather(bins, 1, row_feat[:, None])[:, 0].long()
-        row_split = splittable[local]
-        go_right = row_split & (row_bin > best_bin[local])
-        # rows under an already-leaf node keep going "left" into a shadow
-        # child that inherits the parent stats -> harmless (prediction
-        # stops at the first is_leaf node on the path)
-        node_of_row = node_of_row * 2 + go_right.long()
+            splittable = ((best_gain >= min_info_gain)
+                          & torch.isfinite(best_gain))
+            zero = torch.zeros_like(best_feat)
+            # an indexed store does not cast as a sliced one does
+            heap_feature[slots] = torch.where(
+                splittable, best_feat, zero).to(torch.int32)
+            heap_thr[slots] = torch.where(
+                splittable, best_bin, torch.full_like(best_bin, B)
+            ).to(torch.int32)
+            heap_leaf[slots] = ~splittable
 
-    return heap_feature, heap_thr, heap_leaf, heap_value
+            # ---- route rows -------------------------------------------------
+            row_feat = best_feat[local]                        # [n]
+            row_bin = torch.gather(bins, 1, row_feat[:, None])[:, 0].long()
+            row_split = splittable[local]
+            go_right = row_split & (row_bin > best_bin[local])
+            # rows under an already-leaf node keep going "left" into a shadow
+            # child that inherits the parent stats -> harmless (prediction
+            # stops at the first is_leaf node on the path)
+            node_of_row = node_of_row * 2 + go_right.long()
+
+        return heap_feature, heap_thr, heap_leaf, heap_value
 
 
 def predict_tree(

@@ -62,6 +62,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..obs import trace as _obs_trace
 from ..parallel.distributed import RowReducer
 from ..parallel.kernels import bin_matrix
 from ..parallel.mesh import data_mesh_or_none, row_block
@@ -351,8 +352,10 @@ class _RandomForest(_TreeEnsembleBase):
         key picks the tree's per-node feature subsets."""
         n, d = X.shape
         p = self.params
-        edges = _sampled_bin_edges(X, int(p["max_bins"]), int(p["seed"]))
         stats, C, imp, classes = self._stats_rows(y)
+        depth = self._forest_key(n, d, C)[0]
+        with _obs_trace.span("tree.edges", depth=depth, n=n, d=d):
+            edges = _sampled_bin_edges(X, int(p["max_bins"]), int(p["seed"]))
         T = 1 if self.single_tree else int(p["num_trees"])
         rng = np.random.RandomState(p["seed"])
         if self.single_tree:
@@ -367,7 +370,6 @@ class _RandomForest(_TreeEnsembleBase):
             )
         feat_masks = np.ones((T, d), dtype=bool)
         seed_ints = rng.randint(0, 2**31 - 1, size=T)
-        depth = self._forest_key(n, d, C)[0]
         node_masks = node_subset_masks(seed_ints, subset_p, depth, d)
         return (edges, stats, C, imp, classes, boot, feat_masks, node_masks,
                 depth)
@@ -425,7 +427,8 @@ class _RandomForest(_TreeEnsembleBase):
              depth) = rep._forest_inputs(X, y)
             (stats,), (boot,), _ = _shard_fold_inputs(
                 mesh, n, (stats,), (boot,))
-            bins = _bin_block(X_d, edges, key[1])
+            with _obs_trace.span("tree.bin", depth=depth, n=n, d=d):
+                bins = _bin_block(X_d, edges, key[1])
             heaps = fit_forest_folds_grid(
                 bins, _f32(stats, dev), W_d, _f32(boot, dev),
                 torch.as_tensor(feat_masks, device=dev),
@@ -437,7 +440,8 @@ class _RandomForest(_TreeEnsembleBase):
                             else torch.as_tensor(node_masks, device=dev)),
                 rows=rows,
             )
-            heaps = _heaps_np(heaps)  # [G', F, T, ...]
+            with _obs_trace.span("tree.fetch", depth=depth, n=n, d=d):
+                heaps = _heaps_np(heaps)  # [G', F, T, ...]
             for gi, j in enumerate(js):
                 results[j] = [
                     {
@@ -705,10 +709,12 @@ class _GBT(_TreeEnsembleBase):
         results: list = [None] * len(grid)
         for (depth, max_bins, num_trees, seed), js in groups.items():
             if (max_bins, seed) not in edges_cache:
-                edges_cache[max_bins, seed] = _sampled_bin_edges(
-                    X, max_bins, seed)
+                with _obs_trace.span("tree.edges", depth=depth, n=n, d=d):
+                    edges_cache[max_bins, seed] = _sampled_bin_edges(
+                        X, max_bins, seed)
             edges = edges_cache[max_bins, seed]
-            bins = _bin_block(X_d, edges, max_bins)
+            with _obs_trace.span("tree.bin", depth=depth, n=n, d=d):
+                bins = _bin_block(X_d, edges, max_bins)
             f0s, heaps = fit_gbt_folds_grid(
                 bins, y_d, W_d,
                 [float(cands[j].params["step_size"]) for j in js],
@@ -717,7 +723,8 @@ class _GBT(_TreeEnsembleBase):
                 num_trees=num_trees, max_depth=depth, max_bins=max_bins,
                 is_classification=self.is_classification, rows=rows,
             )
-            f0s, heaps = f0s.cpu().numpy(), _heaps_np(heaps)  # [G', F], ...
+            with _obs_trace.span("tree.fetch", depth=depth, n=n, d=d):
+                f0s, heaps = f0s.cpu().numpy(), _heaps_np(heaps)  # [G', F], ...
             for gi, j in enumerate(js):
                 results[j] = [
                     {

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models.tree_kernel import bins_device_dtype, fit_tree, quantile_bin_edges
+from ..obs import trace as _obs_trace
 from ..parallel.kernels import bin_matrix
 from ..stages.base import Estimator, Transformer
 from ..types.columns import Column, NumericColumn, VectorColumn
@@ -167,20 +168,22 @@ def _tree_splits(
     x = np.asarray(xv, np.float32).reshape(-1, 1)
     splits: list[float] = []
     if x.size:
-        classes = np.unique(yv)
-        is_cls = len(classes) <= 20
-        if is_cls:
-            onehot = (yv[:, None] == classes[None, :]).astype(np.float32)
-            stats = np.concatenate(
-                [np.ones((len(yv), 1), np.float32), onehot], axis=1
-            )
-            imp, C = "gini", stats.shape[1]
-        else:
-            stats = np.stack(
-                [np.ones_like(yv), yv, yv * yv], axis=1
-            ).astype(np.float32)
-            imp, C = "variance", 3
-        edges = quantile_bin_edges(x, max_bins)
+        # the host's part of a fit: labels, stat rows and quantile edges
+        with _obs_trace.span("bucketize.prep", n=int(x.shape[0])):
+            classes = np.unique(yv)
+            is_cls = len(classes) <= 20
+            if is_cls:
+                onehot = (yv[:, None] == classes[None, :]).astype(np.float32)
+                stats = np.concatenate(
+                    [np.ones((len(yv), 1), np.float32), onehot], axis=1
+                )
+                imp, C = "gini", stats.shape[1]
+            else:
+                stats = np.stack(
+                    [np.ones_like(yv), yv, yv * yv], axis=1
+                ).astype(np.float32)
+                imp, C = "variance", 3
+            edges = quantile_bin_edges(x, max_bins)
         bins = bin_matrix(
             torch.tensor(x, device=device),
             torch.tensor(np.ascontiguousarray(edges), device=device),

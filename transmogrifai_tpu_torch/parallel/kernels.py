@@ -11,7 +11,10 @@ includes, such as ``tile_ring.cuh``) and loaded with ``ctypes``.
 A wrapper takes a tensor's device as the whole dispatch rule: for a CPU
 tensor it runs the kernel's plain torch version (what the CPU tests
 exercise); for a CUDA tensor it launches the kernel or raises - it never
-falls back.  Each wrapper counts its launches in ``<wrapper>.launches``.
+falls back.  Each wrapper counts its launches in ``<wrapper>.launches``
+and runs inside a ``kernel.<wrapper>`` span (``obs/trace.py``) whose
+attributes are its shapes (``bin_matrix``: ``n_edges`` and ``out_bytes``,
+the bytes of one bin, too) and its ``route``, ``cuda`` or ``plain``.
 A kernel that does not build or launch raises :class:`KernelError`, and
 :func:`is_device_fault` is the one rule by which the serving and
 registry layers tell such a fault (or a ``torch.AcceleratorError``) from
@@ -59,6 +62,8 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
+
+from ..obs import trace as _obs_trace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -320,24 +325,29 @@ def fused_moments(x: torch.Tensor, y: torch.Tensor):
     synchronising.
     """
     _check_moments_args(x, y)
-    if x.device.type == "cpu":
-        return fused_moments_plain(x, y)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_moments: unsupported device {x.device}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("fused_moments takes contiguous x and y")
     n, d = x.shape
-    lib = _load("fused_moments")
-    with torch.cuda.device(x.device):
-        out = torch.empty(5 * d + 2, dtype=torch.float32, device=x.device)
-        rc = _launch_moments(lib, x, y, out,
-                             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise KernelError(f"fused_moments kernel launch failed: CUDA error {rc}")
-    fused_moments.launches += 1
-    x_sum, x_sq, xy, x_min, x_max = out[: 5 * d].view(5, d).unbind(0)
-    y_sum, y_sq = out[5 * d:].unbind(0)
-    return x_sum, x_sq, xy, y_sum, y_sq, x_min, x_max
+    with _obs_trace.span(
+        "kernel.fused_moments", n=int(n), d=int(d),
+        route="cuda" if x.device.type == "cuda" else "plain",
+    ):
+        if x.device.type == "cpu":
+            return fused_moments_plain(x, y)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_moments: unsupported device {x.device}")
+        if not (x.is_contiguous() and y.is_contiguous()):
+            raise ValueError("fused_moments takes contiguous x and y")
+        lib = _load("fused_moments")
+        with torch.cuda.device(x.device):
+            out = torch.empty(5 * d + 2, dtype=torch.float32, device=x.device)
+            rc = _launch_moments(lib, x, y, out,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise KernelError(
+                f"fused_moments kernel launch failed: CUDA error {rc}")
+        fused_moments.launches += 1
+        x_sum, x_sq, xy, x_min, x_max = out[: 5 * d].view(5, d).unbind(0)
+        y_sum, y_sq = out[5 * d:].unbind(0)
+        return x_sum, x_sq, xy, y_sum, y_sq, x_min, x_max
 
 
 fused_moments.launches = 0
@@ -494,13 +504,19 @@ def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
     row view ``x[3:]``) launches ``csrc/bin_matrix.cu`` on the current
     stream without synchronising."""
     _check_bin_args(x, edges, out_dtype)
-    if x.device.type == "cpu":
-        return bin_matrix_plain(x, edges, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"bin_matrix: unsupported device {x.device}")
-    out = _launch_bins(x, edges, out_dtype, None)
-    bin_matrix.launches += 1
-    return out
+    n, d = x.shape
+    with _obs_trace.span(
+        "kernel.bin_matrix", n=int(n), d=int(d), n_edges=int(edges.shape[1]),
+        out_bytes=out_dtype.itemsize,
+        route="cuda" if x.device.type == "cuda" else "plain",
+    ):
+        if x.device.type == "cpu":
+            return bin_matrix_plain(x, edges, out_dtype)
+        if x.device.type != "cuda":
+            raise ValueError(f"bin_matrix: unsupported device {x.device}")
+        out = _launch_bins(x, edges, out_dtype, None)
+        bin_matrix.launches += 1
+        return out
 
 
 bin_matrix.launches = 0

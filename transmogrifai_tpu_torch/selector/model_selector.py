@@ -24,6 +24,7 @@ import torch
 
 from ..evaluators.base import OpEvaluatorBase
 from ..models.base import PredictorEstimator, PredictorModel, _check_label_mask
+from ..obs import trace as _obs_trace
 from ..stages.base import Estimator
 from ..types.columns import Column, NumericColumn, PredictionColumn, VectorColumn
 from ..types.dataset import Dataset
@@ -261,15 +262,19 @@ class ModelSelector(Estimator):
         # refit best on full prepared train (reference:
         # ModelSelector.scala:159-160)
         best = result.best_estimator
-        best_params = best.fit_arrays(X, y, weights)
+        with _obs_trace.span("selector.refit", family=best.model_type,
+                             n_rows=int(len(y))):
+            best_params = best.fit_arrays(X, y, weights)
         model = SelectedModel(best, best_params, self)
 
         # training-set evaluation with all evaluators
-        pc = PredictionColumn(*best.predict_arrays(best_params, X))
-        train_metrics = {
-            type(ev).__name__: ev.evaluate_arrays(y, pc).to_json()
-            for ev in self.evaluators
-        }
+        with _obs_trace.span("selector.train_eval", family=best.model_type,
+                             n_rows=int(len(y))):
+            pc = PredictionColumn(*best.predict_arrays(best_params, X))
+            train_metrics = {
+                type(ev).__name__: ev.evaluate_arrays(y, pc).to_json()
+                for ev in self.evaluators
+            }
         model.metadata = {
             "model_selector_summary": {
                 "best_model_type": best.model_type,

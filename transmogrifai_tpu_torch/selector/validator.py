@@ -388,6 +388,15 @@ class OpValidator:
         )
         return self.evaluator.default_metric(m)
 
+    @staticmethod
+    def _score_span(est, fold: Optional[int], n_rows: int, mode: str):
+        """The ``cv.score`` span around one candidate-fold's validation
+        predictions and metric (``fold`` None: the approx mode's one device
+        block over every candidate and fold)."""
+        attrs = {} if fold is None else {"fold": int(fold)}
+        return _obs_trace.span("cv.score", family=est.model_type,
+                               n_rows=int(n_rows), mode=mode, **attrs)
+
     # -- fused training programs -------------------------------------------
     def _train_fused_gate(self, n: int, mesh_present: bool) -> Optional[str]:
         """None when a family's fused fold x grid dispatch may engage, else
@@ -820,25 +829,29 @@ class OpValidator:
                 if mode == "approx":
                     # rank metrics on the device against the resident X: no
                     # per-fold validation slice leaves the card
-                    scores = _margins_kernel(
-                        Xj, torch.as_tensor(betas, device=dev),
-                        torch.as_tensor(b0s, device=dev),
-                    ).T  # [B, n]
-                    vmask = (1.0 - trainj).repeat_interleave(g, dim=0)
-                    auroc_b, aupr_b = masked_rank_metrics(scores, y_fit, vmask)
-                    vals = auroc_b if metric_name == "AuROC" else aupr_b
-                    metrics[:, :] = vals.reshape(k, g).T
+                    with self._score_span(est, None, n, mode):
+                        scores = _margins_kernel(
+                            Xj, torch.as_tensor(betas, device=dev),
+                            torch.as_tensor(b0s, device=dev),
+                        ).T  # [B, n]
+                        vmask = (1.0 - trainj).repeat_interleave(g, dim=0)
+                        auroc_b, aupr_b = masked_rank_metrics(
+                            scores, y_fit, vmask)
+                        vals = auroc_b if metric_name == "AuROC" else aupr_b
+                        metrics[:, :] = vals.reshape(k, g).T
                 else:
                     for f in range(k):
                         val = ~masks[f]
                         yv = y[val]
                         for j in range(g):
                             b = f * g + j
-                            pred, raw, prob = est.predict_arrays(
-                                {"beta": betas[b], "intercept": b0s[b]},
-                                xhost()[val],
-                            )
-                            metrics[j, f] = self._metric_of(yv, pred, raw, prob)
+                            with self._score_span(est, f, len(yv), mode):
+                                pred, raw, prob = est.predict_arrays(
+                                    {"beta": betas[b], "intercept": b0s[b]},
+                                    xhost()[val],
+                                )
+                                metrics[j, f] = self._metric_of(
+                                    yv, pred, raw, prob)
             elif fold_batched:
                 # fold-batched path (trees): grid x folds over one shared
                 # binning when the estimator batches whole grids, else one
@@ -869,10 +882,12 @@ class OpValidator:
                             fold_params = cand.fit_arrays_folds(xhost(), y, W)
                     for f in range(k):
                         val = ~masks[f]
-                        pred, raw, prob = cand.predict_arrays(
-                            fold_params[f], xhost()[val]
-                        )
-                        metrics[j, f] = self._metric_of(y[val], pred, raw, prob)
+                        with self._score_span(est, f, int(val.sum()), mode):
+                            pred, raw, prob = cand.predict_arrays(
+                                fold_params[f], xhost()[val]
+                            )
+                            metrics[j, f] = self._metric_of(
+                                y[val], pred, raw, prob)
                     ckpt[_ckpt_key(est, pmap, mode)] = metrics[j].tolist()
                     self._ckpt_save(ckpt)
             else:
@@ -889,8 +904,11 @@ class OpValidator:
                             **_numeric_params(pmap),
                         ):
                             params = cand.fit_arrays(xhost()[tr], y[tr], w[tr])
-                        pred, raw, prob = cand.predict_arrays(params, xhost()[val])
-                        metrics[j, f] = self._metric_of(y[val], pred, raw, prob)
+                        with self._score_span(est, f, int(val.sum()), mode):
+                            pred, raw, prob = cand.predict_arrays(
+                                params, xhost()[val])
+                            metrics[j, f] = self._metric_of(
+                                y[val], pred, raw, prob)
                     ckpt[_ckpt_key(est, pmap, mode)] = metrics[j].tolist()
                     self._ckpt_save(ckpt)
             if not all(done_mask):

@@ -7,8 +7,7 @@ transforms, as structured log lines, kept for the end of the run
 (``OpWorkflowModel.summary_json()["stageMetrics"]``).  ``AppMetrics.timed``
 also opens a ``stage.<phase>`` trace span (``obs/trace.py``), and each
 ``AppMetrics`` registers itself as a metrics-registry view (``obs/
-metrics.py``).  ``profile_to`` wraps a block in a ``torch.profiler``
-trace written as a Chrome trace file.
+metrics.py``).
 
 Mesh-resilience events (collective stalls, straggler retries,
 shrink-to-survivors recomputes, bootstrap timeouts) ride the stage
@@ -23,7 +22,7 @@ import contextlib
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Iterator, Optional
+from typing import Iterator
 
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs_trace
@@ -171,20 +170,3 @@ class AppMetrics:
         """The metrics-registry view contract."""
         return self.to_json()
 
-
-@contextlib.contextmanager
-def profile_to(path: Optional[str]) -> Iterator[None]:
-    """Wrap a block in a ``torch.profiler`` trace of the CPU and, where
-    there is one, the CUDA device, exported as a Chrome trace to ``path``
-    when it is set."""
-    if not path:
-        yield
-        return
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(path)
